@@ -1,0 +1,726 @@
+#!/usr/bin/env python3
+"""Quickest proof that the torch port runs on an NVIDIA GPU.
+
+Run from the root of a checkout on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (each prints one JSON line):
+
+1. ``build``: torch version, the card's name and power limit, and the
+   build of the chunk kernel (``nutpie_tpu_torch/csrc/megakernel.cu``) from
+   the sources in the checkout with ``nvcc``.
+2. ``parity``: the kernel against its plain torch version on the card, on
+   radon at full width (173 parameters, 919 observations), 64 chains:
+   one fresh warmup chunk of 16 draws in float64 (ints, step counts and
+   Welford counts exact; positions to rtol 1e-3), one frozen chunk of 16
+   draws from the state that follows (ints exact; floats to rtol 1e-6,
+   atol 1e-8), and one fresh float32 warmup chunk (finite; shares of equal
+   step counts and of close draws above their limits).
+3. ``main``: ``sample()`` on radon, 2048 chains x (300 tune + 300 draws),
+   pooled mass matrix and step size, on CUDA in float32, with the kernel's
+   launch count set to 0 just before and read just after: every chunk must
+   have gone through the kernel.  Prints wall time, gradients/s, the
+   minimum bulk ESS over the benchmark's monitored columns, min-ESS/s and
+   posterior divergences.
+4. ``warmup``: the kernel against its plain version at the main path's
+   shapes (2048 chains, [2048, 128] buffers) in windows on the warmup's
+   events (``WINDOWS``: a fresh fleet's first draws, the mass-matrix
+   switches, the step-size freeze at draw 270, the end of tuning), while
+   the kernel carries the fleet through the main path's warmup chunks
+   with pooling, rescue and the fleet depth cap between them as in
+   ``sample()``.  Float64 from a fresh fleet, windows of up to 8 draws:
+   ints, step counts and Welford counts exact, positions and adaptation
+   state to rtol 1e-3.  Float32 from another fresh fleet, windows of 4
+   draws: finite draws and adaptation state, and per window the shares of
+   equal step counts and of close draws and the fleet's step size within
+   ``F32_WARM_BARS``.
+5. ``timing``: the kernel and its plain version on one posterior chunk at
+   the main path's shapes (2048 chains, 128 draws, float32, the state the
+   float32 warmup left), timed with CUDA events, beside the least time the
+   card could take for the same work: operations counted from the
+   kernel's code for this chunk's trees over 67 TFLOP/s float32, bytes
+   over 3.35 TB/s.  The two are held against each other at these shapes:
+   in float32, at least 99.9% of the step counts equal and 99% of the
+   draws within 1e-3 (relative to 1 + |x|); from the same state in
+   float64, ints exact and floats to rtol 1e-6 / atol 1e-8.
+6. ``profile``: the main path once more under ``torch.profiler``: device
+   time by kernel and the device's idle share of the wall time.
+
+Then the kernels line, the card line, and the last line
+``{"ok": true, "device": {...}}``.  Any failed phase ends the script with
+a non-zero exit code and no result line; so does ``--phases`` with fewer
+than all phases.  Without CUDA, or without the package beside it, the
+script exits non-zero before printing a result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# the main path's sizes (bench.py's radon configuration, draws cut to 300)
+CHAINS, TUNE, DRAWS, CHUNK = 2048, 300, 300, 128
+PARITY_CHAINS, PARITY_CHUNK = 64, 16
+# published peaks of one H100 SXM (dense, no tensor cores for float32)
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# operations per coordinate, counted from csrc/machine_step.cuh (adds,
+# multiplies, divides, exps, logs, square roots; compares and selects are
+# not counted): every leapfrog (p_half 2, z_new 3, p_new 2, v_new 1,
+# kinetic energy 2, rho_sub + p 1, rho + rho_sub 1), every checkpoint
+# slot of a subtree U-turn check (rho difference 1, two dots with one mass
+# product 5), every merged subtree's trajectory checks (three mass
+# products, two sums, six dots), and every draw's momentum (sqrt, divide,
+# kinetic energy 3)
+OPS_LEAPFROG_PER_COORD = 12
+OPS_SUBTREE_CHECK_PER_COORD = 6
+OPS_MERGE_PER_COORD = 17
+OPS_START_DRAW_PER_COORD = 5
+# thread 0 per leapfrog: energy error, acceptance, the multinomial and
+# biased-progressive choices with their logaddexp
+OPS_LEAF_SCALAR = 18
+# benchmark's monitored columns: intercept, both log-sds, log-sigma and a
+# spread of county effects
+MONITORED = [0, 85, 86, 171, 172] + list(range(1, 85, 6))
+# float32 kernel against its plain version: the share of draws with equal
+# step counts, and of draws whose every coordinate is within
+# F32_TOL * (1 + |x|).  A rounding difference can flip one tree decision,
+# after which that chain's draws part ways (and, while tuning, so do its
+# step size and mass matrix), so the float32 bar is a share of the draws.
+F32_TOL = 1e-3
+F32_MIN_SHARE_STEPS = 0.999
+F32_MIN_SHARE_DRAWS = 0.99
+# float32 bars in the warmup windows: least share of equal step counts,
+# least share of close draws, largest per-draw difference of the fleet's
+# mean log step size.  The per-draw adaptation carries float32 rounding
+# past 1e-3 within a few draws for a few percent of the chains, and within
+# two draws for many in a fresh fleet, whose positions are not held
+# (PERF.md, Findings).  A wrong switch or freeze moves every chain's step size.
+F32_WARM_BARS = {"early": (0.9, 0.0, 1e-2), "late": (0.999, 0.9, 1e-3)}
+# warmup windows (first draw, draws) in which the kernel is held against
+# its plain version at the main path's shapes: the first draws of a fresh
+# fleet, the early switch at draw 89 with the end of the early phase at 90,
+# the switches at 159 and 239, the step-size freeze at 270 and the end of
+# tuning at 299.  The per-draw adaptation feeds every rounding difference
+# back into the step size and mass matrix, so over a long stretch even two
+# plain versions part ways (PERF.md, Findings); over 2048 chains float64 stays
+# within 1e-3 for about 8 draws (4 at a fresh start), float32 for about 4.
+WINDOWS = {
+    "float64": ((0, 4), (84, 8), (154, 8), (234, 8), (266, 8), (292, 8)),
+    "float32": ((0, 4), (87, 4), (156, 4), (236, 4), (268, 4), (296, 4)),
+}
+EARLY_END = 90
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def radon_ops_per_grad(n_obs: int, n_c: int) -> int:
+    """Operations of one radon logp + gradient, line by line from csrc/radon.cuh."""
+    k = n_c - 1
+    effects = 2 * (2 * n_c * k)             # county_raw, cf_raw: basis @ z
+    observations = 12 * n_obs               # mu 5, residual 2, r^2 2, ac 1, bc 2
+    counties = 10 * n_c                     # two effects, two divides, four sums
+    zero_sum_grad = 2 * (2 * k * n_c) + 3 * 2 * k   # basis^T (A, B), -z + acc * sd
+    squares = 2 * 2 * k                     # |county_raw_z|^2, |county_floor_raw_z|^2
+    scalars = 55                            # thread 0: three exps, logp, five gradients
+    return effects + observations + counties + zero_sum_grad + squares + scalars
+
+
+def chunk_ops(scalars, limit: int, dim: int, n_obs: int, n_c: int) -> dict:
+    """Operations this chunk's trees needed, from each draw's depth and steps.
+
+    Subtrees before a draw's last one are full (a doubling needs a valid
+    merge), and a subtree of n leaves checks the n - popcount(n) checkpoint
+    slots its even leaves pop, so a draw of depth d and n steps made
+    n - (d - 1) - popcount(n_last) slot checks, n_last = n - 2^(d-1) + 1.
+    Merges count the d - 1 doublings; a draw's last merge is left out.
+    """
+    import numpy as np
+
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+
+    s = scalars[:, :limit].double().cpu().numpy()
+    n = s[..., SCALAR_SLOTS["n_steps"]].astype(np.int64).reshape(-1)
+    d = s[..., SCALAR_SLOTS["depth"]].astype(np.int64).reshape(-1)
+    n_last = n - (2 ** (d - 1) - 1)
+    assert (d >= 1).all() and (n_last >= 1).all() and (n_last <= 2 ** (d - 1)).all(), \
+        "step counts and depths disagree"
+    popcount = sum((n_last >> b) & 1 for b in range(32))
+    leapfrogs = int(n.sum())
+    checks = int((n - (d - 1) - popcount).sum())
+    merges = int((d - 1).sum())
+    draws = int(n.size)
+    ops = (leapfrogs * (radon_ops_per_grad(n_obs, n_c) + OPS_LEAF_SCALAR
+                        + OPS_LEAPFROG_PER_COORD * dim)
+           + checks * OPS_SUBTREE_CHECK_PER_COORD * dim
+           + merges * OPS_MERGE_PER_COORD * dim
+           + draws * OPS_START_DRAW_PER_COORD * dim)
+    return {"ops": ops, "leapfrogs": leapfrogs, "subtree_checks": checks,
+            "merges": merges, "draws": draws}
+
+
+def chunk_bytes(n_chains: int, chunk_len: int, dim: int, depth_slots: int,
+                itemsize: int, data_bytes: int) -> int:
+    """Bytes a chunk must move: state in and out, randoms in, draws out."""
+    state = ((14 + 2 * depth_slots + 9) * dim + 12 + 12) * itemsize + 15 * 4 + 16
+    randoms = chunk_len * (dim + 1) * itemsize
+    outputs = chunk_len * (dim + 12) * itemsize
+    return n_chains * (2 * state + randoms + outputs) + data_bytes
+
+
+def max_rel(a, b) -> float:
+    """Largest difference relative to the largest magnitude of ``b``."""
+    import torch
+
+    a, b = a.double(), b.double()
+    m = torch.isfinite(a) & torch.isfinite(b)
+    if not bool(m.any()):
+        return 0.0
+    return float((a[m] - b[m]).abs().max() / b[m].abs().max().clamp(min=1e-30))
+
+
+def nan_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))) and bool(
+        torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+    )
+
+
+def assert_close(name, a, b, rtol, atol):
+    import torch
+
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        raise AssertionError(f"{name}: NaN patterns differ")
+    m = ~torch.isnan(a)
+    torch.testing.assert_close(a[m], b[m], rtol=rtol, atol=atol, msg=lambda s: f"{name}: {s}")
+
+
+def max_abs(a, b) -> float:
+    return float((a - b).abs().nan_to_num(0).max())
+
+
+def phase_build(ctx):
+    import torch
+
+    from nutpie_tpu_torch.ops import build
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+
+    t0 = time.perf_counter()
+    lib_path = build.build("megakernel")
+    chunk_kernel.library()
+    seconds = time.perf_counter() - t0
+    ctx["card"] = card_line()
+    emit({
+        "phase": "build", "torch": torch.__version__,
+        "cuda": torch.version.cuda, "card": ctx["card"],
+        "kind": torch.cuda.get_device_name(0),
+        "library": os.path.relpath(str(lib_path), ROOT),
+        "build_seconds": round(seconds, 3),
+    })
+
+
+def _setup(n_chains, dtype, seed):
+    import numpy as np
+
+    from nutpie_tpu_torch.models import radon
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.nuts import NutsConfig
+    from nutpie_tpu_torch.sampler.run import init_chains
+
+    model = radon()
+    cfg = NutsConfig(adapt=AdaptConfig(num_tune=TUNE))
+    # the main path's static cap before the first fleet measurement
+    sched = make_schedule(cfg.adapt, TUNE, cfg.initial_depth_cap)
+    states, ok = init_chains(model, cfg, seed, n_chains, np.zeros(model.ndim),
+                             dtype, device="cuda")
+    assert bool(ok.all()), "chain initialization failed"
+    return model, cfg, sched, states
+
+
+def _run_both(model, cfg, sched, states, start, chunk_len, limit, frozen):
+    """The kernel and its plain version on one chunk from the same state."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel, plain_chunk
+    from nutpie_tpu_torch.sampler.run import draw_randoms
+
+    mom, jit = draw_randoms(states.key, start, chunk_len, model.ndim, states.vecs.dtype)
+    s_k, b_k = chunk_kernel(cfg, model, sched, start, limit, states, mom, jit, frozen)
+    torch.cuda.synchronize()
+    s_p, b_p = plain_chunk(cfg, model, sched, start, limit, states.clone(), mom, jit, frozen)
+    torch.cuda.synchronize()
+    return (s_k, b_k), (s_p, b_p)
+
+
+def _check_warmup_f64(tag, limit, s_k, b_k, s_p, b_p) -> float:
+    """Warmup chunk in float64: integer decisions and Welford counts exact.
+
+    Floats to rtol 1e-3: adaptation feeds rounding differences back
+    through the step size and mass matrix every draw.
+    """
+    import torch
+
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+    from nutpie_tpu_torch.sampler.state import ADAPT_FLT_SLOTS
+
+    ns = SCALAR_SLOTS["n_steps"]
+    assert torch.equal(s_k.ints, s_p.ints), f"{tag}: ints differ"
+    assert nan_equal(b_k.scalars[:, :limit, ns], b_p.scalars[:, :limit, ns]), \
+        f"{tag}: n_steps differ"
+    for name in ("draws_cur_count", "grads_cur_count", "draws_bg_count", "grads_bg_count"):
+        slot = ADAPT_FLT_SLOTS[name]
+        assert torch.equal(s_k.adapt_flts[:, slot], s_p.adapt_flts[:, slot]), f"{tag}: {name}"
+    for name, a, b in (("position", b_k.position[:, :limit], b_p.position[:, :limit]),
+                       ("adapt_vecs", s_k.adapt_vecs, s_p.adapt_vecs),
+                       ("adapt_flts", s_k.adapt_flts, s_p.adapt_flts)):
+        assert_close(f"{tag}: {name}", a, b, 1e-3, 1e-3)
+    return max_abs(b_k.position[:, :limit], b_p.position[:, :limit])
+
+
+def _f32_shares(limit, s_k, b_k, b_p) -> dict:
+    """Float32 kernel against plain: finite draws, shares that agree.
+
+    The draws, the committed position and gradient and the adaptation
+    state must be finite; the trajectory's edges and log weights may not
+    be (a divergent leaf).
+    """
+    import torch
+
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+    from nutpie_tpu_torch.sampler.state import VEC_SLOTS
+
+    ns = SCALAR_SLOTS["n_steps"]
+    pk, pp = b_k.position[:, :limit], b_p.position[:, :limit]
+    committed = s_k.vecs[:, [VEC_SLOTS["position"], VEC_SLOTS["gradient"]]]
+    for name, t in (("position", pk), ("scalars", b_k.scalars[:, :limit]),
+                    ("committed position and gradient", committed),
+                    ("adapt_vecs", s_k.adapt_vecs), ("adapt_flts", s_k.adapt_flts)):
+        assert bool(torch.isfinite(t).all()), f"float32 {name} not finite"
+    steps = float((b_k.scalars[:, :limit, ns] == b_p.scalars[:, :limit, ns])
+                  .double().mean())
+    draws = float(((pk - pp).abs() <= F32_TOL * (1.0 + pp.abs())).all(-1).double().mean())
+    return {"share_equal_n_steps": steps, "share_draws_within_tol": draws,
+            "max_rel_diff_position": max_rel(pk, pp), **_fleet_diffs(limit, b_k, b_p)}
+
+
+def _fleet_diffs(limit, b_k, b_p) -> dict:
+    """Largest per-draw difference of the fleet's mean log step size and steps."""
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+
+    sk, sp = b_k.scalars[:, :limit].double(), b_p.scalars[:, :limit].double()
+    eps, ns = SCALAR_SLOTS["step_size"], SCALAR_SLOTS["n_steps"]
+    log_eps = (sk[..., eps].log().mean(0) - sp[..., eps].log().mean(0)).abs()
+    steps = (sk[..., ns].mean(0) / sp[..., ns].mean(0) - 1.0).abs()
+    return {"max_diff_fleet_log_step": float(log_eps.max()),
+            "max_rel_diff_fleet_n_steps": float(steps.max())}
+
+
+def phase_parity(ctx):
+    import torch
+
+    chunk = PARITY_CHUNK
+    model, cfg, sched, states = _setup(PARITY_CHAINS, torch.float64, 11)
+    (s_k, b_k), (s_p, b_p) = _run_both(model, cfg, sched, states, 0, chunk, chunk, False)
+    warm_err = _check_warmup_f64("warmup", chunk, s_k, b_k, s_p, b_p)
+
+    # frozen chunk from the state that follows (the kernel's)
+    (f_k, fb_k), (f_p, fb_p) = _run_both(model, cfg, sched, s_k, chunk, chunk, chunk, True)
+    assert torch.equal(f_k.ints, f_p.ints), "frozen ints differ"
+    for name, a, b in (
+        ("position", fb_k.position, fb_p.position),
+        ("scalars", fb_k.scalars, fb_p.scalars),
+        ("vecs", f_k.vecs, f_p.vecs),
+        ("flts", f_k.flts, f_p.flts),
+    ):
+        assert_close(f"frozen {name}", a, b, 1e-6, 1e-8)
+    frozen_err = max_abs(fb_k.position, fb_p.position)
+
+    # one fresh float32 warmup chunk
+    model32, cfg32, sched32, st32 = _setup(PARITY_CHAINS, torch.float32, 13)
+    (g_k, gb_k), (_, gb_p) = _run_both(model32, cfg32, sched32, st32, 0, chunk, chunk, False)
+    f32 = _f32_shares(chunk, g_k, gb_k, gb_p)
+    emit({
+        "phase": "parity", "chains": PARITY_CHAINS, "chunk": chunk,
+        "f64_warmup": {"ints_equal": True, "n_steps_equal": True,
+                       "welford_counts_equal": True, "max_abs_err_position": warm_err,
+                       "rtol": 1e-3},
+        "f64_frozen": {"ints_equal": True, "max_abs_err_position": frozen_err,
+                       "rtol": 1e-6, "atol": 1e-8},
+        "f32_warmup": {"all_finite": True, **f32},
+    })
+    # 16 draws from a fresh fleet outrun float32's horizon (WINDOWS), so
+    # only the step counts are held here; the warmup phase holds the draws
+    assert f32["share_equal_n_steps"] >= F32_WARM_BARS["early"][0], f32
+
+
+def _assert_f32_warm(r: dict) -> None:
+    steps, draws, log_step = F32_WARM_BARS["early" if r["start"] < EARLY_END else "late"]
+    assert r["share_equal_n_steps"] >= steps, r
+    assert r["share_draws_within_tol"] >= draws, r
+    assert r["max_diff_fleet_log_step"] <= log_step, r
+
+
+def phase_main(ctx):
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.diagnostics import ess_from_samples, rhat_from_samples
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.sample import default_chunk_size
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.settings import NutsSettings
+
+    compiled = compile_model_def(nt.models.radon())
+    settings = NutsSettings.Diag(42)
+    settings.update(num_chains=CHAINS, num_tune=TUNE, num_draws=DRAWS)
+    chunk_len = min(default_chunk_size(settings, CHAINS, compiled.n_dim, 4), TUNE + DRAWS)
+    assert chunk_len == CHUNK, chunk_len
+    n_chunks = math.ceil((TUNE + DRAWS) / chunk_len)
+
+    torch.cuda.synchronize()
+    chunk_kernel.launches = 0
+    t0 = time.perf_counter()
+    raw = nt.sample(compiled, chains=CHAINS, tune=TUNE, draws=DRAWS, seed=42,
+                    pool_mass_matrix=True, pool_step_size=True, device="cuda",
+                    return_raw_trace=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = chunk_kernel.launches
+    assert launches == n_chunks, f"kernel launched {launches} times for {n_chunks} chunks"
+
+    pos = raw["position"]
+    assert pos.shape == (CHAINS, TUNE + DRAWS, compiled.n_dim), pos.shape
+    assert pos.dtype == np.float32, pos.dtype
+    assert np.isfinite(pos).all(), "non-finite draws"
+    for name, v in raw["expanded"].items():
+        assert np.isfinite(v).all(), f"non-finite {name}"
+    n_steps = raw["stats"]["n_steps"]
+    grads = int(n_steps.astype(np.int64).sum())
+    post = pos[:, TUNE:, :]
+    ess = [ess_from_samples(post[:, :, c]) for c in MONITORED]
+    rhat = [rhat_from_samples(post[:, :, c]) for c in MONITORED]
+    min_ess = float(np.min(ess))
+    assert np.isfinite(min_ess) and min_ess > 0, ess
+    assert max(rhat) < 1.05, f"split R-hat {max(rhat)} on a monitored column"
+    div_post = int(raw["stats"]["diverging"][:, TUNE:].sum())
+    ctx["launches"] = launches
+    emit({
+        "phase": "main", "chains": CHAINS, "tune": TUNE, "draws": DRAWS,
+        "chunk_len": chunk_len, "chunks": n_chunks, "kernel_launches": launches,
+        "dtype": "float32", "wall_s": wall, "gradients": grads,
+        "grads_per_s": grads / wall, "min_bulk_ess": min_ess,
+        "min_ess_per_s": min_ess / wall, "min_ess_per_grad": min_ess / grads,
+        "max_rhat": float(max(rhat)), "posterior_divergences": div_post,
+        "card": ctx["card"],
+    })
+
+
+def _schedule_events(cfg, sched) -> list:
+    """Draws at which the warmup changes course (mass-matrix switches after
+    the early phase, the step-size freeze, the end of tuning)."""
+    late = [d for d in range(sched.early_end, sched.freeze_start)
+            if (d + 1) % cfg.adapt.switch_freq == 0]
+    return late + [sched.freeze_start, sched.num_tune - 1]
+
+
+def _warm_fleet(dtype, seed, check):
+    """The main path's warmup, with the kernel held against its plain version
+    in the dtype's WINDOWS.
+
+    The kernel carries the fleet along the main path's chunks (pooling at
+    each chunk's start, the rescue and the fleet depth cap at its end, as in
+    ``sample()``); each window is a call of its own at the main path's
+    shapes ([2048, 128] buffers) in which both run from the same state.
+    ``check(tag, limit, kernel_state, kernel_bufs, plain_state,
+    plain_bufs)`` returns the window's reading.
+    """
+    import types
+
+    import torch
+
+    from nutpie_tpu_torch.sampler.adapt import pool_adapt_state
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.run import draw_randoms, fleet_depth_cap, rescue_trapped
+
+    model, cfg, sched, states = _setup(CHAINS, dtype, seed)
+    windows = WINDOWS[str(dtype).removeprefix("torch.")]
+    assert sched.early_end == EARLY_END, sched
+    for d in _schedule_events(cfg, sched):
+        assert any(s <= d < s + n for s, n in windows), f"no window holds draw {d}"
+    cap_until = TUNE - int(cfg.adapt.freeze_share * TUNE)
+    bounds = sorted({TUNE, *range(0, TUNE, CHUNK), *(s for s, _ in windows),
+                     *(s + n for s, n in windows)})
+    readings, steps = [], []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        first = a - a % CHUNK
+        if a == first:
+            av, af = pool_adapt_state(states.adapt_vecs, states.adapt_flts,
+                                      pool_mass=True, pool_step=True)
+            states = states.replace(adapt_vecs=av, adapt_flts=af)
+            steps = []
+        if (a, b - a) in windows:
+            (s_k, b_k), (s_p, b_p) = _run_both(model, cfg, sched, states, a,
+                                               CHUNK, b - a, False)
+            reading = check(f"{dtype} warmup window {a}", b - a, s_k, b_k, s_p, b_p)
+            readings.append({"start": a, "limit": b - a,
+                             "depth_cap": int(sched.depth_cap), **reading})
+        else:
+            mom, jit = draw_randoms(states.key, a, CHUNK, model.ndim, dtype)
+            s_k, b_k = chunk_kernel(cfg, model, sched, a, b - a, states, mom, jit, False)
+        states = s_k
+        steps.append(b_k.scalars[:, :b - a])
+        if b == min(first + CHUNK, TUNE):
+            states = rescue_trapped(states, first, b - first, sched)
+            if b <= cap_until:
+                whole = types.SimpleNamespace(scalars=torch.cat(steps, 1))
+                sched = sched._replace(depth_cap=fleet_depth_cap(cfg, whole, b - first))
+    return model, cfg, sched, states, readings
+
+
+def phase_warmup(ctx):
+    import torch
+
+    # every window's reading is printed before a failed one ends the phase
+    failed = []
+
+    def check64(tag, limit, s_k, b_k, s_p, b_p):
+        reading = _fleet_diffs(limit, b_k, b_p)
+        try:
+            reading["max_abs_err_position"] = _check_warmup_f64(tag, limit, s_k, b_k,
+                                                               s_p, b_p)
+        except AssertionError as err:
+            failed.append(str(err))
+            reading["failed"] = str(err)[:300]
+        return reading
+
+    def check32(tag, limit, s_k, b_k, s_p, b_p):
+        return _f32_shares(limit, s_k, b_k, b_p)
+
+    *_, r64 = _warm_fleet(torch.float64, 5, check64)
+    model, cfg, sched, states, r32 = _warm_fleet(torch.float32, 7, check32)
+    ctx["warm32"] = (model, cfg, sched, states)
+    emit({
+        "phase": "warmup", "chains": CHAINS, "chunk": CHUNK,
+        "f64": {"ints_equal": not failed, "n_steps_equal": not failed,
+                "welford_counts_equal": not failed, "rtol": 1e-3, "windows": r64},
+        "f32": {"all_finite": True, "tol": F32_TOL, "bars": F32_WARM_BARS,
+                "windows": r32},
+        "card": ctx["card"],
+    })
+    assert not failed, failed
+    for r in r32:
+        _assert_f32_warm(r)
+
+
+def phase_timing(ctx):
+    import torch
+
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel, plain_chunk
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+    from nutpie_tpu_torch.sampler.run import draw_randoms
+    from nutpie_tpu_torch.sampler.state import NutsMachineState
+
+    dtype = torch.float32
+    model, cfg, sched, states = ctx["warm32"]
+    mom, jit = draw_randoms(states.key, TUNE, CHUNK, model.ndim, dtype)
+
+    def kernel_once():
+        return chunk_kernel(cfg, model, sched, TUNE, CHUNK, states, mom, jit, True)
+
+    kernel_once()  # warm
+    reps = 3
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(reps):
+        s_k, b_k = kernel_once()
+    ev1.record()
+    torch.cuda.synchronize()
+    ms = ev0.elapsed_time(ev1) / reps
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_p, b_p = plain_chunk(cfg, model, sched, TUNE, CHUNK, states.clone(), mom, jit, True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+
+    f32 = _f32_shares(CHUNK, s_k, b_k, b_p)
+    assert f32["share_equal_n_steps"] >= F32_MIN_SHARE_STEPS, f32
+    assert f32["share_draws_within_tol"] >= F32_MIN_SHARE_DRAWS, f32
+
+    # float64 from the same state at the same shapes: ints exact, floats to
+    # rtol 1e-6 / atol 1e-8, as in the parity phase
+    ns = SCALAR_SLOTS["n_steps"]
+    st64 = NutsMachineState(**{k: v.double() if v.is_floating_point() else v
+                               for k, v in states.tensors().items()})
+    mom64, jit64 = draw_randoms(st64.key, TUNE, CHUNK, model.ndim, torch.float64)
+    k64 = chunk_kernel(cfg, model, sched, TUNE, CHUNK, st64, mom64, jit64, True)
+    p64 = plain_chunk(cfg, model, sched, TUNE, CHUNK, st64.clone(), mom64, jit64, True)
+    torch.cuda.synchronize()
+    assert torch.equal(k64[0].ints, p64[0].ints), "main-shape float64 ints differ"
+    assert nan_equal(k64[1].scalars[..., ns], p64[1].scalars[..., ns]), \
+        "main-shape float64 n_steps differ"
+    for name, a, b in (("position", k64[1].position, p64[1].position),
+                       ("scalars", k64[1].scalars, p64[1].scalars),
+                       ("vecs", k64[0].vecs, p64[0].vecs),
+                       ("flts", k64[0].flts, p64[0].flts)):
+        assert_close(f"main-shape float64 {name}", a, b, 1e-6, 1e-8)
+    err64 = max_abs(k64[1].position, p64[1].position)
+
+    km = model.kernel_model
+    work = chunk_ops(b_k.scalars, CHUNK, model.ndim, km.n_obs, km.n_counties)
+    data_bytes = 4 * (2 * km.n_obs + km.n_counties * (km.n_counties - 1)) + 4 * (km.n_counties + 1)
+    nbytes = chunk_bytes(CHAINS, CHUNK, model.ndim, states.ckpt_p.shape[1], 4, data_bytes)
+    t_ops, t_bytes = 1e3 * work["ops"] / PEAK_F32_OPS, 1e3 * nbytes / PEAK_BYTES
+    ctx.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               max_abs_err=err64)
+    emit({
+        "phase": "timing", "chains": CHAINS, "chunk": CHUNK, "dtype": "float32",
+        "kernel_ms": ms, "plain_ms": plain_ms, **work,
+        "ops_per_leapfrog": work["ops"] / work["leapfrogs"],
+        "bytes": nbytes, "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
+        "f32_share_equal_n_steps": f32["share_equal_n_steps"],
+        "f32_share_draws_within_tol": f32["share_draws_within_tol"],
+        "f32_tol": F32_TOL, "f64_ints_equal": True, "f64_max_abs_err_position": err64,
+        "card": ctx["card"],
+    })
+
+
+def phase_profile(ctx):
+    """Where the main path's time goes: device time by kernel, idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+
+    compiled = compile_model_def(nt.models.radon())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nt.sample(compiled, chains=CHAINS, tune=TUNE, draws=DRAWS, seed=43,
+                  pool_mass_matrix=True, pool_step_size=True, device="cuda",
+                  return_raw_trace=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels and copies): an operator's row on
+    # the host side carries its kernels' time too and would count it twice
+    rows = sorted(
+        ((float(ev.self_device_time_total), ev.key, ev.count)
+         for ev in prof.key_averages()
+         if ev.device_type != torch.autograd.DeviceType.CPU
+         and ev.self_device_time_total > 0),
+        reverse=True,
+    )
+    device_s = sum(r[0] for r in rows) / 1e6
+    kernel_s = sum(r[0] for r in rows if "megakernel_chunk" in r[1]) / 1e6
+    copy_s = sum(r[0] for r in rows if r[1].startswith("Memcpy")) / 1e6
+    emit({
+        "phase": "profile", "wall_s_profiled": wall, "device_busy_s": device_s,
+        "device_idle_share": max(0.0, 1.0 - device_s / wall),
+        "chunk_kernel_s": kernel_s, "memcpy_s": copy_s,
+        "other_device_s": device_s - kernel_s - copy_s,
+        "top_device_events": [
+            {"name": k[:80], "count": n, "self_device_ms": d / 1e3}
+            for d, k, n in rows[:8]
+        ],
+        "card": ctx["card"],
+    })
+
+
+PHASES = {
+    "build": phase_build,
+    "parity": phase_parity,
+    "main": phase_main,
+    "warmup": phase_warmup,
+    "timing": phase_timing,
+    "profile": phase_profile,
+}
+# phases whose results a later phase reads
+NEEDS = {"timing": "warmup"}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset, for a quick check; a "
+                             "partial run prints no result line")
+    args = parser.parse_args()
+
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        import nutpie_tpu_torch  # noqa: F401
+    except ImportError as err:
+        print(f"chip_smoke: nutpie_tpu_torch not found beside the script ({err})",
+              file=sys.stderr)
+        return 3
+
+    ctx: dict = {}
+    asked = {p for p in args.phases.split(",") if p}
+    asked |= {"build"} | {NEEDS[p] for p in asked if p in NEEDS}
+    phases = [p for p in PHASES if p in asked]
+    for name in phases:
+        PHASES[name](ctx)
+
+    full = len(phases) == len(PHASES)
+    if full:
+        from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+
+        emit({"kernels": [{
+            "name": chunk_kernel.name,
+            "route": "cuda",
+            "source": chunk_kernel.source,
+            "replaces": chunk_kernel.replaces,
+            "launches": ctx["launches"],
+            "max_abs_err": ctx["max_abs_err"],
+            "ms": ctx["ms"],
+            "plain_ms": ctx["plain_ms"],
+            "bound_ms": ctx["bound_ms"],
+            "bound_by": ctx["bound_by"],
+            "library_ms": None,
+            "ms_per_chunk": ctx["ms"],
+            "plain_ms_per_chunk": ctx["plain_ms"],
+            "parity": "ok",
+        }]})
+    print(ctx["card"], flush=True)
+    if not full:
+        print("chip_smoke: partial run (--phases); no result line", file=sys.stderr)
+        return 4
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,299 @@
+"""Chunk runner over the hand-written CUDA chunk kernel (whole chunk per launch).
+
+Ports ``nutpie_tpu/sampler/megakernel.py``: ``run_chunk(states,
+chunk_start, limit, sched) -> (states, bufs)`` pools the adaptation state
+(optional), draws the chunk's per-draw randoms, runs ``start_draw`` and
+then ``machine_step`` until every chain has produced ``limit`` draws, and
+applies the trapped-chain rescue after warmup chunks.
+
+The middle part is ``chunk_kernel``, the wrapper of the CUDA kernel in
+``csrc/megakernel.cu``: on CUDA tensors it launches the kernel (one thread
+block per chain, the radon log density evaluated in the kernel) and
+counts the launch; on CPU tensors it runs the plain version,
+``plain_chunk``, a host loop over ``nuts.machine_step``.  There is no
+fallback between the two: a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..model import ModelDef
+from ..ops import build
+from .adapt import Schedule, pool_adapt_state
+from .nuts import (
+    LeapfrogUniformTable,
+    NutsConfig,
+    init_buffers,
+    machine_step,
+    start_draw,
+)
+from .run import draw_randoms, rescue_trapped
+from .state import NutsMachineState, state_with
+
+GENERIC_PATH_ITEM = (
+    "ROADMAP.md queue 1: the generic card path, form (i) -- a per-leapfrog "
+    "kernel plus a batched torch logp"
+)
+
+
+def check_card_path(cfg: NutsConfig, model: ModelDef) -> None:
+    """On CUDA every chunk runs the kernel; refuse what it cannot run.
+
+    ``sample()`` calls this once, before anything runs; the wrapper below
+    trusts that decision.
+    """
+    if model.kernel_model is None or not supports(cfg):
+        raise NotImplementedError(
+            "this model or configuration has no CUDA chunk kernel yet: "
+            f"{GENERIC_PATH_ITEM}"
+        )
+
+
+def supports(cfg: NutsConfig) -> bool:
+    """Whether the CUDA chunk kernel handles this configuration.
+
+    The port's ``NutsConfig`` already refuses low-rank, flow,
+    microcanonical and ``store_*`` configurations, the JAX kernel's
+    exclusions.  The kernel narrows further to dual averaging (no Adam,
+    no fixed step) and no ``target_integration_time``.
+    """
+    return (
+        cfg.target_time is None
+        and cfg.adapt.method == "dual_average"
+        and cfg.adapt.update_mass_matrix
+    )
+
+
+class MkConfig(ctypes.Structure):
+    """Mirror of ``MkConfig`` in ``csrc/layout.cuh``."""
+
+    _fields_ = [
+        ("max_energy_error", ctypes.c_double),
+        ("step_size_jitter", ctypes.c_double),
+        ("target_accept", ctypes.c_double),
+        ("gamma", ctypes.c_double),
+        ("t0", ctypes.c_double),
+        ("kappa", ctypes.c_double),
+        ("max_step_size", ctypes.c_double),
+        ("min_variance", ctypes.c_double),
+        ("max_variance", ctypes.c_double),
+        ("n_chains", ctypes.c_int32),
+        ("dim", ctypes.c_int32),
+        ("depth_slots", ctypes.c_int32),
+        ("chunk_len", ctypes.c_int32),
+        ("maxdepth", ctypes.c_int32),
+        ("mindepth", ctypes.c_int32),
+        ("check_turning", ctypes.c_int32),
+        ("adapt_frozen", ctypes.c_int32),
+        ("use_grad_based_estimate", ctypes.c_int32),
+        ("has_jitter", ctypes.c_int32),
+        ("switch_freq", ctypes.c_int32),
+        ("early_switch_freq", ctypes.c_int32),
+        ("n_counties", ctypes.c_int32),
+        ("n_obs", ctypes.c_int32),
+    ]
+
+
+def kernel_config(cfg: NutsConfig, kernel_model, n_chains: int, dim: int,
+                  depth_slots: int, chunk_len: int, adapt_frozen: bool) -> MkConfig:
+    ac = cfg.adapt
+    return MkConfig(
+        max_energy_error=cfg.max_energy_error,
+        step_size_jitter=ac.step_size_jitter or 0.0,
+        target_accept=ac.target_accept,
+        gamma=ac.gamma,
+        t0=ac.t0,
+        kappa=ac.kappa,
+        max_step_size=ac.max_step_size,
+        min_variance=ac.min_variance,
+        max_variance=ac.max_variance,
+        n_chains=n_chains,
+        dim=dim,
+        depth_slots=depth_slots,
+        chunk_len=chunk_len,
+        maxdepth=cfg.maxdepth,
+        mindepth=cfg.mindepth,
+        check_turning=int(cfg.check_turning),
+        adapt_frozen=int(adapt_frozen),
+        use_grad_based_estimate=int(ac.use_grad_based_estimate),
+        has_jitter=int(ac.step_size_jitter is not None),
+        switch_freq=ac.switch_freq,
+        early_switch_freq=ac.early_switch_freq,
+        n_counties=kernel_model.n_counties,
+        n_obs=kernel_model.n_obs,
+    )
+
+
+_ENTRY_ARGS = [ctypes.c_void_p] * 19
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of the kernel library's entry points."""
+    for name in ("nutpie_megakernel_chunk_f32", "nutpie_megakernel_chunk_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = _ENTRY_ARGS
+        fn.restype = ctypes.c_int
+    lib.nutpie_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.nutpie_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def schedule_tensor(chunk_start: int, limit: int, sched: Schedule, device) -> torch.Tensor:
+    """The six int32 schedule scalars, on the device (depth_cap may be a tensor)."""
+    head = torch.tensor(
+        [chunk_start, limit, sched.num_tune, sched.early_end, sched.freeze_start],
+        dtype=torch.int32, device=device,
+    )
+    cap = torch.as_tensor(sched.depth_cap, dtype=torch.int32, device=device).reshape(1)
+    return torch.cat([head, cap])
+
+
+def launch(lib, mk_cfg: MkConfig, scal: torch.Tensor, states: NutsMachineState,
+           mom: torch.Tensor, jit: torch.Tensor, pos: torch.Tensor,
+           scalars: torch.Tensor, data: dict, stream: int) -> int:
+    """Call the C entry point; ``states`` is updated in place.  Returns its code."""
+    fn = (lib.nutpie_megakernel_chunk_f64 if states.vecs.dtype == torch.float64
+          else lib.nutpie_megakernel_chunk_f32)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    return fn(
+        ctypes.byref(mk_cfg), ptr(scal), ptr(states.key), ptr(states.vecs),
+        ptr(states.ckpt_p), ptr(states.ckpt_s), ptr(states.flts),
+        ptr(states.ints), ptr(states.adapt_vecs), ptr(states.adapt_flts),
+        ptr(mom), ptr(jit), ptr(pos), ptr(scalars), ptr(data["y"]),
+        ptr(data["floor"]), ptr(data["basis"]), ptr(data["offsets"]),
+        ctypes.c_void_p(stream),
+    )
+
+
+def plain_chunk(cfg: NutsConfig, model: ModelDef, sched: Schedule,
+                chunk_start: int, limit: int, states: NutsMachineState,
+                mom: torch.Tensor, jit: torch.Tensor, adapt_frozen: bool):
+    """The kernel's plain version: start_draw, then machine_step until done."""
+    n_chains, chunk_len, dim = mom.shape
+    bufs = init_buffers(chunk_len, dim, states.vecs.dtype, n_chains,
+                        device=states.vecs.device)
+    states = state_with(states, done=False)
+    states = start_draw(cfg, sched, states, mom[:, 0], jit[:, 0])
+    uniforms = LeapfrogUniformTable(states.key)
+    while not bool(states.done.all()):
+        states, bufs = machine_step(
+            cfg, model.logp_and_grad, sched, mom, jit, chunk_start, limit,
+            states, bufs, adapt_frozen=adapt_frozen, uniforms=uniforms,
+        )
+    return states, bufs
+
+
+class ChunkKernel:
+    """Wrapper of the CUDA chunk kernel, with its launch count.
+
+    ``launches`` is a plain integer, raised by one at each kernel launch
+    and nowhere else; the plain version on CPU tensors leaves it alone.
+    """
+
+    name = "megakernel_chunk"
+    source = "nutpie_tpu_torch/csrc/megakernel.cu"
+    replaces = "nutpie_tpu/sampler/megakernel.py:368"
+
+    def __init__(self):
+        self.launches = 0
+        self._data: dict = {}
+
+    def library(self):
+        return bind(build.load("megakernel"))
+
+    def _kernel_data(self, kernel_model, device, dtype) -> dict:
+        key = (id(kernel_model), str(device), dtype)
+        if key not in self._data:
+            self._data[key] = (kernel_model, kernel_model.tensors(device, dtype))
+        return self._data[key][1]
+
+    def __call__(self, cfg: NutsConfig, model: ModelDef, sched: Schedule,
+                 chunk_start: int, limit: int, states: NutsMachineState,
+                 mom: torch.Tensor, jit: torch.Tensor, adapt_frozen: bool):
+        if not states.vecs.is_cuda:
+            return plain_chunk(cfg, model, sched, chunk_start, limit, states,
+                               mom, jit, adapt_frozen)
+        n_chains, chunk_len, dim = mom.shape
+        dtype = states.vecs.dtype
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"chunk kernel takes float32 or float64, got {dtype}")
+        out = states.clone()
+        tensors = list(out.tensors().values()) + [mom, jit]
+        for t in tensors:
+            if not t.is_cuda or not t.is_contiguous() or t.device != out.vecs.device:
+                raise ValueError("chunk kernel needs contiguous tensors on one CUDA device")
+        if out.key.dtype != torch.int64 or out.ints.dtype != torch.int32:
+            raise TypeError("key data must be int64 and ints int32")
+        if mom.dtype != dtype or jit.dtype != dtype:
+            raise TypeError("randoms must have the state's dtype")
+        km = model.kernel_model
+        if dim != 5 + 2 * (km.n_counties - 1):
+            raise ValueError(f"kernel model expects dim {5 + 2 * (km.n_counties - 1)}, got {dim}")
+        lib = self.library()
+        device = out.vecs.device
+        mk_cfg = kernel_config(cfg, km, n_chains, dim, out.ckpt_p.shape[1],
+                               chunk_len, adapt_frozen)
+        bufs = init_buffers(chunk_len, dim, dtype, n_chains, device=device)
+        scal = schedule_tensor(chunk_start, limit, sched, device)
+        data = self._kernel_data(km, device, dtype)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            code = launch(lib, mk_cfg, scal, out, mom, jit, bufs.position,
+                          bufs.scalars, data, stream)
+        if code != 0:
+            msg = lib.nutpie_cuda_error_string(code).decode()
+            raise RuntimeError(f"chunk kernel launch failed: {msg} ({code})")
+        self.launches += 1
+        return out, bufs
+
+
+chunk_kernel = ChunkKernel()
+
+
+class MegakernelChunkRunner:
+    """``run_chunk(states, chunk_start, limit, sched) -> (states, bufs)``."""
+
+    def __init__(self, model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
+                 adapt_frozen: bool = True, pool_step_size: bool = False,
+                 pool_mass_matrix: bool = False):
+        self.model = model
+        self.cfg = cfg
+        self.chunk_len = chunk_len
+        self.dtype = dtype
+        self.adapt_frozen = adapt_frozen
+        self.pool_step_size = pool_step_size
+        self.pool_mass_matrix = pool_mass_matrix
+
+    def __call__(self, states: NutsMachineState, chunk_start: int, limit: int,
+                 sched: Schedule):
+        if self.pool_step_size or self.pool_mass_matrix:
+            # cross-chain pooling is a chunk-boundary collective, outside the kernel
+            adapt_vecs, adapt_flts = pool_adapt_state(
+                states.adapt_vecs, states.adapt_flts,
+                pool_mass=self.pool_mass_matrix, pool_step=self.pool_step_size,
+            )
+            states = states.replace(adapt_vecs=adapt_vecs, adapt_flts=adapt_flts)
+        dim = states.vecs.shape[-1]
+        mom, jit = draw_randoms(states.key, int(chunk_start), self.chunk_len,
+                                dim, self.dtype)
+        states, bufs = chunk_kernel(
+            self.cfg, self.model, sched, int(chunk_start), int(limit), states,
+            mom, jit, self.adapt_frozen,
+        )
+        if not self.adapt_frozen:
+            states = rescue_trapped(states, int(chunk_start), int(limit), sched)
+        return states, bufs
+
+
+def make_megakernel_chunk_runner(model: ModelDef, cfg: NutsConfig, chunk_len: int,
+                                 dtype, adapt_frozen: bool = True,
+                                 pool_step_size: bool = False,
+                                 pool_mass_matrix: bool = False) -> MegakernelChunkRunner:
+    """Build the chunk runner (same call semantics as the JAX function)."""
+    return MegakernelChunkRunner(
+        model, cfg, chunk_len, dtype, adapt_frozen=adapt_frozen,
+        pool_step_size=pool_step_size, pool_mass_matrix=pool_mass_matrix,
+    )
