@@ -69,6 +69,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the main path's sizes (bench.py's radon configuration, draws cut to 300)
 CHAINS, TUNE, DRAWS, CHUNK = 2048, 300, 300, 128
 PARITY_CHAINS, PARITY_CHUNK = 64, 16
+# a chain count that divides neither the chains per block nor the card's
+# resident chain slots, so the chain queue runs dry part-way through blocks
+RAGGED_CHAINS = 61
 # published peaks of one H100 SXM (dense, no tensor cores for float32)
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -84,8 +87,9 @@ OPS_LEAPFROG_PER_COORD = 12
 OPS_SUBTREE_CHECK_PER_COORD = 6
 OPS_MERGE_PER_COORD = 17
 OPS_START_DRAW_PER_COORD = 5
-# thread 0 per leapfrog: energy error, acceptance, the multinomial and
-# biased-progressive choices with their logaddexp
+# the scalars of each leapfrog (counted once, though every lane of the
+# chain's warp computes them): energy error, acceptance, the multinomial
+# and biased-progressive choices with their logaddexp
 OPS_LEAF_SCALAR = 18
 # benchmark's monitored columns: intercept, both log-sds, log-sigma and a
 # spread of county effects
@@ -142,7 +146,7 @@ def radon_ops_per_grad(n_obs: int, n_c: int) -> int:
     counties = 10 * n_c                     # two effects, two divides, four sums
     zero_sum_grad = 2 * (2 * k * n_c) + 3 * 2 * k   # basis^T (A, B), -z + acc * sd
     squares = 2 * 2 * k                     # |county_raw_z|^2, |county_floor_raw_z|^2
-    scalars = 55                            # thread 0: three exps, logp, five gradients
+    scalars = 55                            # three exps, logp, five gradients
     return effects + observations + counties + zero_sum_grad + squares + scalars
 
 
@@ -231,13 +235,31 @@ def phase_build(ctx):
     chunk_kernel.library()
     seconds = time.perf_counter() - t0
     ctx["card"] = card_line()
+    # what was compiled, at the main path's configuration
+    geometry = {}
+    for dtype in (torch.float32, torch.float64):
+        model, cfg, _, _ = _setup(0, dtype, 0)
+        geometry[str(dtype).removeprefix("torch.")] = chunk_kernel.geometry(
+            _main_kernel_config(model, cfg), dtype, torch.device("cuda"))
+    ctx["geometry"] = geometry
     emit({
         "phase": "build", "torch": torch.__version__,
         "cuda": torch.version.cuda, "card": ctx["card"],
         "kind": torch.cuda.get_device_name(0),
         "library": os.path.relpath(str(lib_path), ROOT),
         "build_seconds": round(seconds, 3),
+        "geometry": geometry,
     })
+    g32 = geometry["float32"]
+    assert g32["resident_chains_per_sm"] >= 10 and g32["local_bytes_per_thread"] == 0, g32
+
+
+def _main_kernel_config(model, cfg):
+    """The kernel's configuration at the main path's shapes."""
+    from nutpie_tpu_torch.sampler.megakernel import kernel_config
+
+    return kernel_config(cfg, model.kernel_model, CHAINS, model.ndim,
+                         max(cfg.maxdepth, 2), CHUNK, True)
 
 
 def _setup(n_chains, dtype, seed):
@@ -252,6 +274,8 @@ def _setup(n_chains, dtype, seed):
     cfg = NutsConfig(adapt=AdaptConfig(num_tune=TUNE))
     # the main path's static cap before the first fleet measurement
     sched = make_schedule(cfg.adapt, TUNE, cfg.initial_depth_cap)
+    if n_chains == 0:
+        return model, cfg, sched, None
     states, ok = init_chains(model, cfg, seed, n_chains, np.zeros(model.ndim),
                              dtype, device="cuda")
     assert bool(ok.all()), "chain initialization failed"
@@ -336,25 +360,43 @@ def _fleet_diffs(limit, b_k, b_p) -> dict:
             "max_rel_diff_fleet_n_steps": float(steps.max())}
 
 
+def _check_frozen_f64(tag, s_k, b_k, s_p, b_p) -> float:
+    """Frozen chunk in float64: ints and step counts exact, floats to rtol
+    1e-6 / atol 1e-8."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+
+    ns = SCALAR_SLOTS["n_steps"]
+    assert torch.equal(s_k.ints, s_p.ints), f"{tag}: ints differ"
+    assert nan_equal(b_k.scalars[..., ns], b_p.scalars[..., ns]), f"{tag}: n_steps differ"
+    for name, a, b in (("position", b_k.position, b_p.position),
+                       ("scalars", b_k.scalars, b_p.scalars),
+                       ("vecs", s_k.vecs, s_p.vecs),
+                       ("flts", s_k.flts, s_p.flts)):
+        assert_close(f"{tag} {name}", a, b, 1e-6, 1e-8)
+    return max_abs(b_k.position, b_p.position)
+
+
 def phase_parity(ctx):
     import torch
 
     chunk = PARITY_CHUNK
-    model, cfg, sched, states = _setup(PARITY_CHAINS, torch.float64, 11)
-    (s_k, b_k), (s_p, b_p) = _run_both(model, cfg, sched, states, 0, chunk, chunk, False)
-    warm_err = _check_warmup_f64("warmup", chunk, s_k, b_k, s_p, b_p)
-
-    # frozen chunk from the state that follows (the kernel's)
-    (f_k, fb_k), (f_p, fb_p) = _run_both(model, cfg, sched, s_k, chunk, chunk, chunk, True)
-    assert torch.equal(f_k.ints, f_p.ints), "frozen ints differ"
-    for name, a, b in (
-        ("position", fb_k.position, fb_p.position),
-        ("scalars", fb_k.scalars, fb_p.scalars),
-        ("vecs", f_k.vecs, f_p.vecs),
-        ("flts", f_k.flts, f_p.flts),
-    ):
-        assert_close(f"frozen {name}", a, b, 1e-6, 1e-8)
-    frozen_err = max_abs(fb_k.position, fb_p.position)
+    readings = {}
+    for n_chains, seed in ((PARITY_CHAINS, 11), (RAGGED_CHAINS, 17)):
+        model, cfg, sched, states = _setup(n_chains, torch.float64, seed)
+        (s_k, b_k), (s_p, b_p) = _run_both(model, cfg, sched, states, 0, chunk, chunk, False)
+        warm_err = _check_warmup_f64(f"{n_chains}-chain warmup", chunk, s_k, b_k, s_p, b_p)
+        # frozen chunk from the state that follows (the kernel's)
+        (f_k, fb_k), (f_p, fb_p) = _run_both(model, cfg, sched, s_k, chunk, chunk, chunk, True)
+        frozen_err = _check_frozen_f64(f"{n_chains}-chain frozen", f_k, fb_k, f_p, fb_p)
+        readings[n_chains] = {
+            "f64_warmup": {"ints_equal": True, "n_steps_equal": True,
+                           "welford_counts_equal": True,
+                           "max_abs_err_position": warm_err, "rtol": 1e-3},
+            "f64_frozen": {"ints_equal": True, "n_steps_equal": True,
+                           "max_abs_err_position": frozen_err, "rtol": 1e-6, "atol": 1e-8},
+        }
 
     # one fresh float32 warmup chunk
     model32, cfg32, sched32, st32 = _setup(PARITY_CHAINS, torch.float32, 13)
@@ -362,11 +404,8 @@ def phase_parity(ctx):
     f32 = _f32_shares(chunk, g_k, gb_k, gb_p)
     emit({
         "phase": "parity", "chains": PARITY_CHAINS, "chunk": chunk,
-        "f64_warmup": {"ints_equal": True, "n_steps_equal": True,
-                       "welford_counts_equal": True, "max_abs_err_position": warm_err,
-                       "rtol": 1e-3},
-        "f64_frozen": {"ints_equal": True, "max_abs_err_position": frozen_err,
-                       "rtol": 1e-6, "atol": 1e-8},
+        **readings[PARITY_CHAINS],
+        "ragged": {"chains": RAGGED_CHAINS, **readings[RAGGED_CHAINS]},
         "f32_warmup": {"all_finite": True, **f32},
     })
     # 16 draws from a fresh fleet outrun float32's horizon (WINDOWS), so
@@ -534,11 +573,45 @@ def phase_warmup(ctx):
         _assert_f32_warm(r)
 
 
+def _event_ms(fn, reps: int):
+    """Mean ms of ``reps`` calls of ``fn`` between two CUDA events, and the
+    calls' results."""
+    import torch
+
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    outs = [fn() for _ in range(reps)]
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / reps, outs
+
+
+def bitwise_equal(a, b) -> bool:
+    """Same bits (NaN payloads and signed zeros included)."""
+    import torch
+
+    if a.is_floating_point():
+        view = torch.int64 if a.dtype == torch.float64 else torch.int32
+        a, b = a.view(view), b.view(view)
+    return bool(torch.equal(a, b))
+
+
+def _assert_repeatable(outs) -> None:
+    """Launches from one state give the same bits: no float atomics, and a
+    chain's result does not depend on the warp that took it."""
+    (s0, b0), rest = outs[0], outs[1:]
+    for s_i, b_i in rest:
+        for name, t in s0.tensors().items():
+            assert bitwise_equal(t, s_i.tensors()[name]), f"repeated launch: {name} differs"
+        for name in ("position", "scalars"):
+            assert bitwise_equal(getattr(b0, name), getattr(b_i, name)), \
+                f"repeated launch: {name} differs"
+
+
 def phase_timing(ctx):
     import torch
 
     from nutpie_tpu_torch.sampler.megakernel import chunk_kernel, plain_chunk
-    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
     from nutpie_tpu_torch.sampler.run import draw_randoms
     from nutpie_tpu_torch.sampler.state import NutsMachineState
 
@@ -551,13 +624,10 @@ def phase_timing(ctx):
 
     kernel_once()  # warm
     reps = 3
-    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    for _ in range(reps):
-        s_k, b_k = kernel_once()
-    ev1.record()
-    torch.cuda.synchronize()
-    ms = ev0.elapsed_time(ev1) / reps
+    ms, outs = _event_ms(kernel_once, reps)
+    _assert_repeatable(outs)
+    s_k, b_k = outs[0]
+    del outs
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -570,30 +640,32 @@ def phase_timing(ctx):
     assert f32["share_draws_within_tol"] >= F32_MIN_SHARE_DRAWS, f32
 
     # float64 from the same state at the same shapes: ints exact, floats to
-    # rtol 1e-6 / atol 1e-8, as in the parity phase
-    ns = SCALAR_SLOTS["n_steps"]
+    # rtol 1e-6 / atol 1e-8, as in the parity phase; then its time
     st64 = NutsMachineState(**{k: v.double() if v.is_floating_point() else v
                                for k, v in states.tensors().items()})
     mom64, jit64 = draw_randoms(st64.key, TUNE, CHUNK, model.ndim, torch.float64)
-    k64 = chunk_kernel(cfg, model, sched, TUNE, CHUNK, st64, mom64, jit64, True)
+
+    def kernel64_once():
+        return chunk_kernel(cfg, model, sched, TUNE, CHUNK, st64, mom64, jit64, True)
+
+    k64 = kernel64_once()
     p64 = plain_chunk(cfg, model, sched, TUNE, CHUNK, st64.clone(), mom64, jit64, True)
     torch.cuda.synchronize()
-    assert torch.equal(k64[0].ints, p64[0].ints), "main-shape float64 ints differ"
-    assert nan_equal(k64[1].scalars[..., ns], p64[1].scalars[..., ns]), \
-        "main-shape float64 n_steps differ"
-    for name, a, b in (("position", k64[1].position, p64[1].position),
-                       ("scalars", k64[1].scalars, p64[1].scalars),
-                       ("vecs", k64[0].vecs, p64[0].vecs),
-                       ("flts", k64[0].flts, p64[0].flts)):
-        assert_close(f"main-shape float64 {name}", a, b, 1e-6, 1e-8)
-    err64 = max_abs(k64[1].position, p64[1].position)
+    err64 = _check_frozen_f64("main-shape float64", *k64, *p64)
+    del p64
+    ms64, outs64 = _event_ms(kernel64_once, reps)
+    _assert_repeatable([k64] + outs64)
+    del outs64
 
     km = model.kernel_model
     work = chunk_ops(b_k.scalars, CHUNK, model.ndim, km.n_obs, km.n_counties)
-    data_bytes = 4 * (2 * km.n_obs + km.n_counties * (km.n_counties - 1)) + 4 * (km.n_counties + 1)
+    work64 = chunk_ops(k64[1].scalars, CHUNK, model.ndim, km.n_obs, km.n_counties)
+    data_bytes = sum(t.numel() * t.element_size()
+                     for t in km.tensors("cpu", dtype).values())
     nbytes = chunk_bytes(CHAINS, CHUNK, model.ndim, states.ckpt_p.shape[1], 4, data_bytes)
     t_ops, t_bytes = 1e3 * work["ops"] / PEAK_F32_OPS, 1e3 * nbytes / PEAK_BYTES
-    ctx.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+    bound_ms = max(t_ops, t_bytes)
+    ctx.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                max_abs_err=err64)
     emit({
@@ -601,9 +673,12 @@ def phase_timing(ctx):
         "kernel_ms": ms, "plain_ms": plain_ms, **work,
         "ops_per_leapfrog": work["ops"] / work["leapfrogs"],
         "bytes": nbytes, "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
+        "share_of_bound": bound_ms / ms, "repeated_launches_bitwise_equal": reps,
         "f32_share_equal_n_steps": f32["share_equal_n_steps"],
         "f32_share_draws_within_tol": f32["share_draws_within_tol"],
         "f32_tol": F32_TOL, "f64_ints_equal": True, "f64_max_abs_err_position": err64,
+        "f64_kernel_ms": ms64, "f64_leapfrogs": work64["leapfrogs"],
+        "resident_chains_per_sm": ctx["geometry"]["float32"]["resident_chains_per_sm"],
         "card": ctx["card"],
     })
 
@@ -708,6 +783,7 @@ def main() -> int:
             "bound_ms": ctx["bound_ms"],
             "bound_by": ctx["bound_by"],
             "library_ms": None,
+            "resident_chains_per_sm": ctx["geometry"]["float32"]["resident_chains_per_sm"],
             "ms_per_chunk": ctx["ms"],
             "plain_ms_per_chunk": ctx["plain_ms"],
             "parity": "ok",

@@ -3,15 +3,21 @@
 // accumulators, with the window switch, the factor-2 rate limit and the
 // matched step-size shift.  Same arithmetic as diag_adapt_update in
 // nutpie_tpu_torch/sampler/adapt.py (and nutpie_tpu/sampler/adapt.py).
+//
+// Run by the chain's warp: the scalars (af) are lane-uniform registers,
+// the inverse mass a row of the warp's shared slice, and the eight Welford
+// rows stay in global memory (the chain's adapt_vecs rows, in L2), read and
+// written once per tuning draw by the lanes that own each coordinate.
 #pragma once
 
-#include "block.cuh"
+#include "warp.cuh"
 
 namespace nutpie {
 
-// Dual averaging of the step size (thread 0; reads and writes b.af).
+// Dual averaging of the step size (lane-uniform).
 template <typename T>
-__device__ inline void dual_avg_update(const MkConfig& cfg, T* af, T accept) {
+__device__ __forceinline__ void dual_avg_update(const MkConfig& cfg, T* af,
+                                                T accept) {
   const T count = af[AF_DA_COUNT] + T(1);
   const T w = T(1) / (count + T(cfg.t0));
   const T hbar = (T(1) - w) * af[AF_HBAR] + w * (T(cfg.target_accept) - accept);
@@ -31,29 +37,32 @@ __device__ inline void dual_avg_update(const MkConfig& cfg, T* af, T accept) {
 }
 
 template <typename T>
-__device__ inline void welford_add(T& mean, T& m2, T count_new, T x) {
+__device__ __forceinline__ void welford_add(T& mean, T& m2, T count_new, T x) {
   const T delta = x - mean;
   mean = mean + delta / count_new;
   m2 = m2 + delta * (x - mean);
 }
 
-// One tuning draw's update, run by the whole block.  The draw is
-// (prop_z, prop_g) of b.vecs; `diverging` and `accept` are block-uniform.
-// Ends with a barrier.
-template <typename T>
-__device__ void diag_adapt_update(const Block<T>& b, const MkConfig& cfg,
-                                  const Sched& s, int draw_idx,
-                                  bool diverging, T accept) {
-  const int dim = b.dim;
-  const T* x = b.row(V_PROP_Z);
-  const T* gr = b.row(V_PROP_G);
-  T* af = b.af;
+// One tuning draw's update.  The draw is the rows (x, gr) (prop_z/prop_g);
+// `diverging` and `accept` are lane-uniform.  `av` is the chain's
+// [N_ADAPT_VEC, dim] rows in global memory; `im` the inverse mass row in
+// shared memory, kept in step with its A_INV_MASS row.  Each lane touches
+// the coordinates it owns.
+template <typename T, int NPL>
+__device__ __forceinline__ void diag_adapt_update(
+    const MkConfig& cfg, const Sched& s, int lane, T* av, T* im, T* af,
+    const T* x, const T* gr, int draw_idx, bool diverging, T accept) {
+  const int dim = cfg.dim;
   const T min_var = T(cfg.min_variance);
   const T max_var = T(cfg.max_variance);
 
   bool fin = true;
-  MK_FOR_COORDS(i, dim) fin = fin && isfinite(x[i]) && isfinite(gr[i]);
-  const bool ok = __syncthreads_and(fin) && !diverging;
+#pragma unroll
+  for (int r = 0; r < NPL; ++r) {
+    const int i = lane + kLanes * r;
+    if (i < dim) fin = fin && isfinite(x[i]) && isfinite(gr[i]);
+  }
+  const bool ok = __all_sync(kFullMask, fin) && !diverging;
 
   // window schedule
   const bool frozen = draw_idx >= s.freeze_start;
@@ -61,8 +70,7 @@ __device__ void diag_adapt_update(const Block<T>& b, const MkConfig& cfg,
                                           : cfg.switch_freq;
   const bool sw = !frozen && draw_idx > 0 && ((draw_idx + 1) % freq == 0);
 
-  // counts after the add and the switch (every thread reads them here;
-  // thread 0 writes them back after the barriers below)
+  // counts after the add and the switch
   const T one = T(1);
   const T dc = af[AF_DRAWS_CUR_COUNT] + (ok ? one : T(0));
   const T gc = af[AF_GRADS_CUR_COUNT] + (ok ? one : T(0));
@@ -72,13 +80,18 @@ __device__ void diag_adapt_update(const Block<T>& b, const MkConfig& cfg,
   const T gcur = sw ? gbc : gc;
 
   // Welford adds, switch, and the estimate from the current window
-  T* est = b.v_new;  // scratch row
+  T est[NPL];
   bool est_fin = true;
-  MK_FOR_COORDS(i, dim) {
-    T dm = b.arow(A_DRAWS_CUR_MEAN)[i], dv = b.arow(A_DRAWS_CUR_M2)[i];
-    T gm = b.arow(A_GRADS_CUR_MEAN)[i], gv = b.arow(A_GRADS_CUR_M2)[i];
-    T dbm = b.arow(A_DRAWS_BG_MEAN)[i], dbv = b.arow(A_DRAWS_BG_M2)[i];
-    T gbm = b.arow(A_GRADS_BG_MEAN)[i], gbv = b.arow(A_GRADS_BG_M2)[i];
+#pragma unroll
+  for (int r = 0; r < NPL; ++r) {
+    const int i = lane + kLanes * r;
+    est[r] = T(0);
+    if (i >= dim) continue;
+    T* row = av + i;
+    T dm = row[A_DRAWS_CUR_MEAN * dim], dv = row[A_DRAWS_CUR_M2 * dim];
+    T gm = row[A_GRADS_CUR_MEAN * dim], gv = row[A_GRADS_CUR_M2 * dim];
+    T dbm = row[A_DRAWS_BG_MEAN * dim], dbv = row[A_DRAWS_BG_M2 * dim];
+    T gbm = row[A_GRADS_BG_MEAN * dim], gbv = row[A_GRADS_BG_M2 * dim];
     if (ok) {
       welford_add(dm, dv, dc, x[i]);
       welford_add(gm, gv, gc, gr[i]);
@@ -89,14 +102,14 @@ __device__ void diag_adapt_update(const Block<T>& b, const MkConfig& cfg,
       dm = dbm; dv = dbv; gm = gbm; gv = gbv;
       dbm = T(0); dbv = T(0); gbm = T(0); gbv = T(0);
     }
-    b.arow(A_DRAWS_CUR_MEAN)[i] = dm;
-    b.arow(A_DRAWS_CUR_M2)[i] = dv;
-    b.arow(A_GRADS_CUR_MEAN)[i] = gm;
-    b.arow(A_GRADS_CUR_M2)[i] = gv;
-    b.arow(A_DRAWS_BG_MEAN)[i] = dbm;
-    b.arow(A_DRAWS_BG_M2)[i] = dbv;
-    b.arow(A_GRADS_BG_MEAN)[i] = gbm;
-    b.arow(A_GRADS_BG_M2)[i] = gbv;
+    row[A_DRAWS_CUR_MEAN * dim] = dm;
+    row[A_DRAWS_CUR_M2 * dim] = dv;
+    row[A_GRADS_CUR_MEAN * dim] = gm;
+    row[A_GRADS_CUR_M2 * dim] = gv;
+    row[A_DRAWS_BG_MEAN * dim] = dbm;
+    row[A_DRAWS_BG_M2 * dim] = dbv;
+    row[A_GRADS_BG_MEAN * dim] = gbm;
+    row[A_GRADS_BG_M2 * dim] = gbv;
 
     const T draw_var = dv / jmax(dcur - one, one);
     T e;
@@ -108,39 +121,40 @@ __device__ void diag_adapt_update(const Block<T>& b, const MkConfig& cfg,
       e = (dcur / (dcur + T(5))) * draw_var + T(1e-3) * (T(5) / (dcur + T(5)));
     }
     e = jclip(e, min_var, max_var);
-    est[i] = e;
+    est[r] = e;
     est_fin = est_fin && isfinite(e);
   }
-  const bool use_est = __syncthreads_and(est_fin) && dcur > T(2);
+  const bool use_est = __all_sync(kFullMask, est_fin) && dcur > T(2);
 
   // rate-limited update of the metric and the ratio for the step shift
   T ratio = -T(INFINITY);
-  MK_FOR_COORDS(i, dim) {
-    const T old = b.arow(A_INV_MASS)[i];
-    T im = use_est ? est[i] : old;
-    im = jclip(im, old * T(0.5), old * T(2.0));
-    if (frozen) im = old;
-    ratio = jmax(ratio, im / jmax(old, min_var));
-    b.arow(A_INV_MASS)[i] = im;
+#pragma unroll
+  for (int r = 0; r < NPL; ++r) {
+    const int i = lane + kLanes * r;
+    if (i >= dim) continue;
+    const T old = im[i];
+    T m = use_est ? est[r] : old;
+    m = jclip(m, old * T(0.5), old * T(2.0));
+    if (frozen) m = old;
+    ratio = jmax(ratio, m / jmax(old, min_var));
+    im[i] = m;
+    av[A_INV_MASS * dim + i] = m;
   }
-  ratio = block_max(ratio, b.red);
+  ratio = warp_max(ratio);
 
-  if (threadIdx.x == 0) {
-    dual_avg_update(cfg, af, accept);
-    const T shift = T(-0.5) * log(jclip(ratio, T(1), T(2)));
-    af[AF_LOG_STEP] = af[AF_LOG_STEP] + shift;
-    af[AF_MU] = af[AF_MU] + shift;
-    if (sw) {
-      af[AF_HBAR] = T(0);
-      af[AF_MU] = T(log(2.0)) + af[AF_LOG_STEP];
-      af[AF_DA_COUNT] = T(0);
-    }
-    af[AF_DRAWS_CUR_COUNT] = dcur;
-    af[AF_GRADS_CUR_COUNT] = gcur;
-    af[AF_DRAWS_BG_COUNT] = sw ? T(0) : dbc;
-    af[AF_GRADS_BG_COUNT] = sw ? T(0) : gbc;
+  dual_avg_update(cfg, af, accept);
+  const T shift = T(-0.5) * log(jclip(ratio, T(1), T(2)));
+  af[AF_LOG_STEP] = af[AF_LOG_STEP] + shift;
+  af[AF_MU] = af[AF_MU] + shift;
+  if (sw) {
+    af[AF_HBAR] = T(0);
+    af[AF_MU] = T(log(2.0)) + af[AF_LOG_STEP];
+    af[AF_DA_COUNT] = T(0);
   }
-  __syncthreads();
+  af[AF_DRAWS_CUR_COUNT] = dcur;
+  af[AF_GRADS_CUR_COUNT] = gcur;
+  af[AF_DRAWS_BG_COUNT] = sw ? T(0) : dbc;
+  af[AF_GRADS_BG_COUNT] = sw ? T(0) : gbc;
 }
 
 }  // namespace nutpie

@@ -1,9 +1,11 @@
-// Slot maps, the C ABI structs and the per-block shared-memory layout of
-// the NUTS chunk kernel.
+// Slot maps, the C ABI structs and the shared-memory plan of the NUTS chunk
+// kernel.
 //
 // The slot enums must equal the maps in nutpie_tpu_torch/sampler/state.py
 // and nutpie_tpu_torch/sampler/nuts.py (SCALAR_SLOTS); MkConfig must equal
-// the ctypes structure in nutpie_tpu_torch/sampler/megakernel.py.
+// the ctypes structure in nutpie_tpu_torch/sampler/megakernel.py, and the
+// radon tables the packing in nutpie_tpu_torch/models/radon.py
+// (RadonKernelData.tensors).
 #pragma once
 
 #include <cstddef>
@@ -11,9 +13,15 @@
 
 namespace nutpie {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-static_assert(kThreads % 32 == 0, "block size must be a multiple of a warp");
+constexpr int kLanes = 32;
+
+// Most chains (warps) a block holds.  The block's shared memory is the
+// model data plus one slice per chain, within the card's 227 KB at radon's
+// sizes.  An SM spreads a block's warps over its four sub-partitions of
+// 16K registers: 16 warps get 128 registers a thread, 8 get 255.
+template <typename T> struct MaxWarps;
+template <> struct MaxWarps<float> { static constexpr int value = 16; };
+template <> struct MaxWarps<double> { static constexpr int value = 8; };
 
 enum VecSlot {
   V_Z_MINUS = 0, V_P_MINUS, V_G_MINUS, V_Z_PLUS, V_P_PLUS, V_G_PLUS,
@@ -76,6 +84,8 @@ struct MkConfig {
   int32_t early_switch_freq;
   int32_t n_counties;
   int32_t n_obs;
+  int32_t n_seg;     // segments of the lane partition
+  int32_t obs_rows;  // rows of the lane-major observation table
 };
 
 // Device pointers of one launch.  State tensors are updated in place.
@@ -96,92 +106,92 @@ struct MkArgs {
   const T* jit;            // [C, L] jitter uniforms per draw
   T* pos_out;              // [C, L, dim]
   T* scal_out;             // [C, L, N_SCALAR]
-  const T* y;              // [n_obs] sorted by county
-  const T* floor;          // [n_obs] sorted by county
+  const T* obs;            // [obs_rows, 32, 2] (y, floor), lane-major
   const T* basis;          // [n_counties, n_counties - 1]
-  const int32_t* offsets;  // [n_counties + 1] CSR offsets
+  const int32_t* part;     // lane partition tables (PartTables)
+  int32_t* queue;          // chain counter, zero at launch
 };
 
 struct Sched {
   int chunk_start, limit, num_tune, early_end, freeze_start, depth_cap;
 };
 
-// Block-wide scalars broadcast through shared memory.
-enum CtlInt {
-  C_ACTIVE = 0, C_FWD, C_AT_START, C_M_TAKE, C_PUSH, C_TOP, C_TOP_AFTER,
-  C_TZ, C_EVEN, C_MERGE_OK, C_M_TAKE2, C_DRAW_DONE, C_NEXT_DOUBLING,
-  C_RESTART, C_IDX_C, C_NEXT_IDX_C, C_UPD, C_DIVERGING, C_DIV_LEAF,
-  C_TURN_SUB_MID, C_SUB_DONE, C_SUB_INVALID, C_TOP_NEW, N_CTL_INT = 32
+// Rows of a chain's slice of shared memory: the state rows V_Z_MINUS ..
+// V_SPROP_G, then the inverse mass.  The committed position and gradient
+// equal the proposal's at every draw boundary, so the proposal rows stand
+// for them and the two state rows are written from them at the end.
+constexpr int kRowInvMass = V_POSITION;
+constexpr int kWarpRows = kRowInvMass + 1;
+
+// Offsets (in int32) of the lane partition tables inside `part`:
+//   lane_obs[33]  first sorted observation of each lane (and the end)
+//   lane_seg[32]  first segment of each lane
+//   county_seg[n_counties + 1]  CSR of each county's segments
+//   obs_info[obs_rows, 32]  lane-major, each observation's county, plus
+//                           kSegStart if it opens a segment
+struct PartTables {
+  int lane_obs, lane_seg, county_seg, obs_info, total;
+  PartTables() = default;
+  __host__ __device__ PartTables(int n_counties, int obs_rows) {
+    lane_obs = 0;
+    lane_seg = lane_obs + kLanes + 1;
+    county_seg = lane_seg + kLanes;
+    obs_info = county_seg + n_counties + 1;
+    total = obs_info + obs_rows * kLanes;
+  }
 };
 
-enum CtlFlt {
-  X_EPS_S = 0, X_LOGP_NEW, X_H, X_LOGW_SUB_NEW, X_U1, X_U2, X_ACCEPT,
-  X_RATIO, N_CTL_FLT = 16
-};
+constexpr int kSegStart = 1 << 16;
 
-constexpr int kRed = 8;  // values per block reduction
-
-// Shared memory of one block (one chain).  All [dim] rows of the chain's
-// state stay here for the whole chunk; each thread owns coordinates
-// threadIdx.x, threadIdx.x + kThreads, ... of every row.
-template <typename T>
-struct Block {
-  T* vecs;     // [N_VEC, dim]
-  T* ckpt_p;   // [D, dim]
-  T* ckpt_s;   // [D, dim]
-  T* av;       // [N_ADAPT_VEC, dim]
-  T* z_new;    // [dim] leapfrog scratch rows
-  T* p_new;
-  T* g_new;
-  T* v_new;
-  T* rsn;      // rho_sub + p_new
-  T* county;   // [4, n_counties] model scratch
-  T* red;      // [kWarps, kRed]
-  T* fl;       // [N_FLT]
-  T* af;       // [N_ADAPT_FLT]
-  T* cf;       // [N_CTL_FLT]
-  int* in;     // [N_INT]
-  int* ci;     // [N_CTL_INT]
-  int dim;
-  int D;
-
-  __device__ T* row(int slot) const { return vecs + slot * dim; }
-  __device__ T* arow(int slot) const { return av + slot * dim; }
-};
-
-template <typename T>
-inline size_t block_smem_bytes(int dim, int D, int n_counties) {
-  const size_t n_t = size_t(N_VEC + 2 * D + N_ADAPT_VEC + 5) * dim
-      + 4 * size_t(n_counties) + kWarps * kRed + N_FLT + N_ADAPT_FLT
-      + N_CTL_FLT;
-  return n_t * sizeof(T) + (size_t(N_INT) + size_t(N_CTL_INT)) * sizeof(int);
+// Row stride of the basis in shared memory: a multiple of 4 values whose
+// quarter is odd, so that 8 lanes reading 4 values each of 8 consecutive
+// rows hit 32 distinct banks (float32).
+__host__ __device__ inline int basis_stride(int k) {
+  int s = (k + 3) / 4 * 4;
+  if ((s / 4) % 2 == 0) s += 4;
+  return s;
 }
 
-template <typename T>
-__device__ inline Block<T> carve_block(unsigned char* smem, int dim, int D,
-                                       int n_counties) {
-  Block<T> b;
-  T* p = reinterpret_cast<T*>(smem);
-  b.dim = dim;
-  b.D = D;
-  b.vecs = p;   p += N_VEC * dim;
-  b.ckpt_p = p; p += D * dim;
-  b.ckpt_s = p; p += D * dim;
-  b.av = p;     p += N_ADAPT_VEC * dim;
-  b.z_new = p;  p += dim;
-  b.p_new = p;  p += dim;
-  b.g_new = p;  p += dim;
-  b.v_new = p;  p += dim;
-  b.rsn = p;    p += dim;
-  b.county = p; p += 4 * n_counties;
-  b.red = p;    p += kWarps * kRed;
-  b.fl = p;     p += N_FLT;
-  b.af = p;     p += N_ADAPT_FLT;
-  b.cf = p;     p += N_CTL_FLT;
-  int* q = reinterpret_cast<int*>(p);
-  b.in = q;     q += N_INT;
-  b.ci = q;
-  return b;
+__host__ __device__ inline size_t align16(size_t b) {
+  return (b + 15) & ~size_t(15);
 }
+
+// Shared memory of a block: the model data, loaded once per block and read
+// by all its warps, then one slice per warp (chain).  Offsets in bytes.
+// Two scratch areas of the slice each serve several rows in turn (radon.cuh
+// orders their uses): `zs` holds the zero-sum coordinates, then the
+// segment sums; `cg` the county effects, then the gradient weights, then
+// the zero-sum gradient sums.
+template <typename T>
+struct SmemPlan {
+  int kpad;
+  size_t basis, obs, part, data_bytes;
+  // within a warp's slice
+  size_t vecs, crf, zs, cg, sc, af, warp_bytes;
+
+  __host__ __device__ explicit SmemPlan(const MkConfig& c) {
+    const int n_c = c.n_counties;
+    kpad = basis_stride(n_c - 1);
+    const size_t zs_n = 2 * size_t(kpad > c.n_seg ? kpad : c.n_seg);
+    const size_t cg_n = 2 * size_t(kpad > n_c ? kpad : n_c);
+    size_t o = 0;
+    basis = o; o = align16(o + sizeof(T) * size_t(n_c) * kpad);
+    obs = o;   o = align16(o + sizeof(T) * size_t(c.obs_rows) * kLanes * 2);
+    part = o;  o = align16(o + sizeof(int32_t) * PartTables(n_c, c.obs_rows).total);
+    data_bytes = o;
+    o = 0;
+    vecs = o;   o = align16(o + sizeof(T) * size_t(kWarpRows) * c.dim);
+    crf = o;    o = align16(o + sizeof(T) * 2 * size_t(n_c));
+    zs = o;     o = align16(o + sizeof(T) * zs_n);
+    cg = o;     o = align16(o + sizeof(T) * cg_n);
+    sc = o;     o = align16(o + sizeof(T) * 8);
+    af = o;     o = align16(o + sizeof(T) * N_ADAPT_FLT);
+    warp_bytes = o;
+  }
+
+  __host__ __device__ size_t block_bytes(int warps) const {
+    return data_bytes + size_t(warps) * warp_bytes;
+  }
+};
 
 }  // namespace nutpie

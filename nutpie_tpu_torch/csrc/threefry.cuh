@@ -1,7 +1,8 @@
 // Threefry-2x32 (20 rounds) on the device, bit-equal to jax.random's default
 // generator and to nutpie_tpu_torch/ops/threefry.py.  The kernel uses it for
 // the three uniforms of each leapfrog step:
-//   uniform(fold_in(fold_in(chain_key, 3), total_steps), (3,), float32).
+//   uniform(fold_in(fold_in(chain_key, 3), total_steps), (3,), float32),
+// computed for ten steps at once across the chain's warp (StepUniforms).
 #pragma once
 
 #include <cstdint>
@@ -47,13 +48,39 @@ __device__ inline float bits_to_uniform(uint32_t bits) {
 
 // jax.random.uniform(key, (3,), float32): element i hashes the counts (0, i)
 // and xor-folds the two words.
-__device__ inline void uniform3(uint32_t k1, uint32_t k2, float u[3]) {
-#pragma unroll
-  for (uint32_t i = 0; i < 3; ++i) {
-    uint32_t x0 = 0u, x1 = i;
-    threefry2x32(k1, k2, x0, x1);
-    u[i] = bits_to_uniform(x0 ^ x1);
-  }
+__device__ inline float uniform3_element(uint32_t k1, uint32_t k2, uint32_t i) {
+  uint32_t x0 = 0u, x1 = i;
+  threefry2x32(k1, k2, x0, x1);
+  return bits_to_uniform(x0 ^ x1);
 }
+
+// The leapfrog uniforms of one chain, ten steps at a time across the warp:
+// lane l holds element l % 3 of step base + l / 3 (lanes 30 and 31 idle),
+// so one refill costs each lane two hashes instead of ten steps' forty.
+struct StepUniforms {
+  uint32_t k1, k2;  // fold_in(chain_key, 3)
+  uint32_t base;
+  float u;
+
+  // `first_step` is the chain's step count before its first step, so the
+  // first get() refills.
+  __device__ StepUniforms(uint32_t key1, uint32_t key2, uint32_t first_step)
+      : k1(key1), k2(key2), base(first_step - 10u), u(0.0f) {
+    fold_in(k1, k2, 3u);
+  }
+
+  // u[0..2] of step `step`; every lane of the warp must call it.
+  __device__ __forceinline__ void get(uint32_t step, int lane, float out[3]) {
+    if (step - base >= 10u) {
+      base = step;
+      uint32_t a = k1, b = k2;
+      fold_in(a, b, step + uint32_t(lane / 3));
+      u = uniform3_element(a, b, uint32_t(lane % 3));
+    }
+    const int src = 3 * int(step - base);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) out[i] = __shfl_sync(0xffffffffu, u, src + i);
+  }
+};
 
 }  // namespace nutpie

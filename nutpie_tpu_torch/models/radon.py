@@ -10,9 +10,9 @@ HalfNormal observation noise, with the scales sampled on the log scale.
 The county lookup is an index gather (the one-hot matmul form of the JAX
 package existed only for its TPU kernel compiler).  ``RadonKernelData`` is
 the data pack the CUDA chunk kernel reads: the observations sorted by
-county with CSR offsets, so per-county gradient sums run over contiguous
-segments in a fixed order (no float atomics; reruns are bitwise
-repeatable).
+county with CSR offsets and cut into one run per lane of a warp
+(``LanePartition``), so per-county gradient sums add contiguous segments
+in a fixed order (no float atomics; reruns are bitwise repeatable).
 """
 
 from __future__ import annotations
@@ -57,14 +57,92 @@ def simulate_radon_data(seed: int = 42, n_obs: int = 919, n_counties: int = 85):
     return log_radon, county_idx, floor, counties
 
 
+LANES = 32  # lanes of the warp that runs one chain in the CUDA kernel
+
+
+SEG_START = 1 << 16  # flag of an observation that opens a segment (kSegStart)
+
+
+@dataclasses.dataclass(frozen=True)
+class LanePartition:
+    """The sorted observations cut into one contiguous run per lane.
+
+    Lane l sums observations ``lane_obs[l]:lane_obs[l+1]`` (the counts
+    differ by at most one).  Every county's run of observations is cut at
+    the lane boundaries into segments, numbered in observation order:
+    segment s starts at observation ``seg_start[s]`` and belongs to county
+    ``seg_county[s]``; lane l starts at segment ``lane_seg[l]`` and county
+    c owns segments ``county_seg[c]:county_seg[c+1]``.  A lane sums each of
+    its segments and each county adds its segments' sums in order.
+    """
+
+    lane_obs: np.ndarray
+    lane_seg: np.ndarray
+    county_seg: np.ndarray
+    seg_start: np.ndarray
+    seg_county: np.ndarray
+
+    @property
+    def n_seg(self) -> int:
+        return int(self.seg_start.shape[0])
+
+    @property
+    def rows(self) -> int:
+        """Rows of the lane-major tables: the longest lane run."""
+        return int(np.diff(self.lane_obs).max())
+
+    def obs_info(self) -> np.ndarray:
+        """Each observation's county, plus ``SEG_START`` where a segment opens."""
+        n_obs = int(self.lane_obs[-1])
+        info = np.repeat(self.seg_county, np.diff(np.append(self.seg_start, n_obs)))
+        info[self.seg_start] += SEG_START
+        return info
+
+    def table(self) -> np.ndarray:
+        """The int32 tables in the order of ``PartTables`` in ``csrc/layout.cuh``."""
+        return np.concatenate([
+            self.lane_obs, self.lane_seg, self.county_seg,
+            lane_major(self.obs_info(), self).reshape(-1),
+        ]).astype(np.int32)
+
+
+def lane_partition(offsets, lanes: int = LANES) -> LanePartition:
+    """Cut the county-sorted observations (CSR ``offsets``) into lane runs."""
+    offsets = np.asarray(offsets, np.int64)
+    n_obs = int(offsets[-1])
+    lane_obs = (np.arange(lanes + 1) * n_obs) // lanes
+    starts = np.union1d(offsets, lane_obs)[:-1]
+    return LanePartition(
+        lane_obs=lane_obs,
+        lane_seg=np.searchsorted(starts, lane_obs[:-1], side="left"),
+        # an empty county owns no segment; a segment's county is the last
+        # (so the non-empty) one that starts at or before it
+        county_seg=np.searchsorted(starts, offsets, side="left"),
+        seg_start=starts,
+        seg_county=np.searchsorted(offsets, starts, side="right") - 1,
+    )
+
+
+def lane_major(values: np.ndarray, part: LanePartition) -> np.ndarray:
+    """``values[lane_obs[l] + t]`` at ``[t, l]``, zero past a lane's run."""
+    lanes = part.lane_obs.shape[0] - 1
+    counts = np.diff(part.lane_obs)
+    out = np.zeros((part.rows, lanes) + values.shape[1:], values.dtype)
+    t = np.arange(part.rows)[:, None]
+    mask = t < counts[None, :]
+    out[mask] = values[(part.lane_obs[:-1][None, :] + t)[mask]]
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class RadonKernelData:
     """Radon data in the layout of ``csrc/radon.cuh``.
 
     ``y``/``floor`` are sorted by county (stable, so each county keeps its
     observations in data order); ``offsets[c]:offsets[c+1]`` is county c's
-    segment.  ``basis`` is the ``[n_counties, n_counties - 1]`` zero-sum
-    basis, row-major.
+    run.  ``basis`` is the ``[n_counties, n_counties - 1]`` zero-sum basis,
+    row-major.  The kernel reads the observations as (y, floor) pairs in
+    the lane-major order of ``partition`` and the partition's tables.
     """
 
     y: np.ndarray
@@ -73,16 +151,19 @@ class RadonKernelData:
     offsets: np.ndarray
     n_counties: int
     n_obs: int
+    partition: LanePartition
+
+    @property
+    def obs_rows(self) -> int:
+        return self.partition.rows
 
     def tensors(self, device, dtype) -> dict:
         f = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+        pairs = np.stack([self.y, self.floor], axis=-1)
         return {
-            "y": f(self.y),
-            "floor": f(self.floor),
+            "obs": f(lane_major(pairs, self.partition)),
             "basis": f(self.basis),
-            "offsets": torch.as_tensor(
-                self.offsets, dtype=torch.int32, device=device
-            ).contiguous(),
+            "part": torch.as_tensor(self.partition.table(), device=device).contiguous(),
         }
 
 
@@ -97,6 +178,7 @@ def radon_kernel_data(log_radon, county_idx, floor, n_counties) -> RadonKernelDa
         offsets=offsets,
         n_counties=int(n_counties),
         n_obs=int(len(county_idx)),
+        partition=lane_partition(offsets),
     )
 
 

@@ -7,9 +7,10 @@ then ``machine_step`` until every chain has produced ``limit`` draws, and
 applies the trapped-chain rescue after warmup chunks.
 
 The middle part is ``chunk_kernel``, the wrapper of the CUDA kernel in
-``csrc/megakernel.cu``: on CUDA tensors it launches the kernel (one thread
-block per chain, the radon log density evaluated in the kernel) and
-counts the launch; on CPU tensors it runs the plain version,
+``csrc/megakernel.cu``: on CUDA tensors it launches the kernel (one warp
+per chain in persistent blocks that take chains from a queue, the radon
+log density evaluated in the kernel) and counts the launch; on CPU
+tensors it runs the plain version,
 ``plain_chunk``, a host loop over ``nuts.machine_step``.  There is no
 fallback between the two: a CUDA tensor launches the kernel or raises.
 """
@@ -32,6 +33,9 @@ from .nuts import (
 )
 from .run import draw_randoms, rescue_trapped
 from .state import NutsMachineState, state_with
+
+# the kernel is compiled for up to 8 coordinates per lane of a warp
+MAX_KERNEL_DIM = 8 * 32
 
 GENERIC_PATH_ITEM = (
     "ROADMAP.md queue 1: the generic card path, form (i) -- a per-leapfrog "
@@ -94,6 +98,8 @@ class MkConfig(ctypes.Structure):
         ("early_switch_freq", ctypes.c_int32),
         ("n_counties", ctypes.c_int32),
         ("n_obs", ctypes.c_int32),
+        ("n_seg", ctypes.c_int32),
+        ("obs_rows", ctypes.c_int32),
     ]
 
 
@@ -124,10 +130,21 @@ def kernel_config(cfg: NutsConfig, kernel_model, n_chains: int, dim: int,
         early_switch_freq=ac.early_switch_freq,
         n_counties=kernel_model.n_counties,
         n_obs=kernel_model.n_obs,
+        n_seg=kernel_model.partition.n_seg,
+        obs_rows=kernel_model.obs_rows,
     )
 
 
-_ENTRY_ARGS = [ctypes.c_void_p] * 19
+# cfg, scal, key, 12 state/buffer pointers, obs, basis, part, queue; grid; stream
+_ENTRY_ARGS = [ctypes.c_void_p] * 18 + [ctypes.c_int, ctypes.c_void_p]
+
+# what nutpie_megakernel_geometry_* reports, in its order
+GEOMETRY_FIELDS = (
+    "coords_per_lane", "chains_per_block", "smem_bytes_per_block",
+    "blocks_per_sm", "sm_count", "registers_per_thread",
+    "local_bytes_per_thread", "model_data_bytes", "chain_slice_bytes",
+    "max_threads_per_block",
+)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -136,9 +153,47 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _ENTRY_ARGS
         fn.restype = ctypes.c_int
+    for name in ("nutpie_megakernel_geometry_f32", "nutpie_megakernel_geometry_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.nutpie_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nutpie_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _suffix(dtype) -> str:
+    return "f64" if dtype == torch.float64 else "f32"
+
+
+def _raise_on(lib, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.nutpie_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({code})")
+
+
+def query_geometry(lib, mk_cfg: MkConfig, dtype) -> dict:
+    """What was compiled for this configuration and how it fits on the card
+    (``GEOMETRY_FIELDS``, plus the resident chains per SM)."""
+    out = (ctypes.c_int32 * len(GEOMETRY_FIELDS))()
+    fn = getattr(lib, f"nutpie_megakernel_geometry_{_suffix(dtype)}")
+    _raise_on(lib, fn(ctypes.byref(mk_cfg), out), "chunk kernel geometry")
+    geo = dict(zip(GEOMETRY_FIELDS, out))
+    geo["resident_chains_per_sm"] = geo["chains_per_block"] * geo["blocks_per_sm"]
+    return geo
+
+
+def launch_grid(n_chains: int, chains_per_block: int, blocks_per_sm: int,
+                sm_count: int) -> int:
+    """Blocks of one launch: every resident block slot of the card, but no
+    more blocks than chains (warp w of block b starts with chain
+    b + blocks * w, so every block gets one)."""
+    if min(chains_per_block, blocks_per_sm, sm_count) < 1:
+        raise RuntimeError(
+            f"chunk kernel does not fit on the card: {chains_per_block} chains "
+            f"per block, {blocks_per_sm} blocks per SM, {sm_count} SMs"
+        )
+    return max(1, min(sm_count * blocks_per_sm, n_chains))
 
 
 def schedule_tensor(chunk_start: int, limit: int, sched: Schedule, device) -> torch.Tensor:
@@ -153,17 +208,17 @@ def schedule_tensor(chunk_start: int, limit: int, sched: Schedule, device) -> to
 
 def launch(lib, mk_cfg: MkConfig, scal: torch.Tensor, states: NutsMachineState,
            mom: torch.Tensor, jit: torch.Tensor, pos: torch.Tensor,
-           scalars: torch.Tensor, data: dict, stream: int) -> int:
+           scalars: torch.Tensor, data: dict, queue: torch.Tensor, grid: int,
+           stream: int) -> int:
     """Call the C entry point; ``states`` is updated in place.  Returns its code."""
-    fn = (lib.nutpie_megakernel_chunk_f64 if states.vecs.dtype == torch.float64
-          else lib.nutpie_megakernel_chunk_f32)
+    fn = getattr(lib, f"nutpie_megakernel_chunk_{_suffix(states.vecs.dtype)}")
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     return fn(
         ctypes.byref(mk_cfg), ptr(scal), ptr(states.key), ptr(states.vecs),
         ptr(states.ckpt_p), ptr(states.ckpt_s), ptr(states.flts),
         ptr(states.ints), ptr(states.adapt_vecs), ptr(states.adapt_flts),
-        ptr(mom), ptr(jit), ptr(pos), ptr(scalars), ptr(data["y"]),
-        ptr(data["floor"]), ptr(data["basis"]), ptr(data["offsets"]),
+        ptr(mom), ptr(jit), ptr(pos), ptr(scalars), ptr(data["obs"]),
+        ptr(data["basis"]), ptr(data["part"]), ptr(queue), int(grid),
         ctypes.c_void_p(stream),
     )
 
@@ -200,6 +255,7 @@ class ChunkKernel:
     def __init__(self):
         self.launches = 0
         self._data: dict = {}
+        self._geometry: dict = {}
 
     def library(self):
         return bind(build.load("megakernel"))
@@ -209,6 +265,15 @@ class ChunkKernel:
         if key not in self._data:
             self._data[key] = (kernel_model, kernel_model.tensors(device, dtype))
         return self._data[key][1]
+
+    def geometry(self, mk_cfg: MkConfig, dtype, device) -> dict:
+        """``query_geometry`` once per device, dtype and data shape."""
+        key = (str(device), dtype, mk_cfg.dim, mk_cfg.depth_slots,
+               mk_cfg.n_counties, mk_cfg.n_seg, mk_cfg.obs_rows)
+        if key not in self._geometry:
+            with torch.cuda.device(device):
+                self._geometry[key] = query_geometry(self.library(), mk_cfg, dtype)
+        return self._geometry[key]
 
     def __call__(self, cfg: NutsConfig, model: ModelDef, sched: Schedule,
                  chunk_start: int, limit: int, states: NutsMachineState,
@@ -232,20 +297,25 @@ class ChunkKernel:
         km = model.kernel_model
         if dim != 5 + 2 * (km.n_counties - 1):
             raise ValueError(f"kernel model expects dim {5 + 2 * (km.n_counties - 1)}, got {dim}")
+        if dim > MAX_KERNEL_DIM:
+            raise ValueError(f"chunk kernel takes at most {MAX_KERNEL_DIM} dimensions, got {dim}")
         lib = self.library()
         device = out.vecs.device
         mk_cfg = kernel_config(cfg, km, n_chains, dim, out.ckpt_p.shape[1],
                                chunk_len, adapt_frozen)
+        geo = self.geometry(mk_cfg, dtype, device)
+        grid = launch_grid(n_chains, geo["chains_per_block"], geo["blocks_per_sm"],
+                           geo["sm_count"])
         bufs = init_buffers(chunk_len, dim, dtype, n_chains, device=device)
         scal = schedule_tensor(chunk_start, limit, sched, device)
         data = self._kernel_data(km, device, dtype)
+        # the chain queue: each warp takes its next chain from this counter
+        queue = torch.zeros(1, dtype=torch.int32, device=device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             code = launch(lib, mk_cfg, scal, out, mom, jit, bufs.position,
-                          bufs.scalars, data, stream)
-        if code != 0:
-            msg = lib.nutpie_cuda_error_string(code).decode()
-            raise RuntimeError(f"chunk kernel launch failed: {msg} ({code})")
+                          bufs.scalars, data, queue, grid, stream)
+        _raise_on(lib, code, "chunk kernel launch")
         self.launches += 1
         return out, bufs
 

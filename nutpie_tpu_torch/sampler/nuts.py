@@ -12,7 +12,7 @@ Here the functions are written batched over a leading chains axis with
 per-chain masks (no vmap), and the chunk buffers are updated in place by
 indexed assignment.  This is the plain version of the CUDA chunk kernel
 (``csrc/machine_step.cuh``), which runs the same steps for one chain per
-thread block.  Only the diagonal metric with the exact-normal kinetic is
+warp.  Only the diagonal metric with the exact-normal kinetic is
 ported in this slice.
 """
 

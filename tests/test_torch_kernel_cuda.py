@@ -21,15 +21,17 @@ from nutpie_tpu_torch.sampler.run import draw_randoms, init_chains
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture
-def card():
+# 37 chains divide neither a block's chains nor the card's resident slots,
+# so the chain queue runs dry part-way through a block
+@pytest.fixture(params=[4, 37])
+def card(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     model = radon()
     cfg = NutsConfig(maxdepth=8, adapt=AdaptConfig(num_tune=100))
     sched = make_schedule(cfg.adapt, 100)
-    states, _ = init_chains(model, cfg, 4, 8, np.zeros(model.ndim), torch.float64,
-                            device="cuda")
+    states, _ = init_chains(model, cfg, 4, request.param, np.zeros(model.ndim),
+                            torch.float64, device="cuda")
     return model, cfg, sched, states
 
 
