@@ -12,8 +12,8 @@ Phases (each prints one JSON line):
    the sources in the checkout with ``nvcc``.
 2. ``parity``: the kernel against its plain torch version on the card, on
    radon at full width (173 parameters, 919 observations), 64 chains:
-   one fresh warmup chunk of 16 draws in float64 (ints, step counts and
-   Welford counts exact; positions to rtol 1e-3), one frozen chunk of 16
+   one fresh warmup chunk of 8 draws in float64 (ints, step counts and
+   Welford counts exact; positions to rtol 1e-3), one frozen chunk of 8
    draws from the state that follows (ints exact; floats to rtol 1e-6,
    atol 1e-8), and one fresh float32 warmup chunk (finite; shares of equal
    step counts and of close draws above their limits).
@@ -45,12 +45,51 @@ Phases (each prints one JSON line):
    draws within 1e-3 (relative to 1 + |x|); from the same state in
    float64, ints exact and floats to rtol 1e-6 / atol 1e-8.
 6. ``profile``: the main path once more under ``torch.profiler``: device
-   time by kernel and the device's idle share of the wall time.
+   time by kernel and the device's idle share of the wall time; then the
+   GLM path (below) at full width with tune and draws cut to
+   ``GLM_PROFILE_TUNE`` + ``GLM_PROFILE_DRAWS``: device time split into the
+   step kernel, the log density's matrix products and other work, and
+   the idle share.
 
-Then the kernels line, the card line, and the last line
-``{"ok": true, "device": {...}}``.  Any failed phase ends the script with
-a non-zero exit code and no result line; so does ``--phases`` with fewer
-than all phases.  Without CUDA, or without the package beside it, the
+The generic card path (the step kernel K2, ``csrc/step_kernel.cu``, two
+launches per machine step around one batched torch logp) at the
+logistic GLM's width from ``bench_glm.py`` (10,240 chains, 64
+coefficients, 2048 observations, chunk 32):
+
+7. ``step_parity``: K2 against its plain version on the card, both
+   running the same torch logp.  Float64 at full width, 64 chains: one
+   fresh 8-draw warmup window from draw 0 (ints, step counts and Welford
+   counts exact, positions and adaptation state to rtol 1e-3), then a
+   16-draw frozen chunk (ints exact, floats to rtol 1e-6 / atol 1e-8).
+   Float64 ``ill_conditioned_gaussian(dim=1000)``, 16 chains, an 8-draw
+   frozen chunk: ints and step counts exact (lanes stride past 256
+   coordinates).  Beside the GLM readings, the plain version on the CPU
+   against the card's from the same state: how far two plain versions
+   that round differently part over the same draws.  Float32 at the main shapes, from a fleet the step
+   runner warmed through the 300 tuning draws: one frozen 32-draw chunk,
+   at least 99.9% of step counts equal and 99% of draws within 1e-3
+   (relative to 1 + abs x).
+8. ``glm``: ``sample()`` on the GLM, 10,240 chains x (300 tune + 300
+   draws), chunk 32, seed 42, float32, default settings, no pooling, with
+   both kernels' launch counts set to 0 just before: K2 launched twice per
+   machine step (the steps counted from the draws' step counts) and K1
+   not at all.  Draws finite, max split R-hat over ``bench_glm.py``'s
+   monitored columns below 1.05, every posterior mean within
+   ``LAPLACE_SD_TOL`` posterior sd of the mode of a numpy Laplace
+   approximation of the same data and within ``IMPORTANCE_SD_TOL`` of
+   the posterior mean by importance sampling from that approximation.  Prints wall, gradients/s, min bulk-ESS, ESS/s, min-ESS per
+   gradient, posterior divergences and the host wall per machine step.
+9. ``step_timing``: one frozen 32-draw chunk at the GLM main shapes, step
+   by step: K2's begin and finish and the logp+grad call by CUDA events
+   around each call (and by device time under ``torch.profiler``, which
+   splits the logp's matrix products from the rest), the plain halves by
+   CUDA events, the byte bound beside them (``step_bytes``); then the
+   whole chunk through the runner at ``unroll`` 1, 4 and 8.
+
+Then the kernels line (K1 and K2), the card line, and the last line
+``{"ok": true, "device": {...}}``.  Every phase runs even after one
+fails; any failed phase makes the script exit non-zero with no result
+line, and so does ``--phases`` with fewer than all phases.  Without CUDA, or without the package beside it, the
 script exits non-zero before printing a result.
 """
 
@@ -63,12 +102,14 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # the main path's sizes (bench.py's radon configuration, draws cut to 300)
 CHAINS, TUNE, DRAWS, CHUNK = 2048, 300, 300, 128
-PARITY_CHAINS, PARITY_CHUNK = 64, 16
+# 8 draws a parity chunk keep the whole run near ten minutes
+PARITY_CHAINS, PARITY_CHUNK = 64, 8
 # a chain count that divides neither the chains per block nor the card's
 # resident chain slots, so the chain queue runs dry part-way through blocks
 RAGGED_CHAINS = 61
@@ -122,6 +163,26 @@ WINDOWS = {
     "float32": ((0, 4), (87, 4), (156, 4), (236, 4), (268, 4), (296, 4)),
 }
 EARLY_END = 90
+# the GLM path (bench_glm.py:17-22; its 700 draws cut to 300) and its
+# monitored columns (bench_glm.py:68)
+GLM_CHAINS, GLM_TUNE, GLM_DRAWS, GLM_CHUNK = 10240, 300, 300, 32
+GLM_N_DATA, GLM_DIM = 2048, 64
+GLM_MONITORED = list(range(0, GLM_DIM, max(1, GLM_DIM // 24)))
+# the GLM profile's cut of tune and draws (the trace of every launch of the
+# whole path would be too large)
+GLM_PROFILE_TUNE, GLM_PROFILE_DRAWS = 64, 64
+STEP_PARITY_CHAINS, ILL_DIM, ILL_CHAINS = 64, 1000, 16
+# posterior means of the GLM against the Laplace approximation, in
+# posterior sd: catches a wrong gradient, not a subtle bias
+LAPLACE_SD_TOL = 0.25
+# ... and against the posterior mean by importance sampling from the
+# Laplace approximation (20,000 draws, effective size about 12,000, so
+# about 0.01 sd of Monte Carlo error): the mean and the mode of this
+# posterior differ by up to 0.24 sd, its skew
+IMPORTANCE_SD_TOL = 0.05
+UNROLLS = (1, 4, 8)
+# where the GLM path runs
+DEVICE = "cuda"
 
 
 def emit(obj) -> None:
@@ -229,10 +290,13 @@ def phase_build(ctx):
 
     from nutpie_tpu_torch.ops import build
     from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
 
     t0 = time.perf_counter()
-    lib_path = build.build("megakernel")
+    libs = build.build_all(["megakernel", "step_kernel"])  # one nvcc each, together
+    lib_path = libs["megakernel"]
     chunk_kernel.library()
+    step_kernel.library()
     seconds = time.perf_counter() - t0
     ctx["card"] = card_line()
     # what was compiled, at the main path's configuration
@@ -249,6 +313,11 @@ def phase_build(ctx):
         "library": os.path.relpath(str(lib_path), ROOT),
         "build_seconds": round(seconds, 3),
         "geometry": geometry,
+        "step_kernel": {
+            "library": os.path.relpath(str(libs["step_kernel"]), ROOT),
+            "geometry": {str(dt).removeprefix("torch."): step_kernel.geometry(dt)
+                         for dt in (torch.float32, torch.float64)},
+        },
     })
     g32 = geometry["float32"]
     assert g32["resident_chains_per_sm"] >= 10 and g32["local_bytes_per_thread"] == 0, g32
@@ -408,7 +477,7 @@ def phase_parity(ctx):
         "ragged": {"chains": RAGGED_CHAINS, **readings[RAGGED_CHAINS]},
         "f32_warmup": {"all_finite": True, **f32},
     })
-    # 16 draws from a fresh fleet outrun float32's horizon (WINDOWS), so
+    # 8 draws from a fresh fleet outrun float32's horizon (WINDOWS), so
     # only the step counts are held here; the warmup phase holds the draws
     assert f32["share_equal_n_steps"] >= F32_WARM_BARS["early"][0], f32
 
@@ -420,12 +489,29 @@ def _assert_f32_warm(r: dict) -> None:
     assert r["max_diff_fleet_log_step"] <= log_step, r
 
 
+def column_diagnostics(post, columns):
+    """Bulk ESS and split R-hat of each monitored column of ``post [C, N,
+    dim]``, the columns in threads (numpy's sorts and FFTs release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from nutpie_tpu_torch.diagnostics import ess_from_samples, rhat_from_samples
+
+    def one(c):
+        x = np.ascontiguousarray(post[:, :, c])
+        return ess_from_samples(x), rhat_from_samples(x)
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        pairs = list(pool.map(one, columns))
+    return [e for e, _ in pairs], [r for _, r in pairs]
+
+
 def phase_main(ctx):
     import numpy as np
     import torch
 
     import nutpie_tpu_torch as nt
-    from nutpie_tpu_torch.diagnostics import ess_from_samples, rhat_from_samples
     from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
     from nutpie_tpu_torch.sample import default_chunk_size
     from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
@@ -458,8 +544,7 @@ def phase_main(ctx):
     n_steps = raw["stats"]["n_steps"]
     grads = int(n_steps.astype(np.int64).sum())
     post = pos[:, TUNE:, :]
-    ess = [ess_from_samples(post[:, :, c]) for c in MONITORED]
-    rhat = [rhat_from_samples(post[:, :, c]) for c in MONITORED]
+    ess, rhat = column_diagnostics(post, MONITORED)
     min_ess = float(np.min(ess))
     assert np.isfinite(min_ess) and min_ess > 0, ess
     assert max(rhat) < 1.05, f"split R-hat {max(rhat)} on a monitored column"
@@ -683,44 +768,548 @@ def phase_timing(ctx):
     })
 
 
-def phase_profile(ctx):
-    """Where the main path's time goes: device time by kernel, idle share."""
+def _device_rows(prof) -> list:
+    """(self device seconds, name, count) of each device-side event: an
+    operator's row on the host side carries its kernels' time too and
+    would count it twice."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    import nutpie_tpu_torch as nt
-    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
-
-    compiled = compile_model_def(nt.models.radon())
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        nt.sample(compiled, chains=CHAINS, tune=TUNE, draws=DRAWS, seed=43,
-                  pool_mass_matrix=True, pool_step_size=True, device="cuda",
-                  return_raw_trace=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side events only (kernels and copies): an operator's row on
-    # the host side carries its kernels' time too and would count it twice
-    rows = sorted(
-        ((float(ev.self_device_time_total), ev.key, ev.count)
+    return sorted(
+        ((float(ev.self_device_time_total) / 1e6, ev.key, ev.count)
          for ev in prof.key_averages()
          if ev.device_type != torch.autograd.DeviceType.CPU
          and ev.self_device_time_total > 0),
         reverse=True,
     )
-    device_s = sum(r[0] for r in rows) / 1e6
-    kernel_s = sum(r[0] for r in rows if "megakernel_chunk" in r[1]) / 1e6
-    copy_s = sum(r[0] for r in rows if r[1].startswith("Memcpy")) / 1e6
+
+
+def _profiled_sample(compiled, **kwargs):
+    """``sample()`` on the card under ``torch.profiler``: (wall s, device rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import nutpie_tpu_torch as nt
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nt.sample(compiled, device=DEVICE, return_raw_trace=True, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, _device_rows(prof)
+
+
+def _is_gemm(name: str) -> bool:
+    return any(k in name.lower() for k in ("gemm", "cutlass", "xmma", "gemv"))
+
+
+def phase_profile(ctx):
+    """Where the main paths' time goes: device time by kernel, idle share."""
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+
+    wall, rows = _profiled_sample(
+        compile_model_def(nt.models.radon()), chains=CHAINS, tune=TUNE,
+        draws=DRAWS, seed=43, pool_mass_matrix=True, pool_step_size=True)
+    device_s = sum(r[0] for r in rows)
+    kernel_s = sum(r[0] for r in rows if "megakernel_chunk" in r[1])
+    copy_s = sum(r[0] for r in rows if r[1].startswith("Memcpy"))
+    top = lambda rows: [{"name": k[:80], "count": n, "self_device_ms": d * 1e3}
+                        for d, k, n in rows[:8]]
+
+    glm_wall, glm_rows = _profiled_sample(
+        compile_model_def(nt.models.logistic_glm(n_data=GLM_N_DATA, dim=GLM_DIM)),
+        chains=GLM_CHAINS, tune=GLM_PROFILE_TUNE, draws=GLM_PROFILE_DRAWS,
+        seed=44, chunk_size=GLM_CHUNK, precision="float32")
+    glm_device = sum(r[0] for r in glm_rows)
+    k2 = {half: sum(r[0] for r in glm_rows if f"step_{half}" in r[1])
+          for half in ("begin", "finish")}
+    gemm = sum(r[0] for r in glm_rows if _is_gemm(r[1]))
+    glm_copy = sum(r[0] for r in glm_rows if r[1].startswith("Memcpy"))
     emit({
         "phase": "profile", "wall_s_profiled": wall, "device_busy_s": device_s,
         "device_idle_share": max(0.0, 1.0 - device_s / wall),
         "chunk_kernel_s": kernel_s, "memcpy_s": copy_s,
         "other_device_s": device_s - kernel_s - copy_s,
-        "top_device_events": [
-            {"name": k[:80], "count": n, "self_device_ms": d / 1e3}
-            for d, k, n in rows[:8]
-        ],
+        "top_device_events": top(rows),
+        "glm": {
+            "chains": GLM_CHAINS, "tune": GLM_PROFILE_TUNE, "draws": GLM_PROFILE_DRAWS,
+            "wall_s_profiled": glm_wall, "device_busy_s": glm_device,
+            "device_idle_share": max(0.0, 1.0 - glm_device / glm_wall),
+            "step_begin_s": k2["begin"], "step_finish_s": k2["finish"],
+            "logp_matmul_s": gemm, "memcpy_s": glm_copy,
+            "other_device_s": glm_device - k2["begin"] - k2["finish"] - gemm - glm_copy,
+            "top_device_events": top(glm_rows),
+        },
+        "card": ctx["card"],
+    })
+
+
+# ---------------------------------------------------------------- GLM path
+
+
+def _glm_model():
+    from nutpie_tpu_torch.models import logistic_glm
+
+    return logistic_glm(n_data=GLM_N_DATA, dim=GLM_DIM)
+
+
+def _fleet(model, tune, n_chains, dtype, seed):
+    """A fresh fleet on the card, with the schedule's static depth cap."""
+    import numpy as np
+
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.nuts import NutsConfig
+    from nutpie_tpu_torch.sampler.run import init_chains
+
+    cfg = NutsConfig(adapt=AdaptConfig(num_tune=tune))
+    sched = make_schedule(cfg.adapt, tune, cfg.initial_depth_cap)
+    states, ok = init_chains(model, cfg, seed, n_chains, np.zeros(model.ndim),
+                             dtype, device=DEVICE)
+    assert bool(ok.all()), "chain initialization failed"
+    return cfg, sched, states
+
+
+def _steps_both(model, cfg, sched, states, start, chunk_len, limit, frozen):
+    """The step runner through K2 and through its plain version, from one state."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.run import make_chunk_runner
+
+    dtype = states.vecs.dtype
+    kernel = make_chunk_runner(model, cfg, chunk_len, dtype, adapt_frozen=frozen)
+    plain = make_chunk_runner(model, cfg, chunk_len, dtype, adapt_frozen=frozen, plain=True)
+    k = kernel(states, start, limit, sched)
+    torch.cuda.synchronize()
+    p = plain(states, start, limit, sched)
+    torch.cuda.synchronize()
+    return k, p
+
+
+def _glm_warm_fleet(seed):
+    """A float32 GLM fleet at the main shapes carried through the 300
+    tuning draws by the step runner, as ``sample()`` carries it (the fleet
+    depth cap between chunks)."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.run import fleet_depth_cap, make_chunk_runner
+
+    model = _glm_model()
+    cfg, sched, states = _fleet(model, GLM_TUNE, GLM_CHAINS, torch.float32, seed)
+    warm = make_chunk_runner(model, cfg, GLM_CHUNK, torch.float32, adapt_frozen=False)
+    cap_until = GLM_TUNE - int(cfg.adapt.freeze_share * GLM_TUNE)
+    for start in range(0, GLM_TUNE, GLM_CHUNK):
+        limit = min(GLM_CHUNK, GLM_TUNE - start)
+        states, bufs = warm(states, start, limit, sched)
+        if start + limit <= cap_until:
+            sched = sched._replace(depth_cap=fleet_depth_cap(cfg, bufs, limit))
+    return model, cfg, sched, states
+
+
+def _plain_on_cpu(model, cfg, sched, states, start, chunk_len, limit, frozen):
+    """The plain version on the CPU from the card's state: how far two
+    plain versions that round differently part over the same chunk."""
+    from nutpie_tpu_torch.sampler.run import make_chunk_runner
+    from nutpie_tpu_torch.sampler.state import NutsMachineState
+
+    cpu = NutsMachineState(**{k: v.cpu() for k, v in states.tensors().items()})
+    run = make_chunk_runner(model, cfg, chunk_len, states.vecs.dtype,
+                            adapt_frozen=frozen, plain=True)
+    return run(cpu, start, limit, sched)
+
+
+def _yardstick(limit, plain_card, plain_cpu) -> dict:
+    """The card's plain version against the CPU's on one chunk."""
+    import torch
+
+    (s_g, b_g), (s_c, b_c) = plain_card, plain_cpu
+    pos_g, pos_c = b_g.position[:, :limit].cpu(), b_c.position[:, :limit]
+    return {"ints_equal": bool(torch.equal(s_g.ints.cpu(), s_c.ints)),
+            "max_abs_diff_position": max_abs(pos_g, pos_c)}
+
+
+def _held(failed: list, check, *args):
+    """``check(*args)``; an AssertionError is kept in ``failed`` (and its
+    reading is None) so that every reading of the phase is printed."""
+    try:
+        return check(*args)
+    except AssertionError as err:
+        failed.append(str(err)[:600])
+        return None
+
+
+def glm_f64_parity(failed: list) -> dict:
+    """K2 against its plain version on the GLM at full width in float64,
+    64 chains: a fresh 8-draw warmup window, then a 16-draw frozen chunk;
+    beside each, the plain version on the CPU against the card's.  Failed
+    bars go to ``failed``."""
+    import torch
+
+    model = _glm_model()
+    cfg, sched, states = _fleet(model, GLM_TUNE, STEP_PARITY_CHAINS, torch.float64, 21)
+    (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, states, 0, 8, 8, False)
+    warm_err = _held(failed, _check_warmup_f64, "GLM warmup window", 8, s_k, b_k, s_p, b_p)
+    warm_yard = _yardstick(8, (s_p, b_p),
+                           _plain_on_cpu(model, cfg, sched, states, 0, 8, 8, False))
+    warm_share = float(((b_k.position - b_p.position).abs()
+                        <= 1e-3 * (1.0 + b_p.position.abs())).double().mean())
+    (f_k, fb_k), (f_p, fb_p) = _steps_both(model, cfg, sched, s_k, 8, 16, 16, True)
+    frozen_err = _held(failed, _check_frozen_f64, "GLM frozen chunk", f_k, fb_k, f_p, fb_p)
+    frozen_yard = _yardstick(16, (f_p, fb_p),
+                             _plain_on_cpu(model, cfg, sched, s_k, 8, 16, 16, True))
+    return {"chains": STEP_PARITY_CHAINS, "n_data": GLM_N_DATA, "dim": GLM_DIM,
+            "warmup": {"draws": 8, "held": warm_err is not None,
+                       "ints_equal": bool(torch.equal(s_k.ints, s_p.ints)),
+                       "max_abs_err_position": max_abs(b_k.position, b_p.position),
+                       "share_within_1e-3": warm_share, "rtol": 1e-3,
+                       "plain_card_vs_cpu": warm_yard},
+            "frozen": {"draws": 16, "held": frozen_err is not None,
+                       "ints_equal": bool(torch.equal(f_k.ints, f_p.ints)),
+                       "max_abs_err_position": max_abs(fb_k.position, fb_p.position),
+                       "rtol": 1e-6, "atol": 1e-8,
+                       "plain_card_vs_cpu": frozen_yard}}
+
+
+def phase_step_parity(ctx):
+    import torch
+
+    from nutpie_tpu_torch.models import ill_conditioned_gaussian
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+
+    ns = SCALAR_SLOTS["n_steps"]
+    failed = []
+
+    # float32 at the main shapes, from a fleet the step runner warmed
+    model32, cfg32, sched32, warm32 = _glm_warm_fleet(25)
+    ctx["glm_warm"] = (model32, cfg32, sched32, warm32)
+    (g_k, gb_k), (_, gb_p) = _steps_both(model32, cfg32, sched32, warm32, GLM_TUNE,
+                                         GLM_CHUNK, GLM_CHUNK, True)
+    f32 = _f32_shares(GLM_CHUNK, g_k, gb_k, gb_p)
+    del g_k, gb_k, gb_p
+
+    glm64 = glm_f64_parity(failed)
+
+    ill = ill_conditioned_gaussian(dim=ILL_DIM)
+    icfg, isched, istates = _fleet(ill, GLM_TUNE, ILL_CHAINS, torch.float64, 23)
+    (i_k, ib_k), (i_p, ib_p) = _steps_both(ill, icfg, isched, istates, 0, 8, 8, True)
+    ill_ints = bool(torch.equal(i_k.ints, i_p.ints))
+    ill_steps = nan_equal(ib_k.scalars[..., ns], ib_p.scalars[..., ns])
+
+    ctx["step_max_abs_err"] = glm64["frozen"]["max_abs_err_position"]
+    emit({
+        "phase": "step_parity",
+        "glm_f64": glm64,
+        "gaussian1000_f64": {"chains": ILL_CHAINS, "dim": ILL_DIM, "draws": 8,
+                             "ints_equal": ill_ints, "n_steps_equal": ill_steps,
+                             "max_rel_diff_position": max_rel(ib_k.position, ib_p.position),
+                             "leapfrogs": int(ib_k.scalars[..., ns].nansum())},
+        "glm_f32": {"chains": GLM_CHAINS, "draws": GLM_CHUNK, "all_finite": True,
+                    "tol": F32_TOL, **f32},
+        "failed": failed,
+        "card": ctx["card"],
+    })
+    assert not failed, failed
+    assert ill_ints and ill_steps, "1000-d Gaussian: ints or step counts differ"
+    assert f32["share_equal_n_steps"] >= F32_MIN_SHARE_STEPS, f32
+    assert f32["share_draws_within_tol"] >= F32_MIN_SHARE_DRAWS, f32
+
+
+def machine_steps(n_steps, chunk_len: int, unroll: int) -> int:
+    """Machine steps of a run from its draws' step counts ``[C, draws]``:
+    each chain takes one leapfrog per step, a chunk runs until its slowest
+    chain is done, and the loop reads "all done" every ``unroll`` steps."""
+    import numpy as np
+
+    total = 0
+    for start in range(0, n_steps.shape[1], chunk_len):
+        per_chain = n_steps[:, start:start + chunk_len].astype(np.int64).sum(axis=1)
+        total += -(-int(per_chain.max()) // unroll) * unroll
+    return total
+
+
+def laplace(X, y, iters: int = 50):
+    """Mode and covariance of the Laplace approximation of the GLM's
+    posterior (prior N(0, 1) per coefficient), by Newton's method in
+    float64."""
+    import numpy as np
+
+    X, y = X.astype(np.float64), y.astype(np.float64)
+    beta = np.zeros(X.shape[1])
+    for _ in range(iters):
+        p = 1.0 / (1.0 + np.exp(-(X @ beta)))
+        grad = X.T @ (y - p) - beta
+        hess = X.T @ (X * (p * (1.0 - p))[:, None]) + np.eye(X.shape[1])
+        beta = beta + np.linalg.solve(hess, grad)
+    p = 1.0 / (1.0 + np.exp(-(X @ beta)))
+    hess = X.T @ (X * (p * (1.0 - p))[:, None]) + np.eye(X.shape[1])
+    return beta, np.linalg.inv(hess)
+
+
+def importance_mean(X, y, mode, cov, n: int = 20000, seed: int = 0):
+    """The GLM's posterior mean by importance sampling from its Laplace
+    approximation (float64 numpy), and the sample's effective size: the
+    mean the sampler should reach, where the mode differs from it by the
+    posterior's skew."""
+    import numpy as np
+
+    X, y = X.astype(np.float64), y.astype(np.float64)
+    rng = np.random.default_rng(seed)
+    chol = np.linalg.cholesky(cov)
+    z = rng.standard_normal((n, len(mode)))
+    beta = mode + z @ chol.T
+    logits = beta @ X.T
+    logp = (y * logits - np.logaddexp(0.0, logits)).sum(1) - 0.5 * (beta * beta).sum(1)
+    logw = logp + 0.5 * (z * z).sum(1)
+    w = np.exp(logw - logw.max())
+    return (w[:, None] * beta).sum(0) / w.sum(), float(w.sum() ** 2 / (w * w).sum())
+
+
+def phase_glm(ctx):
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.models.analytic import glm_data
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.run import CUDA_UNROLL
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    compiled = compile_model_def(_glm_model())
+    torch.cuda.synchronize()
+    step_kernel.launches = 0
+    chunk_kernel.launches = 0
+    t0 = time.perf_counter()
+    raw = nt.sample(compiled, chains=GLM_CHAINS, tune=GLM_TUNE, draws=GLM_DRAWS,
+                    seed=42, chunk_size=GLM_CHUNK, precision="float32", device=DEVICE,
+                    return_raw_trace=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, k1 = step_kernel.launches, chunk_kernel.launches
+    n_steps = raw["stats"]["n_steps"]
+    steps = machine_steps(n_steps, GLM_CHUNK, CUDA_UNROLL)
+    assert k1 == 0, f"the chunk kernel launched {k1} times on the GLM path"
+    assert k2 == 2 * steps, f"step kernel launched {k2} times for {steps} machine steps"
+
+    pos = raw["position"]
+    assert pos.shape == (GLM_CHAINS, GLM_TUNE + GLM_DRAWS, GLM_DIM), pos.shape
+    assert pos.dtype == np.float32, pos.dtype
+    assert np.isfinite(pos).all(), "non-finite draws"
+    grads = int(n_steps.astype(np.int64).sum())
+    post = pos[:, GLM_TUNE:, :]
+    ess, rhat = column_diagnostics(post, GLM_MONITORED)
+    min_ess = float(np.min(ess))
+    assert np.isfinite(min_ess) and min_ess > 0, ess
+    assert max(rhat) < 1.05, f"split R-hat {max(rhat)} on a monitored column"
+    X, y = glm_data(GLM_N_DATA, GLM_DIM)
+    mode, cov = laplace(X, y)
+    sd = np.sqrt(np.diag(cov))
+    mean = post.reshape(-1, GLM_DIM).mean(axis=0, dtype=np.float64)
+    dev = np.abs(mean - mode) / sd
+    is_mean, is_ess = importance_mean(X, y, mode, cov)
+    is_dev = np.abs(mean - is_mean) / sd
+    assert is_dev.max() <= IMPORTANCE_SD_TOL, \
+        f"posterior mean {is_dev.max()} sd from the importance-sampled mean"
+    assert dev.max() <= LAPLACE_SD_TOL, f"posterior mean {dev.max()} sd from the Laplace mode"
+    ctx["glm_launches"] = k2
+    emit({
+        "phase": "glm", "chains": GLM_CHAINS, "tune": GLM_TUNE, "draws": GLM_DRAWS,
+        "n_data": GLM_N_DATA, "dim": GLM_DIM, "chunk_len": GLM_CHUNK, "dtype": "float32",
+        "step_kernel_launches": k2, "chunk_kernel_launches": k1, "machine_steps": steps,
+        "unroll": CUDA_UNROLL, "wall_s": wall, "host_wall_ms_per_machine_step": 1e3 * wall / steps,
+        "gradients": grads, "grads_per_s": grads / wall, "min_bulk_ess": min_ess,
+        "min_ess_per_s": min_ess / wall, "min_ess_per_grad": min_ess / grads,
+        "max_rhat": float(max(rhat)), "posterior_divergences":
+            int(raw["stats"]["diverging"][:, GLM_TUNE:].sum()),
+        "laplace_max_dev_sd": float(dev.max()), "laplace_tol_sd": LAPLACE_SD_TOL,
+        "importance_mean_max_dev_sd": float(is_dev.max()),
+        "importance_tol_sd": IMPORTANCE_SD_TOL, "importance_ess": is_ess,
+        "card": ctx["card"],
+    })
+
+
+def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
+               depth_slots: int, itemsize: int) -> dict:
+    """Bytes the step kernel must move over one frozen chunk, counted from
+    csrc/step_kernel.cu for this chunk's trees (each row a launch touches
+    read once and written once; the multinomial's copies of the proposal
+    rows, which depend on the uniforms, are left out, so it is a lower
+    bound).  Subtrees before a draw's last are full, so a draw of depth d
+    and n steps has subtrees of 1, 2, ..., 2^(d-2) leaves and a last of
+    n_last = n - 2^(d-1) + 1; a subtree of m leaves pushes ceil(m/2)
+    checkpoints, and the checks and merges count as in ``chunk_ops``."""
+    import numpy as np
+
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+
+    s = scalars[:, :limit].double().cpu().numpy()
+    n = s[..., SCALAR_SLOTS["n_steps"]].astype(np.int64).reshape(-1)
+    d = s[..., SCALAR_SLOTS["depth"]].astype(np.int64).reshape(-1)
+    n_last = n - (2 ** (d - 1) - 1)
+    popcount = sum((n_last >> b) & 1 for b in range(32))
+    leapfrogs = int(n.sum())
+    checks = int((n - (d - 1) - popcount).sum())
+    merges = int((d - 1).sum())
+    pushes = int((np.where(d >= 2, 2 ** np.maximum(d - 2, 0), 0) + (n_last + 1) // 2).sum())
+    subtrees = int(d.sum())
+    draws = int(n.size)
+    done_steps = n_chains * steps - leapfrogs
+    T, row = itemsize, dim * itemsize
+    ints, flts = 15 * 4, 12 * T
+    # begin: the edge's z, p, g and the inverse mass in, z_new, the
+    # uniforms, the flag and the direction out; a subtree's first step
+    # stashes the edge momentum; a done chain copies its position
+    begin = (leapfrogs * (4 * row + row + ints + T + 16 + 12 + 4 + 4)
+             + subtrees * row + done_steps * (2 * row + ints))
+    # finish: z_new, the gradient, logp, the edge's p and g, the inverse
+    # mass and rho_sub in; the edge's z, p, g and rho_sub out; the scalars
+    # in and out; pushes, subtree checks (two slot rows each), merges (rho,
+    # the far edge, two slots in, rho out), draws (the proposal in, the
+    # draw and the committed position and gradient out, the scalar row),
+    # and each next draw's start (momentum and inverse mass in, 12 rows out)
+    finish = (leapfrogs * (6 * row + 4 * row + 2 * (ints + flts) + 12 * T + T + 12)
+              + pushes * 2 * row + checks * 2 * row + merges * 5 * row
+              + draws * (2 * row + 3 * row + 12 * T)
+              + (draws - n_chains) * (2 * row + T + 12 * row)
+              + done_steps * ints)
+    return {"bytes": begin + finish, "begin_bytes": begin, "finish_bytes": finish,
+            "leapfrogs": leapfrogs, "subtree_checks": checks, "merges": merges,
+            "pushes": pushes, "draws": draws, "done_chain_steps": done_steps}
+
+
+def step_ops(work: dict, dim: int) -> int:
+    """Operations of the step kernel for a chunk's trees, per coordinate as
+    in ``chunk_ops`` (the machine step's arithmetic, no model)."""
+    return (work["leapfrogs"] * (OPS_LEAF_SCALAR + OPS_LEAPFROG_PER_COORD * dim)
+            + work["subtree_checks"] * OPS_SUBTREE_CHECK_PER_COORD * dim
+            + work["merges"] * OPS_MERGE_PER_COORD * dim
+            + work["draws"] * OPS_START_DRAW_PER_COORD * dim)
+
+
+def phase_step_timing(ctx):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nutpie_tpu_torch.sampler.nuts import init_buffers, start_draw
+    from nutpie_tpu_torch.sampler.run import CUDA_UNROLL, draw_randoms, make_chunk_runner
+    from nutpie_tpu_torch.sampler.state import state_with
+    from nutpie_tpu_torch.sampler.step_kernel import PlainSteps, step_kernel
+
+    model, cfg, sched, states = ctx["glm_warm"]
+    dtype, start, chunk = torch.float32, GLM_TUNE, GLM_CHUNK
+    mom, jit = draw_randoms(states.key, start, chunk, GLM_DIM, dtype)
+
+    def prepared():
+        """The runner's preparation of the chunk: buffers, start_draw, a copy."""
+        bufs = init_buffers(chunk, GLM_DIM, dtype, GLM_CHAINS, device=DEVICE)
+        st = start_draw(cfg, sched, state_with(states, done=False),
+                        mom[:, 0], jit[:, 0]).clone()
+        return st, bufs
+
+    # K2 and the logp, step by step, by device time under the profiler
+    # (the runner's loop: an "all done" read every CUDA_UNROLL steps)
+    st, bufs = prepared()
+    steps = step_kernel.chunk(cfg, sched, start, chunk, st, mom, jit, bufs, True)
+    torch.cuda.synchronize()
+    n_steps = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while True:
+            z_new, carry = steps.begin(st)
+            logp, grad = model.logp_and_grad(z_new)
+            st = steps.finish(st, z_new, carry, logp, grad)
+            n_steps += 1
+            if n_steps % CUDA_UNROLL == 0 and bool(st.done.all()):
+                break
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    dev = {half: sum(r[0] for r in rows if f"step_{half}" in r[1]) for half in ("begin", "finish")}
+    logp_s = sum(r[0] for r in rows) - dev["begin"] - dev["finish"]
+    gemm_s = sum(r[0] for r in rows if _is_gemm(r[1]))
+
+    # the same steps by CUDA events around each call, with no host read in
+    # the loop (stepping a done chain is a no-op), so the host stays ahead
+    # of the card and no event pair spans an idle gap
+    est, ebufs = prepared()
+    esteps = step_kernel.chunk(cfg, sched, start, chunk, est, mom, jit, ebufs, True)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+             for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    for ev in marks:
+        ev[0].record()
+        z_new, carry = esteps.begin(est)
+        ev[1].record()
+        logp, grad = model.logp_and_grad(z_new)
+        ev[2].record()
+        est = esteps.finish(est, z_new, carry, logp, grad)
+        ev[3].record()
+    torch.cuda.synchronize()
+    assert bool(est.done.all()) and bitwise_equal(ebufs.position, bufs.position)
+    event_ms = {part: sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / n_steps
+                for i, part in enumerate(("begin", "logp_grad", "finish"))}
+
+    # the plain halves, step by step, by CUDA events after a synchronize
+    pst, pbufs = prepared()
+    plain = PlainSteps(cfg, sched, start, chunk, pst, mom, jit, pbufs, True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    plain_ms = {"begin": 0.0, "finish": 0.0}
+    plain_steps = 0
+    while not bool(pst.done.all()):
+        torch.cuda.synchronize()
+        ev[0].record()
+        z_new, carry = plain.begin(pst)
+        ev[1].record()
+        logp, grad = model.logp_and_grad(z_new)
+        torch.cuda.synchronize()
+        ev[2].record()
+        pst = plain.finish(pst, z_new, carry, logp, grad)
+        ev[3].record()
+        torch.cuda.synchronize()
+        plain_ms["begin"] += ev[0].elapsed_time(ev[1])
+        plain_ms["finish"] += ev[2].elapsed_time(ev[3])
+        plain_steps += 1
+
+    # the whole chunk through the runner at each unroll, in turns
+    unroll_ms = {u: [] for u in UNROLLS}
+    for u in UNROLLS + UNROLLS[::-1]:
+        run = make_chunk_runner(model, cfg, chunk, dtype, adapt_frozen=True, unroll=u)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(states, start, chunk, sched)
+        torch.cuda.synchronize()
+        unroll_ms[u].append(1e3 * (time.perf_counter() - t0))
+
+    work = step_bytes(bufs.scalars, chunk, GLM_CHAINS, n_steps, GLM_DIM,
+                      st.ckpt_p.shape[1], 4)
+    t_bytes = 1e3 * work["bytes"] / PEAK_BYTES / n_steps
+    t_ops = 1e3 * step_ops(work, GLM_DIM) / PEAK_F32_OPS / n_steps
+    k2_ms = event_ms["begin"] + event_ms["finish"]
+    ctx.update(step_ms=k2_ms, step_plain_ms=(plain_ms["begin"] + plain_ms["finish"]) / plain_steps,
+               step_bound_ms=max(t_bytes, t_ops),
+               step_bound_by="bytes" if t_bytes >= t_ops else "operations")
+    emit({
+        "phase": "step_timing", "chains": GLM_CHAINS, "dim": GLM_DIM, "chunk": chunk,
+        "dtype": "float32", "machine_steps": n_steps,
+        "k2_ms_per_step": k2_ms,
+        "k2_begin_ms_per_step": event_ms["begin"],
+        "k2_finish_ms_per_step": event_ms["finish"],
+        "logp_grad_ms_per_step": event_ms["logp_grad"],
+        "k2_device_ms_per_step": 1e3 * (dev["begin"] + dev["finish"]) / n_steps,
+        "k2_begin_device_ms_per_step": 1e3 * dev["begin"] / n_steps,
+        "k2_finish_device_ms_per_step": 1e3 * dev["finish"] / n_steps,
+        "logp_grad_device_ms_per_step": 1e3 * logp_s / n_steps,
+        "logp_matmul_device_ms_per_step": 1e3 * gemm_s / n_steps,
+        "host_wall_ms_per_step_profiled": 1e3 * profiled_wall / n_steps,
+        "plain_begin_ms_per_step": plain_ms["begin"] / plain_steps,
+        "plain_finish_ms_per_step": plain_ms["finish"] / plain_steps,
+        "plain_machine_steps": plain_steps,
+        "bytes_per_step": work["bytes"] / n_steps, "bytes_bound_ms_per_step": t_bytes,
+        "ops_bound_ms_per_step": t_ops, "share_of_bound": max(t_bytes, t_ops) / k2_ms,
+        **{k: v for k, v in work.items() if k != "bytes"},
+        "unroll_chunk_ms": {str(u): v for u, v in unroll_ms.items()},
+        "top_device_events": [{"name": k[:80], "count": c, "self_device_ms": d * 1e3}
+                              for d, k, c in rows[:8]],
         "card": ctx["card"],
     })
 
@@ -728,13 +1317,16 @@ def phase_profile(ctx):
 PHASES = {
     "build": phase_build,
     "parity": phase_parity,
+    "step_parity": phase_step_parity,
     "main": phase_main,
+    "glm": phase_glm,
     "warmup": phase_warmup,
     "timing": phase_timing,
+    "step_timing": phase_step_timing,
     "profile": phase_profile,
 }
 # phases whose results a later phase reads
-NEEDS = {"timing": "warmup"}
+NEEDS = {"timing": "warmup", "step_timing": "step_parity"}
 
 
 def main() -> int:
@@ -764,12 +1356,27 @@ def main() -> int:
     asked = {p for p in args.phases.split(",") if p}
     asked |= {"build"} | {NEEDS[p] for p in asked if p in NEEDS}
     phases = [p for p in PHASES if p in asked]
+    # every phase runs, so one call reads them all; any failure fails the run
+    failed, seconds = [], {}
     for name in phases:
-        PHASES[name](ctx)
+        t0 = time.perf_counter()
+        try:
+            PHASES[name](ctx)
+        except Exception:
+            traceback.print_exc()
+            print(f"chip_smoke: phase {name} failed", file=sys.stderr, flush=True)
+            failed.append(name)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+    emit({"phase_seconds": seconds})
+    if failed:
+        print(f"chip_smoke: failed phases {failed}; no result line", file=sys.stderr)
+        return 1
 
     full = len(phases) == len(PHASES)
     if full:
         from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+
+        from nutpie_tpu_torch.sampler.step_kernel import step_kernel
 
         emit({"kernels": [{
             "name": chunk_kernel.name,
@@ -786,6 +1393,20 @@ def main() -> int:
             "resident_chains_per_sm": ctx["geometry"]["float32"]["resident_chains_per_sm"],
             "ms_per_chunk": ctx["ms"],
             "plain_ms_per_chunk": ctx["plain_ms"],
+            "parity": "ok",
+        }, {
+            "name": step_kernel.name,
+            "route": "cuda",
+            "source": step_kernel.source,
+            "replaces": step_kernel.replaces,
+            "launches": ctx["glm_launches"],
+            "max_abs_err": ctx["step_max_abs_err"],
+            "ms": ctx["step_ms"],
+            "plain_ms": ctx["step_plain_ms"],
+            "bound_ms": ctx["step_bound_ms"],
+            "bound_by": ctx["step_bound_by"],
+            "library_ms": None,
+            "ms_per_machine_step": ctx["step_ms"],
             "parity": "ok",
         }]})
     print(ctx["card"], flush=True)

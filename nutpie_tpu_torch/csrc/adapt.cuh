@@ -7,7 +7,9 @@
 // Run by the chain's warp: the scalars (af) are lane-uniform registers,
 // the inverse mass a row of the warp's shared slice, and the eight Welford
 // rows stay in global memory (the chain's adapt_vecs rows, in L2), read and
-// written once per tuning draw by the lanes that own each coordinate.
+// written once per tuning draw by the lanes that own each coordinate.  The
+// step kernel (step_kernel.cu) runs the same arithmetic in a strided form
+// over rows that all stay in global memory (diag_adapt_update_strided).
 #pragma once
 
 #include "warp.cuh"
@@ -43,6 +45,118 @@ __device__ __forceinline__ void welford_add(T& mean, T& m2, T count_new, T x) {
   m2 = m2 + delta * (x - mean);
 }
 
+// The window schedule and the Welford counts of one tuning draw
+// (lane-uniform): counts after the add (`ok`: the draw is finite and not
+// divergent) and after the switch.
+template <typename T>
+struct AdaptWindow {
+  bool frozen, sw;
+  T dc, gc, dbc, gbc, dcur, gcur;
+
+  __device__ __forceinline__ AdaptWindow(const MkConfig& cfg, const Sched& s,
+                                         const T* af, int draw_idx, bool ok) {
+    frozen = draw_idx >= s.freeze_start;
+    const int freq = draw_idx < s.early_end ? cfg.early_switch_freq
+                                            : cfg.switch_freq;
+    sw = !frozen && draw_idx > 0 && ((draw_idx + 1) % freq == 0);
+    const T add = ok ? T(1) : T(0);
+    dc = af[AF_DRAWS_CUR_COUNT] + add;
+    gc = af[AF_GRADS_CUR_COUNT] + add;
+    dbc = af[AF_DRAWS_BG_COUNT] + add;
+    gbc = af[AF_GRADS_BG_COUNT] + add;
+    dcur = sw ? dbc : dc;
+    gcur = sw ? gbc : gc;
+  }
+};
+
+// Welford adds of coordinate x/g into the four accumulators of one
+// coordinate (`row` = the chain's adapt_vecs + the coordinate, stride
+// dim), then the switch; returns the current window's m2 of the draws and
+// of the gradients.
+template <typename T>
+__device__ __forceinline__ void welford_coord(const AdaptWindow<T>& w, bool ok,
+                                              T* row, int dim, T x, T g,
+                                              T& dv_out, T& gv_out) {
+  T dm = row[A_DRAWS_CUR_MEAN * dim], dv = row[A_DRAWS_CUR_M2 * dim];
+  T gm = row[A_GRADS_CUR_MEAN * dim], gv = row[A_GRADS_CUR_M2 * dim];
+  T dbm = row[A_DRAWS_BG_MEAN * dim], dbv = row[A_DRAWS_BG_M2 * dim];
+  T gbm = row[A_GRADS_BG_MEAN * dim], gbv = row[A_GRADS_BG_M2 * dim];
+  if (ok) {
+    welford_add(dm, dv, w.dc, x);
+    welford_add(gm, gv, w.gc, g);
+    welford_add(dbm, dbv, w.dbc, x);
+    welford_add(gbm, gbv, w.gbc, g);
+  }
+  if (w.sw) {
+    dm = dbm; dv = dbv; gm = gbm; gv = gbv;
+    dbm = T(0); dbv = T(0); gbm = T(0); gbv = T(0);
+  }
+  row[A_DRAWS_CUR_MEAN * dim] = dm;
+  row[A_DRAWS_CUR_M2 * dim] = dv;
+  row[A_GRADS_CUR_MEAN * dim] = gm;
+  row[A_GRADS_CUR_M2 * dim] = gv;
+  row[A_DRAWS_BG_MEAN * dim] = dbm;
+  row[A_DRAWS_BG_M2 * dim] = dbv;
+  row[A_GRADS_BG_MEAN * dim] = gbm;
+  row[A_GRADS_BG_M2 * dim] = gbv;
+  dv_out = dv;
+  gv_out = gv;
+}
+
+// The clipped inverse-mass estimate of one coordinate from the current
+// window's m2 of the draws (dv) and of the gradients (gv).
+template <typename T>
+__device__ __forceinline__ T mass_estimate(const MkConfig& cfg,
+                                           const AdaptWindow<T>& w, T dv, T gv) {
+  const T one = T(1);
+  const T min_var = T(cfg.min_variance);
+  const T draw_var = dv / jmax(w.dcur - one, one);
+  T e;
+  if (cfg.use_grad_based_estimate) {
+    const T grad_var = gv / jmax(w.gcur - one, one);
+    e = sqrt(jmax(draw_var, min_var) / jmax(grad_var, min_var));
+  } else {
+    // Stan-style shrinkage toward unit scale
+    e = (w.dcur / (w.dcur + T(5))) * draw_var + T(1e-3) * (T(5) / (w.dcur + T(5)));
+  }
+  return jclip(e, min_var, T(cfg.max_variance));
+}
+
+// The rate-limited new inverse mass of one coordinate (old value `old`)
+// and its contribution to the ratio of the step shift.
+template <typename T>
+__device__ __forceinline__ T mass_update(const MkConfig& cfg,
+                                         const AdaptWindow<T>& w, bool use_est,
+                                         T est, T old, T& ratio) {
+  T m = use_est ? est : old;
+  m = jclip(m, old * T(0.5), old * T(2.0));
+  if (w.frozen) m = old;
+  ratio = jmax(ratio, m / jmax(old, T(cfg.min_variance)));
+  return m;
+}
+
+// The step-size scalars after the metric update: dual averaging, the
+// matched shift for the largest metric ratio, the restart at a switch and
+// the Welford counts.
+template <typename T>
+__device__ __forceinline__ void adapt_scalars(const MkConfig& cfg,
+                                              const AdaptWindow<T>& w, T* af,
+                                              T ratio, T accept) {
+  dual_avg_update(cfg, af, accept);
+  const T shift = T(-0.5) * log(jclip(ratio, T(1), T(2)));
+  af[AF_LOG_STEP] = af[AF_LOG_STEP] + shift;
+  af[AF_MU] = af[AF_MU] + shift;
+  if (w.sw) {
+    af[AF_HBAR] = T(0);
+    af[AF_MU] = T(log(2.0)) + af[AF_LOG_STEP];
+    af[AF_DA_COUNT] = T(0);
+  }
+  af[AF_DRAWS_CUR_COUNT] = w.dcur;
+  af[AF_GRADS_CUR_COUNT] = w.gcur;
+  af[AF_DRAWS_BG_COUNT] = w.sw ? T(0) : w.dbc;
+  af[AF_GRADS_BG_COUNT] = w.sw ? T(0) : w.gbc;
+}
+
 // One tuning draw's update.  The draw is the rows (x, gr) (prop_z/prop_g);
 // `diverging` and `accept` are lane-uniform.  `av` is the chain's
 // [N_ADAPT_VEC, dim] rows in global memory; `im` the inverse mass row in
@@ -53,8 +167,6 @@ __device__ __forceinline__ void diag_adapt_update(
     const MkConfig& cfg, const Sched& s, int lane, T* av, T* im, T* af,
     const T* x, const T* gr, int draw_idx, bool diverging, T accept) {
   const int dim = cfg.dim;
-  const T min_var = T(cfg.min_variance);
-  const T max_var = T(cfg.max_variance);
 
   bool fin = true;
 #pragma unroll
@@ -63,21 +175,7 @@ __device__ __forceinline__ void diag_adapt_update(
     if (i < dim) fin = fin && isfinite(x[i]) && isfinite(gr[i]);
   }
   const bool ok = __all_sync(kFullMask, fin) && !diverging;
-
-  // window schedule
-  const bool frozen = draw_idx >= s.freeze_start;
-  const int freq = draw_idx < s.early_end ? cfg.early_switch_freq
-                                          : cfg.switch_freq;
-  const bool sw = !frozen && draw_idx > 0 && ((draw_idx + 1) % freq == 0);
-
-  // counts after the add and the switch
-  const T one = T(1);
-  const T dc = af[AF_DRAWS_CUR_COUNT] + (ok ? one : T(0));
-  const T gc = af[AF_GRADS_CUR_COUNT] + (ok ? one : T(0));
-  const T dbc = af[AF_DRAWS_BG_COUNT] + (ok ? one : T(0));
-  const T gbc = af[AF_GRADS_BG_COUNT] + (ok ? one : T(0));
-  const T dcur = sw ? dbc : dc;
-  const T gcur = sw ? gbc : gc;
+  const AdaptWindow<T> w(cfg, s, af, draw_idx, ok);
 
   // Welford adds, switch, and the estimate from the current window
   T est[NPL];
@@ -87,44 +185,12 @@ __device__ __forceinline__ void diag_adapt_update(
     const int i = lane + kLanes * r;
     est[r] = T(0);
     if (i >= dim) continue;
-    T* row = av + i;
-    T dm = row[A_DRAWS_CUR_MEAN * dim], dv = row[A_DRAWS_CUR_M2 * dim];
-    T gm = row[A_GRADS_CUR_MEAN * dim], gv = row[A_GRADS_CUR_M2 * dim];
-    T dbm = row[A_DRAWS_BG_MEAN * dim], dbv = row[A_DRAWS_BG_M2 * dim];
-    T gbm = row[A_GRADS_BG_MEAN * dim], gbv = row[A_GRADS_BG_M2 * dim];
-    if (ok) {
-      welford_add(dm, dv, dc, x[i]);
-      welford_add(gm, gv, gc, gr[i]);
-      welford_add(dbm, dbv, dbc, x[i]);
-      welford_add(gbm, gbv, gbc, gr[i]);
-    }
-    if (sw) {
-      dm = dbm; dv = dbv; gm = gbm; gv = gbv;
-      dbm = T(0); dbv = T(0); gbm = T(0); gbv = T(0);
-    }
-    row[A_DRAWS_CUR_MEAN * dim] = dm;
-    row[A_DRAWS_CUR_M2 * dim] = dv;
-    row[A_GRADS_CUR_MEAN * dim] = gm;
-    row[A_GRADS_CUR_M2 * dim] = gv;
-    row[A_DRAWS_BG_MEAN * dim] = dbm;
-    row[A_DRAWS_BG_M2 * dim] = dbv;
-    row[A_GRADS_BG_MEAN * dim] = gbm;
-    row[A_GRADS_BG_M2 * dim] = gbv;
-
-    const T draw_var = dv / jmax(dcur - one, one);
-    T e;
-    if (cfg.use_grad_based_estimate) {
-      const T grad_var = gv / jmax(gcur - one, one);
-      e = sqrt(jmax(draw_var, min_var) / jmax(grad_var, min_var));
-    } else {
-      // Stan-style shrinkage toward unit scale
-      e = (dcur / (dcur + T(5))) * draw_var + T(1e-3) * (T(5) / (dcur + T(5)));
-    }
-    e = jclip(e, min_var, max_var);
-    est[r] = e;
-    est_fin = est_fin && isfinite(e);
+    T dv, gv;
+    welford_coord(w, ok, av + i, dim, x[i], gr[i], dv, gv);
+    est[r] = mass_estimate(cfg, w, dv, gv);
+    est_fin = est_fin && isfinite(est[r]);
   }
-  const bool use_est = __all_sync(kFullMask, est_fin) && dcur > T(2);
+  const bool use_est = __all_sync(kFullMask, est_fin) && w.dcur > T(2);
 
   // rate-limited update of the metric and the ratio for the step shift
   T ratio = -T(INFINITY);
@@ -132,29 +198,47 @@ __device__ __forceinline__ void diag_adapt_update(
   for (int r = 0; r < NPL; ++r) {
     const int i = lane + kLanes * r;
     if (i >= dim) continue;
-    const T old = im[i];
-    T m = use_est ? est[r] : old;
-    m = jclip(m, old * T(0.5), old * T(2.0));
-    if (frozen) m = old;
-    ratio = jmax(ratio, m / jmax(old, min_var));
+    const T m = mass_update(cfg, w, use_est, est[r], im[i], ratio);
     im[i] = m;
     av[A_INV_MASS * dim + i] = m;
   }
   ratio = warp_max(ratio);
+  adapt_scalars(cfg, w, af, ratio, accept);
+}
 
-  dual_avg_update(cfg, af, accept);
-  const T shift = T(-0.5) * log(jclip(ratio, T(1), T(2)));
-  af[AF_LOG_STEP] = af[AF_LOG_STEP] + shift;
-  af[AF_MU] = af[AF_MU] + shift;
-  if (sw) {
-    af[AF_HBAR] = T(0);
-    af[AF_MU] = T(log(2.0)) + af[AF_LOG_STEP];
-    af[AF_DA_COUNT] = T(0);
+// The same update for a chain whose rows all stay in global memory and
+// whose lanes stride over any number of coordinates (the step kernel):
+// the inverse mass is the A_INV_MASS row of `av`, and the estimate is
+// recomputed from the written m2 rows instead of held in registers.
+template <typename T>
+__device__ __forceinline__ void diag_adapt_update_strided(
+    const MkConfig& cfg, const Sched& s, int lane, T* av, T* af,
+    const T* x, const T* gr, int draw_idx, bool diverging, T accept) {
+  const int dim = cfg.dim;
+  bool fin = true;
+  for (int i = lane; i < dim; i += kLanes) {
+    fin = fin && isfinite(x[i]) && isfinite(gr[i]);
   }
-  af[AF_DRAWS_CUR_COUNT] = dcur;
-  af[AF_GRADS_CUR_COUNT] = gcur;
-  af[AF_DRAWS_BG_COUNT] = sw ? T(0) : dbc;
-  af[AF_GRADS_BG_COUNT] = sw ? T(0) : gbc;
+  const bool ok = __all_sync(kFullMask, fin) && !diverging;
+  const AdaptWindow<T> w(cfg, s, af, draw_idx, ok);
+
+  bool est_fin = true;
+  for (int i = lane; i < dim; i += kLanes) {
+    T dv, gv;
+    welford_coord(w, ok, av + i, dim, x[i], gr[i], dv, gv);
+    est_fin = est_fin && isfinite(mass_estimate(cfg, w, dv, gv));
+  }
+  const bool use_est = __all_sync(kFullMask, est_fin) && w.dcur > T(2);
+
+  T ratio = -T(INFINITY);
+  for (int i = lane; i < dim; i += kLanes) {
+    const T est = mass_estimate(cfg, w, av[A_DRAWS_CUR_M2 * dim + i],
+                                av[A_GRADS_CUR_M2 * dim + i]);
+    T* im = av + A_INV_MASS * dim + i;
+    *im = mass_update(cfg, w, use_est, est, *im, ratio);
+  }
+  ratio = warp_max(ratio);
+  adapt_scalars(cfg, w, af, ratio, accept);
 }
 
 }  // namespace nutpie

@@ -1,0 +1,564 @@
+// NUTS step kernel (K2) for Hopper (sm_90a): the machine step around a
+// batched log density, as two launches per step.
+//
+// Replaces the body of the JAX package's XLA chunk loop
+// (nutpie_tpu/sampler/run.py:make_chunk_runner, :432-440: the vmapped
+// machine_step with the model's logp inside).  It is not a port of a
+// Pallas kernel.  Any model with a batched torch log density runs through
+// it: step_begin computes, for every chain, the step's uniforms, the
+// direction, the slot-(D-1) momentum stash, the first half-kick and the
+// drift, and writes z_new; the caller evaluates logp and gradient at
+// z_new for all chains in one torch call; step_finish takes the second
+// half-kick and does the rest of the step (leaf, multinomial choice,
+// checkpoint stack and U-turn checks, merge, draw completion with its
+// commit, per-draw adaptation and next start_draw).  Same semantics as
+// leapfrog_begin / leapfrog_finish in nutpie_tpu_torch/sampler/nuts.py.
+//
+// What bounds it on this card: bytes.  A step reads and writes a few of a
+// chain's [dim] rows (the edge, rho_sub, the inverse mass, z_new and the
+// gradient; the checkpoint slots a U-turn check reads; the proposal and
+// adaptation rows at a draw's end) and does a handful of operations per
+// coordinate on them, far below the card's 67 operations per byte in
+// float32.  chip_smoke.py counts the bytes from this code for each run's
+// trees (step_bytes).
+//
+// The design is the simple one: one warp per chain and four chains per
+// block, lanes striding over the coordinates (any dim; K1 stops at 256),
+// neighbouring lanes on neighbouring addresses.  Every row stays in device
+// memory and is updated in place; each launch loads only the rows its half
+// touches.  The scalars of a chain are loaded into registers in every lane
+// (lane-uniform), every decision is computed in every lane from the same
+// values, and reductions are xor butterflies (warp.cuh), so no lane waits
+// for another and lane 0 alone writes the scalars back.  A done chain
+// hands the log density its committed position and is otherwise left
+// alone.  The step's uniforms come from the in-kernel Threefry
+// (threefry.cuh), bit-equal to leapfrog_uniforms; the adaptation is
+// adapt.cuh's arithmetic in its strided form.  It is built without FMA
+// contraction (ops/build.py), so it rounds as the plain version does.
+#include <cuda_runtime.h>
+
+#include "adapt.cuh"
+#include "threefry.cuh"
+#include "warp.cuh"
+
+namespace nutpie {
+
+constexpr int kStepWarps = 4;
+constexpr int kStepThreads = kStepWarps * kLanes;
+
+// Device pointers of one launch, as the wrapper passes them (step_kernel.py
+// StepPtrs).  The state tensors are updated in place.
+struct StepPtrs {
+  const int32_t* scal;   // chunk_start, limit, num_tune, early_end, freeze_start, depth_cap
+  const int64_t* key;    // [C, 2] raw Threefry key data
+  void* vecs;            // [C, N_VEC, dim]
+  void* ckpt_p;          // [C, D, dim]
+  void* ckpt_s;          // [C, D, dim]
+  void* flts;            // [C, N_FLT]
+  int32_t* ints;         // [C, N_INT]
+  void* adapt_vecs;      // [C, N_ADAPT_VEC, dim]
+  void* adapt_flts;      // [C, N_ADAPT_FLT]
+  const void* mom;       // [C, L, dim] momentum normals per draw
+  const void* jit;       // [C, L] jitter uniforms per draw
+  void* pos_out;         // [C, L, dim]
+  void* scal_out;        // [C, L, N_SCALAR]
+  void* z_new;           // [C, dim] the point handed to the log density
+  float* u3;             // [C, 3] the step's uniforms (begin -> finish)
+  int32_t* stagnant;     // [C] the step left the position unchanged
+  const void* logp;      // [C] log density at z_new
+  const void* grad;      // [C, dim] its gradient
+};
+
+template <typename T>
+struct StepArgs {
+  MkConfig cfg;
+  const int32_t* scal;
+  const int64_t* key;
+  T* vecs;
+  T* ckpt_p;
+  T* ckpt_s;
+  T* flts;
+  int32_t* ints;
+  T* adapt_vecs;
+  T* adapt_flts;
+  const T* mom;
+  const T* jit;
+  T* pos_out;
+  T* scal_out;
+  T* z_new;
+  float* u3;
+  int32_t* stagnant;
+  const T* logp;
+  const T* grad;
+
+  StepArgs(const MkConfig& c, const StepPtrs& p)
+      : cfg(c), scal(p.scal), key(p.key), vecs(static_cast<T*>(p.vecs)),
+        ckpt_p(static_cast<T*>(p.ckpt_p)), ckpt_s(static_cast<T*>(p.ckpt_s)),
+        flts(static_cast<T*>(p.flts)), ints(p.ints),
+        adapt_vecs(static_cast<T*>(p.adapt_vecs)),
+        adapt_flts(static_cast<T*>(p.adapt_flts)),
+        mom(static_cast<const T*>(p.mom)), jit(static_cast<const T*>(p.jit)),
+        pos_out(static_cast<T*>(p.pos_out)), scal_out(static_cast<T*>(p.scal_out)),
+        z_new(static_cast<T*>(p.z_new)), u3(p.u3), stagnant(p.stagnant),
+        logp(static_cast<const T*>(p.logp)), grad(static_cast<const T*>(p.grad)) {}
+};
+
+__device__ __forceinline__ int chain_of_warp() {
+  return blockIdx.x * kStepWarps + threadIdx.x / kLanes;
+}
+
+// Refresh momentum and reset the trajectory for a new draw (start_draw in
+// nuts.py): every state row from the committed position and gradient.
+template <typename T>
+__device__ __forceinline__ void start_draw_strided(T* fl, int* in,
+                                                   const MkConfig& cfg,
+                                                   const Sched& s, int lane,
+                                                   T* v, const T* im,
+                                                   const T* af, const T* gauss,
+                                                   T jitter_u) {
+  const int dim = cfg.dim;
+  T ke[1] = {T(0)};
+  for (int i = lane; i < dim; i += kLanes) {
+    const T m = im[i];
+    const T p0 = gauss[i] / sqrt(m);
+    ke[0] += p0 * (m * p0);
+    const T z = v[V_POSITION * dim + i];
+    const T g = v[V_GRADIENT * dim + i];
+    v[V_Z_MINUS * dim + i] = z;
+    v[V_P_MINUS * dim + i] = p0;
+    v[V_G_MINUS * dim + i] = g;
+    v[V_Z_PLUS * dim + i] = z;
+    v[V_P_PLUS * dim + i] = p0;
+    v[V_G_PLUS * dim + i] = g;
+    v[V_RHO * dim + i] = p0;
+    v[V_RHO_SUB * dim + i] = T(0);
+    v[V_PROP_Z * dim + i] = z;
+    v[V_PROP_G * dim + i] = g;
+    v[V_SPROP_Z * dim + i] = z;
+    v[V_SPROP_G * dim + i] = g;
+  }
+  warp_sum(ke);
+  const bool tuning = in[I_DRAW_IDX] < s.num_tune;
+  T eps = exp(tuning ? af[AF_LOG_STEP] : af[AF_LOG_STEP_BAR]);
+  if (cfg.has_jitter) {
+    eps = eps * (T(1) + T(cfg.step_size_jitter) * (T(2) * jitter_u - T(1)));
+  }
+  const T logp = fl[F_LOGP];
+  const T h0 = -logp + T(0.5) * ke[0];
+  fl[F_EPS] = eps;
+  fl[F_H0] = h0;
+  fl[F_LOGW_TRAJ] = T(0);
+  fl[F_PROP_LOGP] = logp;
+  fl[F_PROP_ENERGY] = h0;
+  fl[F_LOGW_SUB] = -T(INFINITY);
+  fl[F_SPROP_LOGP] = logp;
+  fl[F_SPROP_ENERGY] = h0;
+  fl[F_SUM_ACC] = T(0);
+  fl[F_KE_MINUS] = T(0);
+  fl[F_KE_PLUS] = T(0);
+  in[I_PROP_IDX] = 0;
+  in[I_DEPTH] = 0;
+  in[I_DIRECTION] = 1;
+  in[I_LEFT_IDX] = 0;
+  in[I_RIGHT_IDX] = 0;
+  in[I_N_LEAVES] = 0;
+  in[I_N_LEAF] = 0;
+  in[I_SPROP_IDX] = 0;
+  in[I_CKPT_TOP] = 0;
+  in[I_DIVERGING] = 0;
+  in[I_TURNING_SUB] = 0;
+}
+
+// The step up to the log density (leapfrog_begin in nuts.py).
+template <typename T>
+__global__ void __launch_bounds__(kStepThreads) step_begin(StepArgs<T> a) {
+  const MkConfig& cfg = a.cfg;
+  const int chain = chain_of_warp();
+  if (chain >= cfg.n_chains) return;  // the whole warp
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int dim = cfg.dim;
+  const int D = cfg.depth_slots;
+  const int32_t* in = a.ints + size_t(chain) * N_INT;
+  const T* v = a.vecs + size_t(chain) * N_VEC * dim;
+  T* zn = a.z_new + size_t(chain) * dim;
+  if (in[I_DONE]) {
+    // a done chain hands the log density its committed position (finite)
+    for (int i = lane; i < dim; i += kLanes) zn[i] = v[V_POSITION * dim + i];
+    return;
+  }
+  const int total_steps = in[I_TOTAL_STEPS];
+  const bool at_start = in[I_N_LEAF] == 0;
+  const int old_direction = in[I_DIRECTION];
+
+  // uniform(fold_in(fold_in(key, 3), total_steps), (3,)): lane l < 3 hashes
+  // element l
+  float u = 0.0f;
+  if (lane < 3) {
+    uint32_t k1 = uint32_t(a.key[2 * chain]), k2 = uint32_t(a.key[2 * chain + 1]);
+    fold_in(k1, k2, 3u);
+    fold_in(k1, k2, uint32_t(total_steps));
+    u = uniform3_element(k1, k2, uint32_t(lane));
+    a.u3[3 * size_t(chain) + lane] = u;
+  }
+  const float u0 = __shfl_sync(kFullMask, u, 0);
+  const int direction = at_start ? (T(u0) < T(0.5) ? -1 : 1) : old_direction;
+  const bool fwd = direction > 0;
+  const T eps_s = T(direction) * a.flts[size_t(chain) * N_FLT + F_EPS];
+  const T half_eps = T(0.5) * eps_s;
+  const T* ze = v + (fwd ? V_Z_PLUS : V_Z_MINUS) * dim;
+  const T* pe = v + (fwd ? V_P_PLUS : V_P_MINUS) * dim;
+  const T* ge = v + (fwd ? V_G_PLUS : V_G_MINUS) * dim;
+  const T* im = a.adapt_vecs + size_t(chain) * N_ADAPT_VEC * dim + A_INV_MASS * dim;
+  // slot D-1 stashes the old edge momentum for the cross U-turn checks
+  T* stash = a.ckpt_p + (size_t(chain) * D + (D - 1)) * dim;
+  bool moved = false;
+  for (int i = lane; i < dim; i += kLanes) {
+    const T p_e = pe[i];
+    if (at_start) stash[i] = p_e;
+    const T z_e = ze[i];
+    const T p_half = p_e + half_eps * ge[i];
+    const T z = z_e + eps_s * (im[i] * p_half);
+    zn[i] = z;
+    moved = moved || (z != z_e);
+  }
+  // an unintegrable step (eps below the position's resolution) is a
+  // divergence; finish reads the flag
+  const bool stagnant = !__any_sync(kFullMask, moved);
+  if (lane == 0) {
+    a.stagnant[chain] = stagnant;
+    a.ints[size_t(chain) * N_INT + I_DIRECTION] = direction;
+  }
+}
+
+// The step after the log density (leapfrog_finish in nuts.py).
+template <typename T>
+__global__ void __launch_bounds__(kStepThreads) step_finish(StepArgs<T> a) {
+  const MkConfig& cfg = a.cfg;
+  const int chain = chain_of_warp();
+  if (chain >= cfg.n_chains) return;  // the whole warp
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int dim = cfg.dim;
+  const int D = cfg.depth_slots;
+  const int L = cfg.chunk_len;
+  T fl[N_FLT];
+  int in[N_INT];
+#pragma unroll
+  for (int k = 0; k < N_INT; ++k) in[k] = a.ints[size_t(chain) * N_INT + k];
+  if (in[I_DONE]) return;
+#pragma unroll
+  for (int k = 0; k < N_FLT; ++k) fl[k] = a.flts[size_t(chain) * N_FLT + k];
+  T af[N_ADAPT_FLT];
+#pragma unroll
+  for (int k = 0; k < N_ADAPT_FLT; ++k) af[k] = a.adapt_flts[size_t(chain) * N_ADAPT_FLT + k];
+  const Sched s{a.scal[0], a.scal[1], a.scal[2], a.scal[3], a.scal[4], a.scal[5]};
+
+  T* v = a.vecs + size_t(chain) * N_VEC * dim;
+  T* av = a.adapt_vecs + size_t(chain) * N_ADAPT_VEC * dim;
+  const T* im = av + A_INV_MASS * dim;
+  T* cp = a.ckpt_p + size_t(chain) * D * dim;
+  T* cs = a.ckpt_s + size_t(chain) * D * dim;
+  const T* zn = a.z_new + size_t(chain) * dim;
+  const T* gn = a.grad + size_t(chain) * dim;
+  const T logp_new = a.logp[chain];
+  const T u1 = T(a.u3[3 * size_t(chain) + 1]);
+  const T u2 = T(a.u3[3 * size_t(chain) + 2]);
+  const bool stagnant = a.stagnant[chain] != 0;
+
+  const int direction = in[I_DIRECTION];  // begin's choice
+  const bool fwd = direction > 0;
+  const T eps_s = T(direction) * fl[F_EPS];
+  const T half_eps = T(0.5) * eps_s;
+  T* ze = v + (fwd ? V_Z_PLUS : V_Z_MINUS) * dim;
+  T* pe = v + (fwd ? V_P_PLUS : V_P_MINUS) * dim;
+  T* ge = v + (fwd ? V_G_PLUS : V_G_MINUS) * dim;
+  const T* p_far = v + (fwd ? V_P_MINUS : V_P_PLUS) * dim;
+  T* rho_sub = v + V_RHO_SUB * dim;
+  T* sz = v + V_SPROP_Z * dim;
+  T* sg = v + V_SPROP_G * dim;
+
+  // ---------------------------------------------- second half-kick; the
+  // extended edge becomes the new point
+  T ke[1] = {T(0)};
+  for (int i = lane; i < dim; i += kLanes) {
+    const T p_half = pe[i] + half_eps * ge[i];
+    const T g = gn[i];
+    const T p = p_half + half_eps * g;
+    ke[0] += p * (im[i] * p);
+    ze[i] = zn[i];
+    pe[i] = p;
+    ge[i] = g;
+  }
+  warp_sum(ke);
+
+  // ---------------------------------------------- leaf processing
+  const T h = -logp_new + T(0.5) * ke[0];
+  const int n = in[I_N_LEAF] + 1;
+  const T e_err = h - fl[F_H0];
+  const bool finite = isfinite(e_err);
+  const bool div_leaf = !finite || e_err > T(cfg.max_energy_error) || stagnant;
+  const T lw = div_leaf ? -T(INFINITY) : -e_err;
+  const T acc = finite ? exp(jmin(T(0), -e_err)) : T(0);
+  fl[F_SUM_ACC] = fl[F_SUM_ACC] + acc;
+  in[I_N_LEAVES] += 1;
+  in[I_TOTAL_STEPS] += 1;
+  const int abs_idx = fwd ? in[I_RIGHT_IDX] + 1 : in[I_LEFT_IDX] - 1;
+  if (fwd) in[I_RIGHT_IDX] += 1;
+  else in[I_LEFT_IDX] -= 1;
+
+  // progressive multinomial within the subtree
+  const T logw_sub_new = logaddexp(fl[F_LOGW_SUB], lw);
+  const T dl = lw - logw_sub_new;
+  const bool m_take = log(u1) < dl && !(dl != dl);
+  if (m_take) {
+    fl[F_SPROP_LOGP] = logp_new;
+    fl[F_SPROP_ENERGY] = h;
+    in[I_SPROP_IDX] = abs_idx;
+  }
+  // checkpoint stack: push at odd leaves, check+pop at even leaves
+  const bool odd = (n % 2) == 1;
+  const int top = in[I_CKPT_TOP];
+  const int top_c = top < 0 ? 0 : (top > D - 1 ? D - 1 : top);
+  const int top_after = odd ? top + 1 : top;
+  const int tz = __ffs(n) - 1;
+  for (int i = lane; i < dim; i += kLanes) {
+    const T p = pe[i];
+    const T rs = rho_sub[i];
+    if (m_take) {
+      sz[i] = zn[i];
+      sg[i] = gn[i];
+    }
+    if (odd) {
+      cp[top_c * dim + i] = p;
+      cs[top_c * dim + i] = rs;
+    }
+    rho_sub[i] = rs + p;  // rho_sub + p_new, reset below at a doubling
+  }
+  // subtree U-turn checks against the top tz checkpoints
+  bool turning_here = false;
+  if (cfg.check_turning && !odd) {
+    const int lo = top_after - tz > 0 ? top_after - tz : 0;
+    for (int slot = lo; slot < top_after && slot < D; ++slot) {
+      T dots[2] = {T(0), T(0)};
+      for (int i = lane; i < dim; i += kLanes) {
+        const T m = im[i];
+        const T rho_ab = rho_sub[i] - cs[slot * dim + i];
+        dots[0] += rho_ab * (cp[slot * dim + i] * m);
+        dots[1] += rho_ab * (m * pe[i]);
+      }
+      warp_sum(dots);
+      turning_here = turning_here || dots[0] <= T(0) || dots[1] <= T(0);
+    }
+  }
+
+  // ---------------------------------------------- subtree completion
+  const bool turning_sub_mid = (in[I_TURNING_SUB] > 0) || (!odd && turning_here);
+  const int top_new = !odd ? top_after - (tz - 1 > 0 ? tz - 1 : 0) : top_after;
+  const bool full = n >= (1 << in[I_DEPTH]);
+  const bool sub_invalid = div_leaf || turning_sub_mid;
+  const bool sub_done = full || sub_invalid;
+  const bool merge_ok = sub_done && !sub_invalid;
+  // biased progressive sampling at the merge
+  const T log_ratio = logw_sub_new - fl[F_LOGW_TRAJ];
+  const bool take2 = log(u2) < log_ratio && !(log_ratio != log_ratio);
+  const bool m_take2 = merge_ok && take2;
+  if (m_take2) {
+    fl[F_PROP_LOGP] = fl[F_SPROP_LOGP];
+    fl[F_PROP_ENERGY] = fl[F_SPROP_ENERGY];
+    in[I_PROP_IDX] = in[I_SPROP_IDX];
+  }
+  if (merge_ok) fl[F_LOGW_TRAJ] = logaddexp(fl[F_LOGW_TRAJ], logw_sub_new);
+
+  // ---------------------------------------------- merged-trajectory checks
+  const bool check_traj = cfg.check_turning && merge_ok;
+  T* pz = v + V_PROP_Z * dim;
+  T* pg = v + V_PROP_G * dim;
+  T dots[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+  if (merge_ok) {
+    T* rho = v + V_RHO * dim;
+    for (int i = lane; i < dim; i += kLanes) {
+      if (m_take2) {
+        pz[i] = sz[i];
+        pg[i] = sg[i];
+      }
+      const T r = rho[i];
+      const T rsn = rho_sub[i];
+      const T rho_full = r + rsn;
+      if (check_traj) {
+        const T m = im[i];
+        const T first_new_p = cp[i];
+        const T edge_old_p = cp[(D - 1) * dim + i];
+        const T v_far = m * p_far[i];
+        const T v_first_new = m * first_new_p;
+        const T v_edge_old = m * edge_old_p;
+        const T v_new = m * pe[i];
+        const T r2 = r + first_new_p;
+        const T r3 = rsn + edge_old_p;
+        dots[0] += rho_full * v_far;
+        dots[1] += rho_full * v_new;
+        dots[2] += r2 * v_far;
+        dots[3] += r2 * v_first_new;
+        dots[4] += r3 * v_edge_old;
+        dots[5] += r3 * v_new;
+      }
+      rho[i] = rho_full;
+    }
+  }
+  bool turning_traj = false;
+  if (check_traj) {
+    warp_sum(dots);
+    for (int k = 0; k < 6; ++k) turning_traj = turning_traj || dots[k] <= T(0);
+  }
+
+  // ---------------------------------------------- draw completion
+  const int in_depth = in[I_DEPTH];
+  turning_traj = turning_traj && (in_depth + 1) >= cfg.mindepth;
+  int depth_limit = cfg.maxdepth < s.depth_cap ? cfg.maxdepth : s.depth_cap;
+  const int floor_depth = cfg.mindepth > 1 ? cfg.mindepth : 1;
+  depth_limit = depth_limit > floor_depth ? depth_limit : floor_depth;
+  const bool ended_by_depth = merge_ok && (in_depth + 1) >= depth_limit;
+  const bool draw_done = sub_done && (sub_invalid || turning_traj || ended_by_depth);
+  const bool next_doubling = merge_ok && !draw_done;
+  if (next_doubling) {
+    in[I_DEPTH] = in_depth + 1;
+    for (int i = lane; i < dim; i += kLanes) rho_sub[i] = T(0);
+  }
+  in[I_N_LEAF] = next_doubling ? 0 : n;
+  fl[F_LOGW_SUB] = next_doubling ? -T(INFINITY) : logw_sub_new;
+  in[I_TURNING_SUB] = turning_sub_mid && !next_doubling;
+  in[I_CKPT_TOP] = next_doubling ? 0 : top_new;
+  const bool diverging = (in[I_DIVERGING] > 0) || div_leaf;
+  in[I_DIVERGING] = diverging;
+
+  if (draw_done) {
+    const int in_draw_idx = in[I_DRAW_IDX];
+    const int idx = in_draw_idx - s.chunk_start;
+    const int idx_c = idx < 0 ? 0 : (idx > L - 1 ? L - 1 : idx);
+    const int n_leaves = in[I_N_LEAVES];
+    const T accept_mean = fl[F_SUM_ACC] / T(n_leaves > 1 ? n_leaves : 1);
+    const size_t out_row = size_t(chain) * L + idx_c;
+    if (lane == 0) {
+      T* row = a.scal_out + out_row * N_SCALAR;
+      row[S_LOGP] = fl[F_PROP_LOGP];
+      row[S_ENERGY] = fl[F_PROP_ENERGY];
+      row[S_DEPTH] = T(in_depth + 1);
+      row[S_MAXDEPTH_REACHED] = T(ended_by_depth && !turning_traj);
+      row[S_DIVERGING] = T(diverging);
+      row[S_STEP_SIZE] = fl[F_EPS];
+      row[S_STEP_SIZE_BAR] = exp(af[AF_LOG_STEP_BAR]);
+      row[S_N_STEPS] = T(n_leaves);
+      row[S_MEAN_TREE_ACCEPT] = accept_mean;
+      row[S_INDEX_IN_TRAJECTORY] = T(in[I_PROP_IDX]);
+      row[S_FISHER_DISTANCE] = T(0);
+      row[N_SCALAR - 1] = T(0);
+    }
+    // commit the proposal: the draw, the committed position and gradient
+    T* pos_row = a.pos_out + out_row * dim;
+    for (int i = lane; i < dim; i += kLanes) {
+      const T z = pz[i];
+      pos_row[i] = z;
+      v[V_POSITION * dim + i] = z;
+      v[V_GRADIENT * dim + i] = pg[i];
+    }
+    fl[F_LOGP] = fl[F_PROP_LOGP];
+    // adaptation (tuning draws only; skipped when frozen)
+    if (in_draw_idx < s.num_tune && !cfg.adapt_frozen) {
+      diag_adapt_update_strided<T>(cfg, s, lane, av, af, pz, pg, in_draw_idx,
+                                   diverging, accept_mean);
+      // at the end of tuning, freeze the step size at its averaged value
+      if (in_draw_idx == s.num_tune - 1) af[AF_LOG_STEP] = af[AF_LOG_STEP_BAR];
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < N_ADAPT_FLT; ++k) {
+          a.adapt_flts[size_t(chain) * N_ADAPT_FLT + k] = af[k];
+        }
+      }
+    }
+    if (diverging) in[I_DIVERGENCE_COUNT] += 1;
+    in[I_DRAW_IDX] = in_draw_idx + 1;
+    const bool done = idx + 1 >= s.limit;
+    in[I_DONE] = done;
+    if (!done) {
+      const int nidx = idx + 1 > L - 1 ? L - 1 : (idx + 1 < 0 ? 0 : idx + 1);
+      const size_t r = size_t(chain) * L + nidx;
+      start_draw_strided<T>(fl, in, cfg, s, lane, v, im, af, a.mom + r * dim, a.jit[r]);
+    }
+  }
+
+  // every lane has read the chain's scalars; lane 0 writes them back
+  __syncwarp();
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < N_FLT; ++k) a.flts[size_t(chain) * N_FLT + k] = fl[k];
+#pragma unroll
+    for (int k = 0; k < N_INT; ++k) a.ints[size_t(chain) * N_INT + k] = in[k];
+  }
+}
+
+template <typename T>
+int launch(bool begin, const MkConfig* cfg, const StepPtrs* p, void* stream) {
+  if (cfg->n_chains < 1 || cfg->dim < 1 || cfg->depth_slots < 2) {
+    return int(cudaErrorInvalidValue);
+  }
+  const StepArgs<T> a(*cfg, *p);
+  const dim3 grid((cfg->n_chains + kStepWarps - 1) / kStepWarps);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (begin) {
+    step_begin<T><<<grid, kStepThreads, 0, s>>>(a);
+  } else {
+    step_finish<T><<<grid, kStepThreads, 0, s>>>(a);
+  }
+  return int(cudaGetLastError());
+}
+
+// What was compiled: registers and local (spill) bytes per thread of
+// step_begin and step_finish, and the threads per block.
+template <typename T>
+int geometry(int32_t* out) {
+  cudaFuncAttributes b, f;
+  cudaError_t err = cudaFuncGetAttributes(&b, step_begin<T>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&f, step_finish<T>);
+  if (err != cudaSuccess) return int(err);
+  out[0] = b.numRegs;
+  out[1] = int32_t(b.localSizeBytes);
+  out[2] = f.numRegs;
+  out[3] = int32_t(f.localSizeBytes);
+  out[4] = kStepThreads;
+  return 0;
+}
+
+}  // namespace nutpie
+
+extern "C" {
+
+// Launch one half of the step for every chain on `stream`; returns the CUDA
+// error code of the launch (0 = queued).
+int nutpie_step_begin_f32(const nutpie::MkConfig* cfg, const nutpie::StepPtrs* p,
+                          void* stream) {
+  return nutpie::launch<float>(true, cfg, p, stream);
+}
+
+int nutpie_step_begin_f64(const nutpie::MkConfig* cfg, const nutpie::StepPtrs* p,
+                          void* stream) {
+  return nutpie::launch<double>(true, cfg, p, stream);
+}
+
+int nutpie_step_finish_f32(const nutpie::MkConfig* cfg, const nutpie::StepPtrs* p,
+                           void* stream) {
+  return nutpie::launch<float>(false, cfg, p, stream);
+}
+
+int nutpie_step_finish_f64(const nutpie::MkConfig* cfg, const nutpie::StepPtrs* p,
+                           void* stream) {
+  return nutpie::launch<double>(false, cfg, p, stream);
+}
+
+int nutpie_step_geometry_f32(int32_t* out) { return nutpie::geometry<float>(out); }
+
+int nutpie_step_geometry_f64(int32_t* out) { return nutpie::geometry<double>(out); }
+
+const char* nutpie_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -4,9 +4,18 @@ Analog of the reference's pyfunc backend
 (``python/nutpie/compiled_pyfunc.py:108-155``): the user provides factory
 functions returning a log density and optionally an expand function.  Here
 both are batched torch callables: ``logp_fn(x[C, ndim]) -> [C]`` and
-``expand_fn(x[N, ndim]) -> dict[name, [N, *shape]]``.  Such a model has no
-device-side log density for the CUDA chunk kernel, so in this slice it
-samples on the CPU only.
+``expand_fn(x[N, ndim]) -> dict[name, [N, *shape]]``.  Such a model
+samples on the card through the step kernel: each leapfrog evaluates
+``logp_fn`` once over all chains, takes the gradient with autograd, and
+hands both to the kernel.  On the CPU (``device="cpu"``) the same steps
+run the kernel's plain version.
+
+The log density runs where the chains are, so every constant it uses
+must follow ``x.device`` and ``x.dtype``: build data tensors once per
+device and dtype (for example in a dict keyed by ``(x.device,
+x.dtype)``) rather than converting numpy arrays inside each call.  Rows
+of ``x`` are chains and must not be mixed: row ``i`` of the result may
+depend on row ``i`` of ``x`` only.
 """
 
 from __future__ import annotations
@@ -101,7 +110,8 @@ def from_pyfunc(
     """Build a compiled model from batched torch functions.
 
     Signature mirrors the reference (``compiled_pyfunc.py:108-155``):
-    ``make_logp_fn(**shared_data)`` returns ``x[C, ndim] -> [C]``;
+    ``make_logp_fn(**shared_data)`` returns ``x[C, ndim] -> [C]``, whose
+    constants follow ``x.device`` and ``x.dtype`` (see the module note);
     ``make_expand_fn(**shared_data)`` returns ``x[N, ndim] -> dict`` whose
     outputs match ``expanded_names/shapes/dtypes``; ``raw_logp_fn`` is
     accepted for compatibility and unused.

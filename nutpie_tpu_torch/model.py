@@ -10,7 +10,9 @@ machine treats as a divergence and continues sampling.
 
 ``kernel_model`` names a device-side log density that the CUDA chunk
 kernel can evaluate in place of ``logp_fn`` (``models/radon.py``).  Models
-without one run on the CPU only in this slice.
+without one run on the card through the step kernel, which calls
+``logp_and_grad`` once per leapfrog for every chain; such a logp must
+keep its constants on ``x.device`` in ``x.dtype``.
 """
 
 from __future__ import annotations

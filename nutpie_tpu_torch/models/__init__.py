@@ -1,9 +1,23 @@
-"""Builtin models of this slice: the radon benchmark model.
+"""Builtin models: the radon benchmark model and the analytic posteriors."""
 
-The analytic test posteriors and the logistic GLM of
-``nutpie_tpu/models`` are still to be ported (ROADMAP queue 1).
-"""
-
+from .analytic import (
+    eight_schools,
+    funnel,
+    hierarchical_funnel,
+    ill_conditioned_gaussian,
+    logistic_glm,
+    std_normal,
+    student_t_funnel,
+)
 from .radon import radon
 
-__all__ = ["radon"]
+__all__ = [
+    "eight_schools",
+    "funnel",
+    "hierarchical_funnel",
+    "ill_conditioned_gaussian",
+    "logistic_glm",
+    "radon",
+    "std_normal",
+    "student_t_funnel",
+]

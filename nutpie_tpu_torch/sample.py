@@ -8,11 +8,16 @@ trapped-chain rescue and the fleet depth cap act at chunk boundaries.
 Each chunk's draws are expanded (batched over ``[C*L, dim]``) and copied
 to the host, and the chunks are assembled into the trace.
 
-Device: ``device=None`` means CUDA, where every chunk goes through the
-hand-written chunk kernel; the model must carry a ``kernel_model`` and the
-configuration must be one ``megakernel.supports`` accepts, which is
-decided before anything runs.  ``device="cpu"`` runs the kernel's plain
-version.  ``precision="auto"`` is float32 on CUDA and float64 on the CPU.
+Route: one decision, taken before anything runs (``route``).  A model
+with a ``kernel_model`` (radon) whose configuration the chunk kernel K1
+supports runs each chunk as one K1 launch; any other model whose
+configuration the step kernel K2 supports runs through the step runner
+(``sampler/run.py:make_chunk_runner``), two K2 launches around one batched
+torch logp per machine step; anything else raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item.  The route is the same on every device:
+``device=None`` means CUDA, where the kernels run, and ``device="cpu"``
+runs their plain versions.  ``precision="auto"`` is float32 on CUDA and
+float64 on the CPU.
 """
 
 from __future__ import annotations
@@ -24,8 +29,9 @@ import torch
 
 from . import __version__ as _version
 from .model import CompiledModel, ModelDef
+from .sampler import megakernel, step_kernel
 from .sampler.adapt import AdaptConfig, make_schedule
-from .sampler.megakernel import check_card_path, make_megakernel_chunk_runner
+from .sampler.megakernel import make_megakernel_chunk_runner
 from .sampler.nuts import (
     _FLOW_ITEM,
     _LOW_RANK_ITEM,
@@ -33,7 +39,7 @@ from .sampler.nuts import (
     SCALAR_SLOTS,
     NutsConfig,
 )
-from .sampler.run import fleet_depth_cap, init_chains, resolve_dtype
+from .sampler.run import fleet_depth_cap, init_chains, make_chunk_runner, resolve_dtype
 from .settings import NutsSettings
 from .trace import assemble_trace
 
@@ -171,9 +177,27 @@ def expand_chunk(model: ModelDef, position: torch.Tensor) -> dict:
     return {k: v.reshape((C, L) + tuple(v.shape[1:])) for k, v in out.items()}
 
 
+# the chunk runner of each route
+RUNNERS = {"megakernel": make_megakernel_chunk_runner, "step": make_chunk_runner}
+
+
+def route(cfg: NutsConfig, model: ModelDef) -> str:
+    """The chunk runner for this model and configuration, on every device:
+    ``"megakernel"`` (K1) or ``"step"`` (K2 around the model's torch logp).
+    Raises ``NotImplementedError`` naming the ``ROADMAP.md`` item of what
+    neither kernel runs."""
+    if model.kernel_model is not None and megakernel.supports(cfg):
+        return "megakernel"
+    why = step_kernel.unsupported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"no kernel runs this configuration yet: {why}")
+    return "step"
+
+
 def run_chains(model: ModelDef, cfg: NutsConfig, settings: NutsSettings,
-               init_mean, dtype, device, on_chunk=None) -> list:
-    """Init + the chunk loop; returns the host chunks (``chunk_to_host``)."""
+               init_mean, dtype, device, runner: str) -> list:
+    """Init + the chunk loop through the ``runner`` route; returns the host
+    chunks (``chunk_to_host``)."""
     n_chains = settings.num_chains
     num_tune, total = settings.num_tune, settings.num_tune + settings.num_draws
     itemsize = torch.tensor([], dtype=dtype).element_size()
@@ -191,10 +215,9 @@ def run_chains(model: ModelDef, cfg: NutsConfig, settings: NutsSettings,
         )
     pool = dict(pool_step_size=settings.pool_step_size,
                 pool_mass_matrix=settings.pool_mass_matrix)
-    warm = make_megakernel_chunk_runner(model, cfg, chunk_len, dtype,
-                                        adapt_frozen=False, **pool)
-    post = make_megakernel_chunk_runner(model, cfg, chunk_len, dtype,
-                                        adapt_frozen=True, **pool)
+    make_runner = RUNNERS[runner]
+    warm = make_runner(model, cfg, chunk_len, dtype, adapt_frozen=False, **pool)
+    post = make_runner(model, cfg, chunk_len, dtype, adapt_frozen=True, **pool)
     # fleet-relative work cap: a static cap before the first measurement,
     # then the fleet's, frozen with the mass matrix (>= 64 chains only)
     sched = make_schedule(
@@ -205,15 +228,13 @@ def run_chains(model: ModelDef, cfg: NutsConfig, settings: NutsSettings,
     start = 0
     while start < total:
         limit = min(chunk_len, total - start)
-        runner = warm if start < num_tune else post
-        states, bufs = runner(states, start, limit, sched)
+        run_chunk = warm if start < num_tune else post
+        states, bufs = run_chunk(states, start, limit, sched)
         if n_chains >= 64 and start + limit <= cap_until:
             sched = sched._replace(depth_cap=fleet_depth_cap(cfg, bufs, limit))
         expanded = expand_chunk(model, bufs.position)
         chunks.append(chunk_to_host(bufs, expanded, limit,
                                     settings.store_unconstrained))
-        if on_chunk is not None:
-            on_chunk(start, limit, bufs)
         start += limit
     return chunks
 
@@ -288,8 +309,7 @@ def sample(
 
     cfg = nuts_config_from_settings(settings)
     model = compiled_model._make_model(int(settings.seed))
-    if device is None or torch.device(device).type == "cuda":
-        check_card_path(cfg, model)
+    runner = route(cfg, model)
     device = resolve_device(device)
     dtype = resolve_dtype(settings.precision, device)
     # HMC energies need full-precision products: TF32 would inject O(1e-3)
@@ -300,7 +320,7 @@ def sample(
 
     if init_mean is None:
         init_mean = np.zeros(model.ndim)
-    chunks = run_chains(model, cfg, settings, init_mean, dtype, device)
+    chunks = run_chains(model, cfg, settings, init_mean, dtype, device, runner)
     raw = {
         "position": np.concatenate([c["position"] for c in chunks], axis=1),
         "stats": {k: np.concatenate([c["stats"][k] for c in chunks], axis=1)

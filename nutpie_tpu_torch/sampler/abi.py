@@ -1,0 +1,102 @@
+"""The C ABI shared by the CUDA kernels' wrappers.
+
+``MkConfig`` mirrors the struct of the same name in ``csrc/layout.cuh``,
+the static configuration both kernels take (the radon sizes are used by
+the chunk kernel only and stay 0 for the step kernel).  The schedule
+scalars travel as one int32 tensor on the device, so a ``depth_cap`` that
+lives on the device needs no host round trip.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .adapt import Schedule
+from .nuts import NutsConfig
+
+
+class MkConfig(ctypes.Structure):
+    """Mirror of ``MkConfig`` in ``csrc/layout.cuh``."""
+
+    _fields_ = [
+        ("max_energy_error", ctypes.c_double),
+        ("step_size_jitter", ctypes.c_double),
+        ("target_accept", ctypes.c_double),
+        ("gamma", ctypes.c_double),
+        ("t0", ctypes.c_double),
+        ("kappa", ctypes.c_double),
+        ("max_step_size", ctypes.c_double),
+        ("min_variance", ctypes.c_double),
+        ("max_variance", ctypes.c_double),
+        ("n_chains", ctypes.c_int32),
+        ("dim", ctypes.c_int32),
+        ("depth_slots", ctypes.c_int32),
+        ("chunk_len", ctypes.c_int32),
+        ("maxdepth", ctypes.c_int32),
+        ("mindepth", ctypes.c_int32),
+        ("check_turning", ctypes.c_int32),
+        ("adapt_frozen", ctypes.c_int32),
+        ("use_grad_based_estimate", ctypes.c_int32),
+        ("has_jitter", ctypes.c_int32),
+        ("switch_freq", ctypes.c_int32),
+        ("early_switch_freq", ctypes.c_int32),
+        ("n_counties", ctypes.c_int32),
+        ("n_obs", ctypes.c_int32),
+        ("n_seg", ctypes.c_int32),
+        ("obs_rows", ctypes.c_int32),
+    ]
+
+
+def sampler_config(cfg: NutsConfig, n_chains: int, dim: int, depth_slots: int,
+                   chunk_len: int, adapt_frozen: bool, **model_sizes) -> MkConfig:
+    """``MkConfig`` from the sampler's configuration; ``model_sizes`` sets
+    the radon fields (``n_counties``, ``n_obs``, ``n_seg``, ``obs_rows``)."""
+    ac = cfg.adapt
+    return MkConfig(
+        max_energy_error=cfg.max_energy_error,
+        step_size_jitter=ac.step_size_jitter or 0.0,
+        target_accept=ac.target_accept,
+        gamma=ac.gamma,
+        t0=ac.t0,
+        kappa=ac.kappa,
+        max_step_size=ac.max_step_size,
+        min_variance=ac.min_variance,
+        max_variance=ac.max_variance,
+        n_chains=n_chains,
+        dim=dim,
+        depth_slots=depth_slots,
+        chunk_len=chunk_len,
+        maxdepth=cfg.maxdepth,
+        mindepth=cfg.mindepth,
+        check_turning=int(cfg.check_turning),
+        adapt_frozen=int(adapt_frozen),
+        use_grad_based_estimate=int(ac.use_grad_based_estimate),
+        has_jitter=int(ac.step_size_jitter is not None),
+        switch_freq=ac.switch_freq,
+        early_switch_freq=ac.early_switch_freq,
+        **model_sizes,
+    )
+
+
+def dtype_suffix(dtype) -> str:
+    """The suffix of a kernel library's entry points for ``dtype``."""
+    return "f64" if dtype == torch.float64 else "f32"
+
+
+def raise_on(lib, code: int, what: str) -> None:
+    """Raise if a kernel library's entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib.nutpie_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({code})")
+
+
+def schedule_tensor(chunk_start: int, limit: int, sched: Schedule, device) -> torch.Tensor:
+    """The six int32 schedule scalars, on the device (depth_cap may be a tensor)."""
+    head = torch.tensor(
+        [chunk_start, limit, sched.num_tune, sched.early_end, sched.freeze_start],
+        dtype=torch.int32, device=device,
+    )
+    cap = torch.as_tensor(sched.depth_cap, dtype=torch.int32, device=device).reshape(1)
+    return torch.cat([head, cap])

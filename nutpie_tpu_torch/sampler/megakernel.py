@@ -23,7 +23,8 @@ import torch
 
 from ..model import ModelDef
 from ..ops import build
-from .adapt import Schedule, pool_adapt_state
+from .abi import MkConfig, dtype_suffix, raise_on, sampler_config, schedule_tensor
+from .adapt import Schedule
 from .nuts import (
     LeapfrogUniformTable,
     NutsConfig,
@@ -31,29 +32,11 @@ from .nuts import (
     machine_step,
     start_draw,
 )
-from .run import draw_randoms, rescue_trapped
+from .run import draw_randoms, pool_chunk_start, rescue_trapped
 from .state import NutsMachineState, state_with
 
 # the kernel is compiled for up to 8 coordinates per lane of a warp
 MAX_KERNEL_DIM = 8 * 32
-
-GENERIC_PATH_ITEM = (
-    "ROADMAP.md queue 1: the generic card path, form (i) -- a per-leapfrog "
-    "kernel plus a batched torch logp"
-)
-
-
-def check_card_path(cfg: NutsConfig, model: ModelDef) -> None:
-    """On CUDA every chunk runs the kernel; refuse what it cannot run.
-
-    ``sample()`` calls this once, before anything runs; the wrapper below
-    trusts that decision.
-    """
-    if model.kernel_model is None or not supports(cfg):
-        raise NotImplementedError(
-            "this model or configuration has no CUDA chunk kernel yet: "
-            f"{GENERIC_PATH_ITEM}"
-        )
 
 
 def supports(cfg: NutsConfig) -> bool:
@@ -62,7 +45,9 @@ def supports(cfg: NutsConfig) -> bool:
     The port's ``NutsConfig`` already refuses low-rank, flow,
     microcanonical and ``store_*`` configurations, the JAX kernel's
     exclusions.  The kernel narrows further to dual averaging (no Adam,
-    no fixed step) and no ``target_integration_time``.
+    no fixed step) and no ``target_integration_time``.  It also needs a
+    model with a ``kernel_model`` (the radon log density it evaluates in
+    place); ``sample.route`` checks both.
     """
     return (
         cfg.target_time is None
@@ -71,63 +56,10 @@ def supports(cfg: NutsConfig) -> bool:
     )
 
 
-class MkConfig(ctypes.Structure):
-    """Mirror of ``MkConfig`` in ``csrc/layout.cuh``."""
-
-    _fields_ = [
-        ("max_energy_error", ctypes.c_double),
-        ("step_size_jitter", ctypes.c_double),
-        ("target_accept", ctypes.c_double),
-        ("gamma", ctypes.c_double),
-        ("t0", ctypes.c_double),
-        ("kappa", ctypes.c_double),
-        ("max_step_size", ctypes.c_double),
-        ("min_variance", ctypes.c_double),
-        ("max_variance", ctypes.c_double),
-        ("n_chains", ctypes.c_int32),
-        ("dim", ctypes.c_int32),
-        ("depth_slots", ctypes.c_int32),
-        ("chunk_len", ctypes.c_int32),
-        ("maxdepth", ctypes.c_int32),
-        ("mindepth", ctypes.c_int32),
-        ("check_turning", ctypes.c_int32),
-        ("adapt_frozen", ctypes.c_int32),
-        ("use_grad_based_estimate", ctypes.c_int32),
-        ("has_jitter", ctypes.c_int32),
-        ("switch_freq", ctypes.c_int32),
-        ("early_switch_freq", ctypes.c_int32),
-        ("n_counties", ctypes.c_int32),
-        ("n_obs", ctypes.c_int32),
-        ("n_seg", ctypes.c_int32),
-        ("obs_rows", ctypes.c_int32),
-    ]
-
-
 def kernel_config(cfg: NutsConfig, kernel_model, n_chains: int, dim: int,
                   depth_slots: int, chunk_len: int, adapt_frozen: bool) -> MkConfig:
-    ac = cfg.adapt
-    return MkConfig(
-        max_energy_error=cfg.max_energy_error,
-        step_size_jitter=ac.step_size_jitter or 0.0,
-        target_accept=ac.target_accept,
-        gamma=ac.gamma,
-        t0=ac.t0,
-        kappa=ac.kappa,
-        max_step_size=ac.max_step_size,
-        min_variance=ac.min_variance,
-        max_variance=ac.max_variance,
-        n_chains=n_chains,
-        dim=dim,
-        depth_slots=depth_slots,
-        chunk_len=chunk_len,
-        maxdepth=cfg.maxdepth,
-        mindepth=cfg.mindepth,
-        check_turning=int(cfg.check_turning),
-        adapt_frozen=int(adapt_frozen),
-        use_grad_based_estimate=int(ac.use_grad_based_estimate),
-        has_jitter=int(ac.step_size_jitter is not None),
-        switch_freq=ac.switch_freq,
-        early_switch_freq=ac.early_switch_freq,
+    return sampler_config(
+        cfg, n_chains, dim, depth_slots, chunk_len, adapt_frozen,
         n_counties=kernel_model.n_counties,
         n_obs=kernel_model.n_obs,
         n_seg=kernel_model.partition.n_seg,
@@ -162,22 +94,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _suffix(dtype) -> str:
-    return "f64" if dtype == torch.float64 else "f32"
-
-
-def _raise_on(lib, code: int, what: str) -> None:
-    if code != 0:
-        msg = lib.nutpie_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what} failed: {msg} ({code})")
-
-
 def query_geometry(lib, mk_cfg: MkConfig, dtype) -> dict:
     """What was compiled for this configuration and how it fits on the card
     (``GEOMETRY_FIELDS``, plus the resident chains per SM)."""
     out = (ctypes.c_int32 * len(GEOMETRY_FIELDS))()
-    fn = getattr(lib, f"nutpie_megakernel_geometry_{_suffix(dtype)}")
-    _raise_on(lib, fn(ctypes.byref(mk_cfg), out), "chunk kernel geometry")
+    fn = getattr(lib, f"nutpie_megakernel_geometry_{dtype_suffix(dtype)}")
+    raise_on(lib, fn(ctypes.byref(mk_cfg), out), "chunk kernel geometry")
     geo = dict(zip(GEOMETRY_FIELDS, out))
     geo["resident_chains_per_sm"] = geo["chains_per_block"] * geo["blocks_per_sm"]
     return geo
@@ -196,22 +118,12 @@ def launch_grid(n_chains: int, chains_per_block: int, blocks_per_sm: int,
     return max(1, min(sm_count * blocks_per_sm, n_chains))
 
 
-def schedule_tensor(chunk_start: int, limit: int, sched: Schedule, device) -> torch.Tensor:
-    """The six int32 schedule scalars, on the device (depth_cap may be a tensor)."""
-    head = torch.tensor(
-        [chunk_start, limit, sched.num_tune, sched.early_end, sched.freeze_start],
-        dtype=torch.int32, device=device,
-    )
-    cap = torch.as_tensor(sched.depth_cap, dtype=torch.int32, device=device).reshape(1)
-    return torch.cat([head, cap])
-
-
 def launch(lib, mk_cfg: MkConfig, scal: torch.Tensor, states: NutsMachineState,
            mom: torch.Tensor, jit: torch.Tensor, pos: torch.Tensor,
            scalars: torch.Tensor, data: dict, queue: torch.Tensor, grid: int,
            stream: int) -> int:
     """Call the C entry point; ``states`` is updated in place.  Returns its code."""
-    fn = getattr(lib, f"nutpie_megakernel_chunk_{_suffix(states.vecs.dtype)}")
+    fn = getattr(lib, f"nutpie_megakernel_chunk_{dtype_suffix(states.vecs.dtype)}")
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     return fn(
         ctypes.byref(mk_cfg), ptr(scal), ptr(states.key), ptr(states.vecs),
@@ -315,7 +227,7 @@ class ChunkKernel:
             stream = torch.cuda.current_stream(device).cuda_stream
             code = launch(lib, mk_cfg, scal, out, mom, jit, bufs.position,
                           bufs.scalars, data, queue, grid, stream)
-        _raise_on(lib, code, "chunk kernel launch")
+        raise_on(lib, code, "chunk kernel launch")
         self.launches += 1
         return out, bufs
 
@@ -339,13 +251,7 @@ class MegakernelChunkRunner:
 
     def __call__(self, states: NutsMachineState, chunk_start: int, limit: int,
                  sched: Schedule):
-        if self.pool_step_size or self.pool_mass_matrix:
-            # cross-chain pooling is a chunk-boundary collective, outside the kernel
-            adapt_vecs, adapt_flts = pool_adapt_state(
-                states.adapt_vecs, states.adapt_flts,
-                pool_mass=self.pool_mass_matrix, pool_step=self.pool_step_size,
-            )
-            states = states.replace(adapt_vecs=adapt_vecs, adapt_flts=adapt_flts)
+        states = pool_chunk_start(states, self.pool_mass_matrix, self.pool_step_size)
         dim = states.vecs.shape[-1]
         mom, jit = draw_randoms(states.key, int(chunk_start), self.chunk_len,
                                 dim, self.dtype)

@@ -265,6 +265,63 @@ def _trailing_zeros(n: torch.Tensor) -> torch.Tensor:
     return (lsb[:, None] >= powers).sum(dim=1).to(torch.int32)
 
 
+class LeapfrogCarry(NamedTuple):
+    """What ``leapfrog_finish`` takes over from ``leapfrog_begin``."""
+
+    u3: torch.Tensor         # [C, 3] the step's uniforms
+    direction: torch.Tensor  # [C] int32, +1 or -1
+    ckpt_p: torch.Tensor     # [C, D, dim] with slot D-1's stash
+    p_half: torch.Tensor     # [C, dim] momentum after the first half-kick
+    stagnant: torch.Tensor   # [C] bool: the step left the position unchanged
+
+
+def leapfrog_begin(cfg: NutsConfig, s: NutsMachineState,
+                   uniforms=leapfrog_uniforms):
+    """The machine step up to the log density: ``(z_new [C, dim], carry)``.
+
+    Draws the step's uniforms, picks the direction at a doubling's start
+    (stashing the old edge momentum in checkpoint slot D-1), takes the
+    first half-kick and the drift.  ``z_new`` is the row handed to the
+    log density; a done chain hands its committed position, which is
+    finite, and its step is masked out in ``leapfrog_finish``.
+    ``uniforms(key, total_steps, dtype)`` gives the per-leapfrog uniforms
+    (``leapfrog_uniforms`` or a ``LeapfrogUniformTable``).
+    """
+    dtype = s.vecs.dtype
+    D = s.ckpt_p.shape[1]
+    V, I = VEC_SLOTS, INT_SLOTS
+    vec = lambda name: s.vecs[:, V[name]]
+    in_p_minus, in_p_plus = vec("p_minus"), vec("p_plus")
+    active = ~(s.ints[:, I["done"]] > 0)
+
+    # ------------------------------------------------ scalar randomness
+    u3 = uniforms(s.key, s.ints[:, I["total_steps"]], dtype)
+
+    # ------------------------------------------------ doubling start
+    at_start = s.ints[:, I["n_leaf"]] == 0
+    new_dir = torch.where(u3[:, 0] < 0.5, -1, 1).to(torch.int32)
+    direction = torch.where(at_start, new_dir, s.ints[:, I["direction"]])
+    fwd = direction > 0
+
+    # slot D-1 stashes the old edge momentum for the cross U-turn checks
+    edge_p_old = _w(fwd, in_p_plus, in_p_minus)
+    ckpt_p = s.ckpt_p.clone()
+    ckpt_p[:, D - 1] = _w(at_start & active, edge_p_old, ckpt_p[:, D - 1])
+
+    # ------------------------------------------------ leapfrog, first half
+    z_e = _w(fwd, vec("z_plus"), vec("z_minus"))
+    p_e = _w(fwd, in_p_plus, in_p_minus)
+    g_e = _w(fwd, vec("g_plus"), vec("g_minus"))
+    eps_s = (direction.to(dtype) * s.flts[:, FLT_SLOTS["eps"]])[:, None]
+    p_half = p_e + 0.5 * eps_s * g_e
+    z_new = z_e + eps_s * (s.inv_mass * p_half)
+    # an unintegrable step (eps below the position's resolution) counts as
+    # a divergence, as in the JAX package
+    stagnant = torch.all(z_new == z_e, dim=1)
+    z_new = _w(active, z_new, vec("position"))
+    return z_new, LeapfrogCarry(u3, direction, ckpt_p, p_half, stagnant)
+
+
 def machine_step(cfg: NutsConfig, logp_and_grad, sched: Schedule,
                  mom_gauss: torch.Tensor, jitter_us: torch.Tensor,
                  chunk_start: int, limit: int, s: NutsMachineState,
@@ -276,8 +333,24 @@ def machine_step(cfg: NutsConfig, logp_and_grad, sched: Schedule,
     per-draw randoms; ``bufs`` is updated in place where draws complete.
     ``adapt_frozen=True`` leaves the adaptation state untouched.
     ``uniforms(key, total_steps, dtype)`` gives the per-leapfrog uniforms
-    (``leapfrog_uniforms`` or a ``LeapfrogUniformTable``).
+    (``leapfrog_uniforms`` or a ``LeapfrogUniformTable``).  The step is
+    ``leapfrog_begin``, one batched ``logp_and_grad``, ``leapfrog_finish``.
     """
+    z_new, carry = leapfrog_begin(cfg, s, uniforms)
+    logp_new, g_new = logp_and_grad(z_new)
+    return leapfrog_finish(cfg, sched, mom_gauss, jitter_us, chunk_start, limit,
+                           s, z_new, carry, logp_new, g_new, bufs, adapt_frozen)
+
+
+def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
+                    jitter_us: torch.Tensor, chunk_start: int, limit: int,
+                    s: NutsMachineState, z_new: torch.Tensor, carry: LeapfrogCarry,
+                    logp_new: torch.Tensor, g_new: torch.Tensor,
+                    bufs: ChunkBuffers, adapt_frozen: bool = False):
+    """The machine step after the log density at ``z_new``: the second
+    half-kick, the leaf, the subtree and trajectory checks, draw completion
+    (commit, adaptation, the next ``start_draw``).  Returns ``(state, bufs)``;
+    ``bufs`` is updated in place where draws complete."""
     dtype = s.vecs.dtype
     D = s.ckpt_p.shape[1]
     C = s.vecs.shape[0]
@@ -299,33 +372,15 @@ def machine_step(cfg: NutsConfig, logp_and_grad, sched: Schedule,
     in_turning_sub = int_("turning_sub") > 0
     in_done = int_("done") > 0
     active = ~in_done
-
-    # ------------------------------------------------ scalar randomness
-    u3 = uniforms(s.key, in_total_steps, dtype)
-
-    # ------------------------------------------------ doubling start
-    at_start = in_n_leaf == 0
-    new_dir = torch.where(u3[:, 0] < 0.5, -1, 1).to(torch.int32)
-    direction = torch.where(at_start, new_dir, int_("direction"))
+    u3, direction, ckpt_p = carry.u3, carry.direction, carry.ckpt_p
     fwd = direction > 0
-
-    # slot D-1 stashes the old edge momentum for the cross U-turn checks
-    edge_p_old = _w(fwd, in_p_plus, in_p_minus)
-    ckpt_p = s.ckpt_p.clone()
     ckpt_s = s.ckpt_s.clone()
-    ckpt_p[:, D - 1] = _w(at_start & active, edge_p_old, ckpt_p[:, D - 1])
 
-    # ------------------------------------------------ leapfrog (1 gradient)
-    z_e = _w(fwd, vec("z_plus"), vec("z_minus"))
-    p_e = _w(fwd, in_p_plus, in_p_minus)
-    g_e = _w(fwd, vec("g_plus"), vec("g_minus"))
+    # ------------------------------------------------ leapfrog, second half
     eps_s = (direction.to(dtype) * in_eps)[:, None]
-    p_half = p_e + 0.5 * eps_s * g_e
-    z_new = z_e + eps_s * (inv_mass * p_half)
-    logp_new, g_new = logp_and_grad(z_new)
     logp_new = logp_new.to(dtype)
     g_new = g_new.to(dtype)
-    p_new = p_half + 0.5 * eps_s * g_new
+    p_new = carry.p_half + 0.5 * eps_s * g_new
     v_new = inv_mass * p_new
     ke = 0.5 * _dot(p_new, v_new)
     h = -logp_new + ke
@@ -334,10 +389,7 @@ def machine_step(cfg: NutsConfig, logp_and_grad, sched: Schedule,
     n = in_n_leaf + 1
     e_err = h - in_h0
     finite = torch.isfinite(e_err)
-    # an unintegrable step (eps below the position's resolution) counts as
-    # a divergence, as in the JAX package
-    stagnant = torch.all(z_new == z_e, dim=1)
-    div_leaf = (~finite) | (e_err > cfg.max_energy_error) | stagnant
+    div_leaf = (~finite) | (e_err > cfg.max_energy_error) | carry.stagnant
     lw = torch.where(div_leaf, torch.full_like(e_err, -math.inf), -e_err)
     acc = torch.where(
         finite, torch.exp(torch.clamp(-e_err, max=0.0)), torch.zeros_like(e_err)

@@ -13,6 +13,9 @@ loops where the JAX package used ``while_loop``:
   and ``jnp.median`` do (``torch.median`` returns the lower one).
 - ``draw_randoms``: the per-draw momentum normals and jitter uniforms,
   keyed by absolute draw index, so streams do not depend on chunking.
+- ``make_chunk_runner``: the chunk runner of every model without a
+  device-side log density, a host loop of machine steps, each the step
+  kernel's two launches around one batched ``model.logp_and_grad``.
 
 Randomness derives from ``fold_in`` chains of the per-chain key exactly as
 in the JAX package, so both draw the same numbers from the same seed.
@@ -27,9 +30,14 @@ import torch
 
 from ..model import ModelDef
 from ..ops import threefry
-from .adapt import Schedule, flts_set
-from .nuts import NutsConfig, SCALAR_SLOTS, init_machine_state
-from .state import NutsMachineState, tree_where, where
+from .adapt import Schedule, flts_set, pool_adapt_state
+from .nuts import NutsConfig, SCALAR_SLOTS, init_buffers, init_machine_state, start_draw
+from .state import NutsMachineState, state_with, tree_where, where
+from .step_kernel import PlainSteps, step_kernel
+
+# machine steps between two "all done?" reads on the card (one small
+# device-to-host copy each); on the CPU every step checks
+CUDA_UNROLL = 4
 
 
 def resolve_dtype(precision: str, device) -> torch.dtype:
@@ -246,3 +254,86 @@ def draw_randoms(keys: torch.Tensor, chunk_start: int, chunk_len: int,
         threefry.normal(mom_keys, (dim,), dtype),
         threefry.uniform(jit_keys, (), dtype),
     )
+
+
+def pool_chunk_start(states: NutsMachineState, pool_mass_matrix: bool,
+                     pool_step_size: bool) -> NutsMachineState:
+    """Cross-chain pooling of the adaptation state at a chunk's start, a
+    chunk-boundary collective outside the kernels."""
+    if not (pool_mass_matrix or pool_step_size):
+        return states
+    adapt_vecs, adapt_flts = pool_adapt_state(
+        states.adapt_vecs, states.adapt_flts,
+        pool_mass=pool_mass_matrix, pool_step=pool_step_size,
+    )
+    return states.replace(adapt_vecs=adapt_vecs, adapt_flts=adapt_flts)
+
+
+class StepChunkRunner:
+    """``run_chunk(states, chunk_start, limit, sched) -> (states, bufs)``.
+
+    Per chunk, in the order of ``nutpie_tpu/sampler/run.py:make_chunk_runner``:
+    pooling at the chunk's start, the per-draw randoms, ``start_draw``,
+    then machine steps until every chain has produced ``limit`` draws, then
+    the trapped-chain rescue after warmup chunks.  Each machine step is the
+    step kernel's ``begin``, one ``model.logp_and_grad`` over all chains,
+    and its ``finish``.  A done chain is fully masked, so stepping past
+    the last chain's end is a no-op, and the loop reads "all done" only
+    every ``unroll`` steps.  ``plain=True`` runs the kernel's plain version
+    on any device (the comparisons on the card use it).
+    """
+
+    def __init__(self, model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
+                 pool_mass_matrix: bool = False, unroll=None,
+                 adapt_frozen: bool = False, pool_step_size: bool = False,
+                 plain: bool = False):
+        self.model = model
+        self.cfg = cfg
+        self.chunk_len = chunk_len
+        self.dtype = dtype
+        self.pool_mass_matrix = pool_mass_matrix
+        self.unroll = unroll
+        self.adapt_frozen = adapt_frozen
+        self.pool_step_size = pool_step_size
+        self.plain = plain
+
+    def __call__(self, states: NutsMachineState, chunk_start: int, limit: int,
+                 sched: Schedule):
+        cfg = self.cfg
+        chunk_start, limit = int(chunk_start), int(limit)
+        states = pool_chunk_start(states, self.pool_mass_matrix, self.pool_step_size)
+        n_chains, _, dim = states.vecs.shape
+        mom, jit = draw_randoms(states.key, chunk_start, self.chunk_len, dim, self.dtype)
+        bufs = init_buffers(self.chunk_len, dim, self.dtype, n_chains,
+                            device=states.vecs.device)
+        # every chain begins the chunk at a draw boundary; the copy is the
+        # chunk's own, which the kernel updates in place
+        states = start_draw(cfg, sched, state_with(states, done=False),
+                            mom[:, 0], jit[:, 0]).clone()
+        args = (cfg, sched, chunk_start, limit, states, mom, jit, bufs,
+                self.adapt_frozen)
+        steps = PlainSteps(*args) if self.plain else step_kernel.chunk(*args)
+        unroll = self.unroll or (CUDA_UNROLL if states.vecs.is_cuda else 1)
+        while True:
+            for _ in range(unroll):
+                z_new, carry = steps.begin(states)
+                logp, grad = self.model.logp_and_grad(z_new)
+                states = steps.finish(states, z_new, carry, logp, grad)
+            if bool(states.done.all()):
+                break
+        if not self.adapt_frozen:
+            states = rescue_trapped(states, chunk_start, limit, sched)
+        return states, bufs
+
+
+def make_chunk_runner(model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
+                      pool_mass_matrix: bool = False, unroll=None,
+                      adapt_frozen: bool = False, pool_step_size: bool = False,
+                      plain: bool = False) -> StepChunkRunner:
+    """Build the step runner (the JAX function's call semantics, without its
+    flow and low-rank branches).  ``unroll=None`` checks for the chunk's end
+    every ``CUDA_UNROLL`` steps on the card and every step on the CPU."""
+    return StepChunkRunner(model, cfg, chunk_len, dtype,
+                           pool_mass_matrix=pool_mass_matrix, unroll=unroll,
+                           adapt_frozen=adapt_frozen, pool_step_size=pool_step_size,
+                           plain=plain)

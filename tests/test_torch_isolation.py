@@ -3,8 +3,9 @@
 - No module of ``nutpie_tpu_torch`` imports ``jax`` or ``nutpie_tpu``
   (AST scan), and a CPU sample in a fresh interpreter loads neither.
 - ``sample(device="cuda")`` without CUDA raises instead of running on the
-  CPU; configurations and models the CUDA kernel cannot run raise
-  ``NotImplementedError`` before anything runs.
+  CPU; configurations neither CUDA kernel runs raise
+  ``NotImplementedError`` before anything runs, and a model without a
+  device-side log density takes the step kernel's route.
 - The kernel's launch count stays 0 when the runner is given CPU tensors.
 """
 
@@ -103,8 +104,14 @@ def test_unported_configs_raise_on_card_path(kwargs):
 
 
 def test_model_without_kernel_raises_on_card_path():
-    with pytest.raises(NotImplementedError, match="generic card path"):
-        nutpie_tpu_torch.sample(_normal_model(), chains=2, tune=2, draws=2, device="cuda")
+    """A model without a device-side log density takes the step kernel's
+    route on the card; without a card, ``sample`` then refuses CUDA."""
+    from nutpie_tpu_torch.sample import route
+
+    assert route(NutsConfig(), _normal_model()._make_model(0)) == "step"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            nutpie_tpu_torch.sample(_normal_model(), chains=2, tune=2, draws=2, device="cuda")
 
 
 def test_unported_options_raise():

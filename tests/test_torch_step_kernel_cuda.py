@@ -1,0 +1,87 @@
+"""The CUDA step kernel (K2) against its plain torch version, on the card.
+
+These tests need a CUDA device and ``nvcc``; without them they skip.  Run
+them on the card with ``python -m pytest tests/test_torch_step_kernel_cuda.py``
+(``chip_smoke.py`` runs the same comparison at full size).  Both run the
+same torch log density; in float64 the integer decisions must be exact,
+positions to rtol 1e-3 on a warmup chunk (adaptation feeds rounding
+differences back through the step size) and floats to rtol 1e-6 / atol
+1e-8 on the frozen chunk that follows.  Models: a small logistic GLM and
+the 1000-d Gaussian (lanes stride over 1000 coordinates), at 4 and 37
+chains (37 leaves part of the last block's warps without a chain).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nutpie_tpu_torch.models import ill_conditioned_gaussian, logistic_glm
+from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+from nutpie_tpu_torch.sampler.nuts import NutsConfig, init_buffers
+from nutpie_tpu_torch.sampler.run import draw_randoms, init_chains, make_chunk_runner
+from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+pytestmark = pytest.mark.cuda
+
+MODELS = {
+    "glm": lambda: logistic_glm(n_data=256, dim=16),
+    "gaussian1000": lambda: ill_conditioned_gaussian(dim=1000),
+}
+
+
+@pytest.fixture(params=[(m, c) for m in MODELS for c in (4, 37)],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def card(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    name, n_chains = request.param
+    model = MODELS[name]()
+    cfg = NutsConfig(maxdepth=8, adapt=AdaptConfig(num_tune=100))
+    sched = make_schedule(cfg.adapt, 100)
+    states, _ = init_chains(model, cfg, 4, n_chains, np.zeros(model.ndim),
+                            torch.float64, device="cuda")
+    return model, cfg, sched, states
+
+
+def _both(model, cfg, sched, states, start, frozen, chunk=8):
+    before = step_kernel.launches
+    k = make_chunk_runner(model, cfg, chunk, torch.float64, adapt_frozen=frozen)(
+        states, start, chunk, sched)
+    launches = step_kernel.launches - before
+    assert launches > 0 and launches % 2 == 0
+    p = make_chunk_runner(model, cfg, chunk, torch.float64, adapt_frozen=frozen,
+                          plain=True)(states, start, chunk, sched)
+    torch.cuda.synchronize()
+    return k, p
+
+
+def test_step_kernel_matches_plain_version(card):
+    model, cfg, sched, states = card
+    (sk, bk), (sp, bp) = _both(model, cfg, sched, states, 0, False)
+    assert torch.equal(sk.ints, sp.ints)
+    torch.testing.assert_close(bk.position, bp.position, rtol=1e-3, atol=1e-3, equal_nan=True)
+    (fk, fbk), (fp, fbp) = _both(model, cfg, sched, sk, 8, True)
+    assert torch.equal(fk.ints, fp.ints)
+    for a, b in ((fbk.position, fbp.position), (fbk.scalars, fbp.scalars),
+                 (fk.vecs, fp.vecs), (fk.flts, fp.flts)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-8, equal_nan=True)
+
+
+def test_done_chains_hand_their_committed_position(card):
+    """Once every chain is done, a step hands the logp each chain's
+    committed position and changes nothing."""
+    model, cfg, sched, states = card
+    (sk, _), _ = _both(model, cfg, sched, states, 0, True)
+    assert bool(sk.done.all())
+    mom, jit = draw_randoms(sk.key, 8, 8, model.ndim, torch.float64)
+    bufs = init_buffers(8, model.ndim, torch.float64, sk.vecs.shape[0], device="cuda")
+    state = sk.clone()
+    steps = step_kernel.chunk(cfg, sched, 8, 8, state, mom, jit, bufs, True)
+    z_new, carry = steps.begin(state)
+    assert torch.equal(z_new, sk.position)
+    logp, grad = model.logp_and_grad(z_new)
+    steps.finish(state, z_new, carry, logp, grad)
+    torch.cuda.synchronize()
+    for name, t in sk.tensors().items():
+        assert torch.equal(t, state.tensors()[name]), name
+    assert bool(torch.isnan(bufs.position).all())
