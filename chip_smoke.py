@@ -84,9 +84,46 @@ coefficients, 2048 observations, chunk 32):
    around each call (and by device time under ``torch.profiler``, which
    splits the logp's matrix products from the rest), the plain halves by
    CUDA events, the byte bound beside them (``step_bytes``); then the
-   whole chunk through the runner at ``unroll`` 1, 4 and 8.
+   whole chunk through the runner at ``unroll`` 1, 4 and 8.  Then the
+   same for K2's low-rank branch at the low-rank path's shapes (below):
+   one frozen 16-draw chunk of the float32 parity fleet, K2 with R = 32
+   and with R = 0 (the same fleet without its metric), the logp+grad
+   call, the plain halves over their first ``LR_PLAIN_STEPS`` steps, and
+   the byte bound with each launch reading the chain's basis once.
 
-Then the kernels line (K1 and K2), the card line, and the last line
+K2's low-rank branch (``adaptation="low_rank"``) on the 1000-d
+ill-conditioned Gaussian (``nutpie_tpu/models/analytic.py:166``,
+BASELINE's 1000-d target) at 1024 chains, max_rank 32, chunk 80:
+
+10. ``lowrank_parity``: K2 against its plain halves on the card.  Float64,
+    16 chains, two metrics from the port's ``estimate_low_rank`` on each
+    chain's window of exact posterior draws and gradients (a cutoff that
+    keeps all 32 slots, and the default 100, under which this target keeps
+    none: the branch's arithmetic on an all-padded metric): an 8-draw
+    warmup window from draw 0 (ints, step counts and Welford counts
+    exact, floats to 1e-3), then a 16-draw frozen chunk (ints exact,
+    floats and the stored gradients to rtol 1e-6 / atol 1e-8).  Float32 at
+    the main shapes, one frozen 16-draw chunk: at least 99.9% of step
+    counts equal and 99% of draws within 1e-3 (relative to 1 + abs x).
+11. ``lowrank``: ``sample(adaptation="low_rank")``, 1024 chains x (300
+    tune + ``LR_DRAWS`` draws), float32, seed 42, default settings but the
+    eigenvalue cutoff ``LR_CUTOFF`` (see there): K2 launched
+    twice per machine step, every chunk with R = 32, K1 never; the
+    boundary updates at draws 160 and 240 (timed with a synchronize on
+    each side), after which at least 90% of chains keep a slot; max split
+    R-hat over ``LR_MONITORED`` below 1.05; each monitored column's
+    variance, and the variance along the covariance's largest and
+    smallest eigenvectors, within ``LR_VAR_BAND`` of the truth.  Prints
+    wall, gradients/s, leapfrogs per draw, min bulk-ESS, ESS/s, min-ESS
+    per gradient and posterior divergences.  The profile phase runs this
+    path once more with tune and draws cut to ``LR_PROFILE_TUNE`` +
+    ``LR_PROFILE_DRAWS`` and the switch cadence to ``LR_PROFILE_SWITCH``
+    (boundary updates at draws 2, 4 and 6): K2, the matrix products,
+    the boundary's QR and eigendecompositions, copies and idle.
+
+Then the kernels line (K1, and K2 with its low-rank branch), the card
+line, and the last line
+
 ``{"ok": true, "device": {...}}``.  Every phase runs even after one
 fails; any failed phase makes the script exit non-zero with no result
 line, and so does ``--phases`` with fewer than all phases.  Without CUDA, or without the package beside it, the
@@ -169,8 +206,9 @@ GLM_CHAINS, GLM_TUNE, GLM_DRAWS, GLM_CHUNK = 10240, 300, 300, 32
 GLM_N_DATA, GLM_DIM = 2048, 64
 GLM_MONITORED = list(range(0, GLM_DIM, max(1, GLM_DIM // 24)))
 # the GLM profile's cut of tune and draws (the trace of every launch of the
-# whole path would be too large)
-GLM_PROFILE_TUNE, GLM_PROFILE_DRAWS = 64, 64
+# whole path would be too large, and the profiler's processing grows with
+# its events: 64 + 64 until the low-rank path joined the script)
+GLM_PROFILE_TUNE, GLM_PROFILE_DRAWS = 32, 32
 STEP_PARITY_CHAINS, ILL_DIM, ILL_CHAINS = 64, 1000, 16
 # posterior means of the GLM against the Laplace approximation, in
 # posterior sd: catches a wrong gradient, not a subtle bias
@@ -183,6 +221,39 @@ IMPORTANCE_SD_TOL = 0.05
 UNROLLS = (1, 4, 8)
 # where the GLM path runs
 DEVICE = "cuda"
+# the low-rank path: the 1000-d ill-conditioned Gaussian
+# (nutpie_tpu/models/analytic.py:166, BASELINE's "1000-d ill-conditioned
+# Gaussian"; condition 1e4, a random rotation) under adaptation="low_rank"
+# at 1024 chains, float32, chunk 80 (the low-rank rule: the switch
+# cadence), max_rank 32; its monitored columns, and the band each
+# column's variance (and the variance along the covariance's largest and
+# smallest eigenvectors) must fall in, relative to the truth
+# draws cut from 200 to 40: every tree of this target runs to the depth
+# cap (about 500 leapfrogs a draw), and 300 + 200 draws took 234 s on an
+# H100 80GB HBM3 at 700 W
+LR_DIM, LR_CHAINS, LR_TUNE, LR_DRAWS, LR_CHUNK, LR_RANK = 1000, 1024, 300, 40, 80, 32
+LR_MONITORED = list(range(0, LR_DIM, 16))
+LR_VAR_BAND = (0.8, 1.25)
+# the main path's eigenvalue cutoff: at the default 100 the gradient-based
+# diagonal already brings every direction of this target within a factor
+# of 100 (the standardized spectrum spans about 0.01-104), so the estimator
+# keeps no slot and the branch would run on an all-padded metric; 3.0 is
+# the JAX package's own low-rank sampling test's setting
+LR_CUTOFF = 3.0
+# the low-rank parity fleets: float64 at 16 chains, float32 at the main
+# shapes; each starts from posterior draws with the metric the port's
+# estimator gives on a window of LR_WINDOW posterior draws and gradients
+# (cutoff LR_CUTOFF_ALL keeps all 32 slots, the default 100 pads some)
+LR_PARITY_CHAINS, LR_WINDOW, LR_CUTOFF_ALL = 16, 80, 1.0 + 1e-6
+LR_F32_CHUNK = 16
+# plain machine steps timed at the low-rank shapes (each is a few ms)
+LR_PLAIN_STEPS = 64
+# the low-rank profile's cut: tune, draws and the switch cadence (so the
+# chunk length), which put boundary updates at draws 2, 4 and 6.  A tree of
+# this target runs to the depth cap, hundreds of machine steps a draw, and
+# the profiler's processing grows with the events: 32 draws took 8.5
+# minutes on top of the run
+LR_PROFILE_TUNE, LR_PROFILE_DRAWS, LR_PROFILE_SWITCH = 6, 2, 2
 
 
 def emit(obj) -> None:
@@ -321,6 +392,9 @@ def phase_build(ctx):
     })
     g32 = geometry["float32"]
     assert g32["resident_chains_per_sm"] >= 10 and g32["local_bytes_per_thread"] == 0, g32
+    k2 = step_kernel.geometry(torch.float32)
+    assert all(v == 0 for k, v in k2.items() if k.endswith("local_bytes")), \
+        f"the step kernel spills in float32: {k2}"
 
 
 def _main_kernel_config(model, cfg):
@@ -803,6 +877,13 @@ def _is_gemm(name: str) -> bool:
     return any(k in name.lower() for k in ("gemm", "cutlass", "xmma", "gemv"))
 
 
+def _is_linalg(name: str) -> bool:
+    """A kernel of the library QR or eigendecomposition (cuSOLVER, MAGMA)."""
+    return any(k in name.lower() for k in (
+        "geqr", "orgqr", "ormqr", "larf", "syev", "sytrd", "steqr", "stedc", "syevj",
+        "cusolver", "magma", "householder", "potrf", "trsm", "trmm", "jacobi"))
+
+
 def phase_profile(ctx):
     """Where the main paths' time goes: device time by kernel, idle share."""
     import nutpie_tpu_torch as nt
@@ -841,8 +922,38 @@ def phase_profile(ctx):
             "other_device_s": glm_device - k2["begin"] - k2["finish"] - gemm - glm_copy,
             "top_device_events": top(glm_rows),
         },
+        "lowrank": _lowrank_profile(top),
         "card": ctx["card"],
     })
+
+
+def _lowrank_profile(top) -> dict:
+    """The low-rank path under the profiler, tune and draws cut to one
+    boundary update: device time split into K2, the logp's matrix products,
+    the boundary update's QR and eigendecompositions, copies and the rest."""
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+
+    wall, rows = _profiled_sample(
+        compile_model_def(nt.models.ill_conditioned_gaussian(dim=LR_DIM)),
+        adaptation="low_rank", chains=LR_CHAINS, tune=LR_PROFILE_TUNE,
+        draws=LR_PROFILE_DRAWS, mass_matrix_switch_freq=LR_PROFILE_SWITCH,
+        mass_matrix_eigval_cutoff=LR_CUTOFF, seed=45, precision="float32")
+    device = sum(r[0] for r in rows)
+    k2 = {half: sum(r[0] for r in rows if f"step_{half}" in r[1]) for half in ("begin", "finish")}
+    gemm = sum(r[0] for r in rows if _is_gemm(r[1]))
+    linalg = sum(r[0] for r in rows if _is_linalg(r[1]) and not _is_gemm(r[1]))
+    copy = sum(r[0] for r in rows if r[1].startswith("Memcpy"))
+    return {
+        "chains": LR_CHAINS, "tune": LR_PROFILE_TUNE, "draws": LR_PROFILE_DRAWS,
+        "switch_freq": LR_PROFILE_SWITCH,
+        "wall_s_profiled": wall, "device_busy_s": device,
+        "device_idle_share": max(0.0, 1.0 - device / wall),
+        "step_begin_s": k2["begin"], "step_finish_s": k2["finish"],
+        "matmul_s": gemm, "qr_eigh_s": linalg, "memcpy_s": copy,
+        "other_device_s": device - k2["begin"] - k2["finish"] - gemm - linalg - copy,
+        "top_device_events": top(rows),
+    }
 
 
 # ---------------------------------------------------------------- GLM path
@@ -1129,7 +1240,7 @@ def phase_glm(ctx):
 
 
 def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
-               depth_slots: int, itemsize: int) -> dict:
+               depth_slots: int, itemsize: int, rank: int = 0) -> dict:
     """Bytes the step kernel must move over one frozen chunk, counted from
     csrc/step_kernel.cu for this chunk's trees (each row a launch touches
     read once and written once; the multinomial's copies of the proposal
@@ -1137,7 +1248,14 @@ def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
     bound).  Subtrees before a draw's last are full, so a draw of depth d
     and n steps has subtrees of 1, 2, ..., 2^(d-2) leaves and a last of
     n_last = n - 2^(d-1) + 1; a subtree of m leaves pushes ceil(m/2)
-    checkpoints, and the checks and merges count as in ``chunk_ops``."""
+    checkpoints, and the checks and merges count as in ``chunk_ops``.
+
+    Under a low-rank metric of rank ``rank`` each launch of an active chain
+    also reads the chain's basis and log eigenvalues once (the bound; the
+    kernel reads the basis twice per application of the metric, which
+    ``lr_basis_bytes_as_read`` counts: two passes for the drift and two for
+    the new point's velocity, three per draw's start; the checks and merges
+    use the velocities the kernel keeps)."""
     import numpy as np
 
     from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
@@ -1172,18 +1290,31 @@ def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
               + draws * (2 * row + 3 * row + 12 * T)
               + (draws - n_chains) * (2 * row + T + 12 * row)
               + done_steps * ints)
-    return {"bytes": begin + finish, "begin_bytes": begin, "finish_bytes": finish,
-            "leapfrogs": leapfrogs, "subtree_checks": checks, "merges": merges,
-            "pushes": pushes, "draws": draws, "done_chain_steps": done_steps}
+    out = {"leapfrogs": leapfrogs, "subtree_checks": checks, "merges": merges,
+           "pushes": pushes, "draws": draws, "done_chain_steps": done_steps}
+    if rank:
+        metric = (rank * dim + rank) * T
+        begin += leapfrogs * metric
+        finish += leapfrogs * metric
+        passes = 4 * leapfrogs + 3 * (draws - n_chains)
+        out["lr_basis_bytes_as_read"] = passes * rank * dim * T
+    return {"bytes": begin + finish, "begin_bytes": begin, "finish_bytes": finish, **out}
 
 
-def step_ops(work: dict, dim: int) -> int:
+def step_ops(work: dict, dim: int, rank: int = 0) -> int:
     """Operations of the step kernel for a chunk's trees, per coordinate as
-    in ``chunk_ops`` (the machine step's arithmetic, no model)."""
-    return (work["leapfrogs"] * (OPS_LEAF_SCALAR + OPS_LEAPFROG_PER_COORD * dim)
-            + work["subtree_checks"] * OPS_SUBTREE_CHECK_PER_COORD * dim
-            + work["merges"] * OPS_MERGE_PER_COORD * dim
-            + work["draws"] * OPS_START_DRAW_PER_COORD * dim)
+    in ``chunk_ops`` (the machine step's arithmetic, no model); under a
+    low-rank metric each application (the drift, the new point's velocity,
+    two per draw's start) adds a projection and an expansion (4 dim R) and
+    its scalings (3 dim)."""
+    ops = (work["leapfrogs"] * (OPS_LEAF_SCALAR + OPS_LEAPFROG_PER_COORD * dim)
+           + work["subtree_checks"] * OPS_SUBTREE_CHECK_PER_COORD * dim
+           + work["merges"] * OPS_MERGE_PER_COORD * dim
+           + work["draws"] * OPS_START_DRAW_PER_COORD * dim)
+    if rank:
+        apps = 2 * work["leapfrogs"] + 2 * work["draws"]
+        ops += apps * (4 * dim * rank + 3 * dim)
+    return ops
 
 
 def phase_step_timing(ctx):
@@ -1312,21 +1443,405 @@ def phase_step_timing(ctx):
                               for d, k, c in rows[:8]],
         "card": ctx["card"],
     })
+    lowrank_step_timing(ctx)
+
+
+# ---------------------------------------------------------------- low-rank path
+
+
+def _lr_truth():
+    """The 1000-d Gaussian's rotation and eigenvalues as
+    ``models/analytic.py:ill_conditioned_gaussian`` draws them (seed 0):
+    covariance ``Q diag(eigs) Q^T``, eigenvalues ascending."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    eigs = np.logspace(0, 4, LR_DIM)
+    q, _ = np.linalg.qr(rng.standard_normal((LR_DIM, LR_DIM)))
+    return q, eigs
+
+
+def _lr_posterior(n_chains: int, n_draws: int, seed: int):
+    """Exact posterior draws ``[C, n, dim]`` and their gradients, float64 on
+    the card (normals from numpy)."""
+    import numpy as np
+    import torch
+
+    q, eigs = _lr_truth()
+    qt = torch.as_tensor(q, device=DEVICE)
+    e = torch.as_tensor(eigs, device=DEVICE)
+    rng = np.random.default_rng(seed)
+    y = torch.as_tensor(rng.standard_normal((n_chains, n_draws, LR_DIM)), device=DEVICE)
+    y = y * torch.sqrt(e)                        # the draws in the eigenbasis
+    return y @ qt.T, -(y / e) @ qt.T              # x = Q y, -P x = -Q (y / eigs)
+
+
+def _lr_fleet(n_chains: int, dtype, seed: int, cutoff: float):
+    """A fleet of the low-rank path at stationarity: each chain at an exact
+    posterior draw, with the gradient-based diagonal estimate sqrt(var x /
+    var g) and the port's low-rank estimate (``estimate_low_rank``) from
+    ``LR_WINDOW`` earlier posterior draws and gradients of its own, and a
+    step size from the initial step search.  Returns the model, config,
+    schedule, state and each chain's kept slots."""
+    import numpy as np
+    import torch
+
+    from nutpie_tpu_torch.models import ill_conditioned_gaussian
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.low_rank import estimate_low_rank
+    from nutpie_tpu_torch.sampler.nuts import LowRankConfig, NutsConfig
+    from nutpie_tpu_torch.sampler.run import find_initial_step, init_chains
+    from nutpie_tpu_torch.sampler.state import ADAPT_VEC_SLOTS, state_with
+
+    model = ill_conditioned_gaussian(dim=LR_DIM)
+    cfg = NutsConfig(low_rank=LowRankConfig(eigval_cutoff=cutoff, max_rank=LR_RANK),
+                     adapt=AdaptConfig(num_tune=LR_TUNE))
+    sched = make_schedule(cfg.adapt, LR_TUNE, cfg.initial_depth_cap)
+    states, ok = init_chains(model, cfg, seed, n_chains, np.zeros(LR_DIM), dtype,
+                             device=DEVICE, step_search=False)
+    assert bool(ok.all()), "chain initialization failed"
+    x, g = _lr_posterior(n_chains, LR_WINDOW + 1, seed)
+    win_x, win_g = x[:, :LR_WINDOW], g[:, :LR_WINDOW]
+    inv_mass = torch.sqrt(win_x.var(dim=1) / win_g.var(dim=1))
+    valid = torch.ones((n_chains, LR_WINDOW), dtype=torch.bool, device=DEVICE)
+    lr = cfg.low_rank
+    metric = estimate_low_rank(win_x, win_g, valid, inv_mass, lr.max_rank,
+                               lr.eigval_cutoff, lr.gamma)
+    pos = x[:, -1].to(dtype)
+    logp, grad = model.logp_and_grad(pos)
+    adapt_vecs = states.adapt_vecs.clone()
+    adapt_vecs[:, ADAPT_VEC_SLOTS["inv_mass"]] = inv_mass.to(dtype)
+    states = state_with(states, position=pos, gradient=grad.to(dtype), logp=logp.to(dtype))
+    states = states.replace(adapt_vecs=adapt_vecs,
+                            lr_basis=metric.basis.to(dtype).contiguous(),
+                            lr_log_eigs=metric.log_eigs.to(dtype).contiguous())
+    states = find_initial_step(cfg, model.logp_and_grad, states)
+    return model, cfg, sched, states, (metric.log_eigs != 0).sum(dim=1)
+
+
+def _check_lowrank_frozen_f64(tag, s_k, b_k, s_p, b_p) -> float:
+    """``_check_frozen_f64`` and the stored gradients."""
+    err = _check_frozen_f64(tag, s_k, b_k, s_p, b_p)
+    assert_close(f"{tag} gradient", b_k.gradient, b_p.gradient, 1e-6, 1e-8)
+    return err
+
+
+def phase_lowrank_parity(ctx):
+    import torch
+
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+
+    ns = SCALAR_SLOTS["n_steps"]
+    failed = []
+    readings = {}
+    for tag, cutoff in (("all_slots", LR_CUTOFF_ALL), ("default_cutoff", 100.0)):
+        model, cfg, sched, states, kept = _lr_fleet(LR_PARITY_CHAINS, torch.float64, 31, cutoff)
+        (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, states, 0, 8, 8, False)
+        warm_err = _held(failed, _check_warmup_f64, f"low-rank {tag} warmup", 8,
+                         s_k, b_k, s_p, b_p)
+        (f_k, fb_k), (f_p, fb_p) = _steps_both(model, cfg, sched, s_k, 8, 16, 16, True)
+        frozen_err = _held(failed, _check_lowrank_frozen_f64, f"low-rank {tag} frozen",
+                           f_k, fb_k, f_p, fb_p)
+        readings[tag] = {
+            "eigval_cutoff": cutoff, "kept_slots_min": int(kept.min()),
+            "kept_slots_max": int(kept.max()),
+            "warmup": {"draws": 8, "held": warm_err is not None,
+                       "ints_equal": bool(torch.equal(s_k.ints, s_p.ints)),
+                       "max_abs_err_position": max_abs(b_k.position, b_p.position),
+                       "leapfrogs": int(b_k.scalars[..., ns].nansum()), "rtol": 1e-3},
+            "frozen": {"draws": 16, "held": frozen_err is not None,
+                       "ints_equal": bool(torch.equal(f_k.ints, f_p.ints)),
+                       "max_abs_err_position": max_abs(fb_k.position, fb_p.position),
+                       "leapfrogs": int(fb_k.scalars[..., ns].nansum()),
+                       "rtol": 1e-6, "atol": 1e-8},
+        }
+        del s_k, b_k, s_p, b_p, f_k, fb_k, f_p, fb_p
+
+    # float32 at the main shapes: one frozen chunk
+    model32, cfg32, sched32, st32, kept32 = _lr_fleet(LR_CHAINS, torch.float32, 33, LR_CUTOFF)
+
+    ctx["lr_fleet"] = (model32, cfg32, sched32, st32)
+    (g_k, gb_k), (_, gb_p) = _steps_both(model32, cfg32, sched32, st32, 0,
+                                         LR_F32_CHUNK, LR_F32_CHUNK, True)
+    f32 = _f32_shares(LR_F32_CHUNK, g_k, gb_k, gb_p)
+    ctx["lr_max_abs_err"] = readings["all_slots"]["frozen"]["max_abs_err_position"]
+    emit({
+        "phase": "lowrank_parity", "dim": LR_DIM, "rank": LR_RANK,
+        "f64": {"chains": LR_PARITY_CHAINS, **readings},
+        "f32": {"chains": LR_CHAINS, "draws": LR_F32_CHUNK, "all_finite": True,
+                "kept_slots_min": int(kept32.min()), "kept_slots_max": int(kept32.max()),
+                "leapfrogs": int(gb_k.scalars[..., ns].nansum()), "tol": F32_TOL, **f32},
+        "failed": failed,
+        "card": ctx["card"],
+    })
+    assert not failed, failed
+    assert f32["share_equal_n_steps"] >= F32_MIN_SHARE_STEPS, f32
+    assert f32["share_draws_within_tol"] >= F32_MIN_SHARE_DRAWS, f32
+
+
+def phase_lowrank(ctx):
+    import importlib
+
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.models import ill_conditioned_gaussian
+    from nutpie_tpu_torch.sampler import run as run_module
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.run import CUDA_UNROLL
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    # the module, not the function the package exports under its name
+
+    sample_module = importlib.import_module("nutpie_tpu_torch.sample")
+
+    # the boundary updates and the chunks' expansion and copies to the host,
+    # timed (a synchronize on each side), the updates read, and the metric
+    # rank of every chunk's kernel steps
+    updates, ranks, host = [], set(), {"expand_s": 0.0, "to_host_s": 0.0}
+    update_low_rank, chunk = run_module.update_low_rank, step_kernel.chunk
+    expand_chunk, chunk_to_host = sample_module.expand_chunk, sample_module.chunk_to_host
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            host[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def timed_update(cfg, states, bufs, chunk_start, limit, sched):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update_low_rank(cfg, states, bufs, chunk_start, limit, sched)
+        torch.cuda.synchronize()
+        if out is not states:
+            kept = (out.lr_log_eigs != 0).sum(dim=1)
+            updates.append({"end": chunk_start + limit, "seconds": time.perf_counter() - t0,
+                            "chains_with_a_kept_slot": int((kept > 0).sum()),
+                            "mean_kept_slots": float(kept.double().mean())})
+        return out
+
+    def ranked_chunk(*args, **kwargs):
+        steps = chunk(*args, **kwargs)
+        ranks.add(getattr(steps.cfg, "lr_rank", None))  # None: the plain version
+        return steps
+
+    compiled = compile_model_def(ill_conditioned_gaussian(dim=LR_DIM))
+    run_module.update_low_rank, step_kernel.chunk = timed_update, ranked_chunk
+    sample_module.expand_chunk = timed(expand_chunk, "expand_s")
+    sample_module.chunk_to_host = timed(chunk_to_host, "to_host_s")
+    try:
+        torch.cuda.synchronize()
+        step_kernel.launches = 0
+        chunk_kernel.launches = 0
+        t0 = time.perf_counter()
+        raw = nt.sample(compiled, adaptation="low_rank", chains=LR_CHAINS, tune=LR_TUNE,
+                        draws=LR_DRAWS, mass_matrix_eigval_cutoff=LR_CUTOFF, seed=42,
+                        precision="float32", device=DEVICE, return_raw_trace=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2, k1 = step_kernel.launches, chunk_kernel.launches
+    finally:
+        run_module.update_low_rank = update_low_rank
+        sample_module.expand_chunk, sample_module.chunk_to_host = expand_chunk, chunk_to_host
+        del step_kernel.chunk
+    n_steps = raw["stats"]["n_steps"]
+    steps = machine_steps(n_steps, LR_CHUNK, CUDA_UNROLL)
+    assert k1 == 0, f"the chunk kernel launched {k1} times on the low-rank path"
+    assert k2 == 2 * steps, f"step kernel launched {k2} times for {steps} machine steps"
+    assert ranks == {LR_RANK}, f"the step kernel ran with metric ranks {ranks}"
+    assert [u["end"] for u in updates] == [160, 240], updates
+    assert updates[-1]["chains_with_a_kept_slot"] >= 0.9 * LR_CHAINS, updates
+
+    pos = raw["position"]
+    assert pos.shape == (LR_CHAINS, LR_TUNE + LR_DRAWS, LR_DIM), pos.shape
+    assert pos.dtype == np.float32, pos.dtype
+    assert np.isfinite(pos).all(), "non-finite draws"
+    grads = int(n_steps.astype(np.int64).sum())
+    post = pos[:, LR_TUNE:, :]
+    ess, rhat = column_diagnostics(post, LR_MONITORED)
+    min_ess = float(np.min(ess))
+    q, eigs = _lr_truth()
+    flat = post.reshape(-1, LR_DIM)
+    true_var = (q * q) @ eigs
+    var_ratio = flat[:, LR_MONITORED].astype(np.float64).var(axis=0) / true_var[LR_MONITORED]
+    proj = flat @ q[:, [-1, 0]].astype(np.float32)
+    proj_ratio = proj.astype(np.float64).var(axis=0) / eigs[[-1, 0]]
+    lo, hi = LR_VAR_BAND
+    ctx["lr_launches"] = k2
+    emit({
+        "phase": "lowrank", "chains": LR_CHAINS, "tune": LR_TUNE, "draws": LR_DRAWS,
+        "dim": LR_DIM, "rank": LR_RANK, "chunk_len": LR_CHUNK, "dtype": "float32",
+        "step_kernel_launches": k2, "chunk_kernel_launches": k1, "machine_steps": steps,
+        "eigval_cutoff": LR_CUTOFF, "metric_ranks": sorted(ranks, key=str),
+        "boundary_updates": updates, **host,
+        "wall_s": wall, "host_wall_ms_per_machine_step": 1e3 * wall / steps,
+        "gradients": grads, "grads_per_s": grads / wall,
+        "leapfrogs_per_draw": float(n_steps.mean()),
+        "leapfrogs_per_posterior_draw": float(n_steps[:, LR_TUNE:].mean()),
+        "min_bulk_ess": min_ess, "min_ess_per_s": min_ess / wall,
+        "min_ess_per_grad": min_ess / grads, "max_rhat": float(max(rhat)),
+        "posterior_divergences": int(raw["stats"]["diverging"][:, LR_TUNE:].sum()),
+        "var_ratio_min": float(var_ratio.min()), "var_ratio_max": float(var_ratio.max()),
+        "var_ratio_top_eigvec": float(proj_ratio[0]),
+        "var_ratio_bottom_eigvec": float(proj_ratio[1]), "var_band": LR_VAR_BAND,
+        "card": ctx["card"],
+    })
+    assert np.isfinite(min_ess) and min_ess > 0, ess
+    assert max(rhat) < 1.05, f"split R-hat {max(rhat)} on a monitored column"
+    assert lo <= var_ratio.min() and var_ratio.max() <= hi, var_ratio
+    assert all(lo <= r <= hi for r in proj_ratio), proj_ratio
+
+
+def _timed_steps(model, cfg, sched, states, chunk: int):
+    """K2's halves and the logp+grad call per machine step over one frozen
+    chunk from ``states`` (chunk start 0), by CUDA events around each call:
+    a first run counts the steps, the timed run takes exactly that many
+    with no host read between them.  Returns (ms per step by part, steps,
+    the chunk's buffers)."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.nuts import init_buffers, start_draw
+    from nutpie_tpu_torch.sampler.run import CUDA_UNROLL, draw_randoms
+    from nutpie_tpu_torch.sampler.state import state_with
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    n_chains, _, dim = states.vecs.shape
+    dtype = states.vecs.dtype
+    mom, jit = draw_randoms(states.key, 0, chunk, dim, dtype)
+
+    def prepared():
+        bufs = init_buffers(chunk, dim, dtype, n_chains, device=DEVICE, cfg=cfg)
+        st = start_draw(cfg, sched, state_with(states, done=False),
+                        mom[:, 0], jit[:, 0]).clone()
+        return st, bufs, step_kernel.chunk(cfg, sched, 0, chunk, st, mom, jit, bufs, True)
+
+    st, bufs, steps = prepared()
+    n_steps = 0
+    while True:
+        z_new, carry = steps.begin(st)
+        logp, grad = model.logp_and_grad(z_new)
+        st = steps.finish(st, z_new, carry, logp, grad)
+        n_steps += 1
+        if n_steps % CUDA_UNROLL == 0 and bool(st.done.all()):
+            break
+    est, ebufs, esteps = prepared()
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    for ev in marks:
+        ev[0].record()
+        z_new, carry = esteps.begin(est)
+        ev[1].record()
+        logp, grad = model.logp_and_grad(z_new)
+        ev[2].record()
+        est = esteps.finish(est, z_new, carry, logp, grad)
+        ev[3].record()
+    torch.cuda.synchronize()
+    assert bool(est.done.all()) and bitwise_equal(ebufs.position, bufs.position)
+    ms = {part: sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / n_steps
+          for i, part in enumerate(("begin", "logp_grad", "finish"))}
+    return ms, n_steps, bufs
+
+
+def _plain_step_ms(model, cfg, sched, states, chunk: int, max_steps: int) -> dict:
+    """The plain halves per machine step by CUDA events after a synchronize,
+    over the first ``max_steps`` steps of the same chunk."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.nuts import init_buffers, start_draw
+    from nutpie_tpu_torch.sampler.run import draw_randoms
+    from nutpie_tpu_torch.sampler.state import state_with
+    from nutpie_tpu_torch.sampler.step_kernel import PlainSteps
+
+    n_chains, _, dim = states.vecs.shape
+    dtype = states.vecs.dtype
+    mom, jit = draw_randoms(states.key, 0, chunk, dim, dtype)
+    bufs = init_buffers(chunk, dim, dtype, n_chains, device=DEVICE, cfg=cfg)
+    st = start_draw(cfg, sched, state_with(states, done=False), mom[:, 0], jit[:, 0]).clone()
+    plain = PlainSteps(cfg, sched, 0, chunk, st, mom, jit, bufs, True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    out = {"begin": 0.0, "finish": 0.0}
+    n = 0
+    while n < max_steps and not bool(st.done.all()):
+        torch.cuda.synchronize()
+        ev[0].record()
+        z_new, carry = plain.begin(st)
+        ev[1].record()
+        logp, grad = model.logp_and_grad(z_new)
+        torch.cuda.synchronize()
+        ev[2].record()
+        st = plain.finish(st, z_new, carry, logp, grad)
+        ev[3].record()
+        torch.cuda.synchronize()
+        out["begin"] += ev[0].elapsed_time(ev[1])
+        out["finish"] += ev[2].elapsed_time(ev[3])
+        n += 1
+    return {k: v / n for k, v in out.items()} | {"steps": n}
+
+
+def lowrank_step_timing(ctx):
+    """K2 at the low-rank path's shapes (1024 chains, dim 1000, float32,
+    one frozen 16-draw chunk from the float32 parity fleet) with R = 32 and
+    with R = 0 (the same fleet without its low-rank metric), beside the
+    logp+grad call, the byte bound and the plain halves."""
+    import dataclasses
+
+    from nutpie_tpu_torch.sampler.nuts import NutsConfig
+
+    model, cfg, sched, states = ctx["lr_fleet"]
+    chunk = LR_F32_CHUNK
+    out = {}
+    for tag, c, st in (
+            ("rank32", cfg, states),
+            ("rank0", dataclasses.replace(cfg, low_rank=None),
+             states.replace(lr_basis=None, lr_log_eigs=None))):
+        assert isinstance(c, NutsConfig)
+        rank = 0 if c.low_rank is None else c.low_rank.max_rank
+        ms, n_steps, bufs = _timed_steps(model, c, sched, st, chunk)
+        plain = _plain_step_ms(model, c, sched, st, chunk, LR_PLAIN_STEPS)
+        work = step_bytes(bufs.scalars, chunk, LR_CHAINS, n_steps, LR_DIM,
+                          st.ckpt_p.shape[1], 4, rank=rank)
+        t_bytes = 1e3 * work["bytes"] / PEAK_BYTES / n_steps
+        t_ops = 1e3 * step_ops(work, LR_DIM, rank) / PEAK_F32_OPS / n_steps
+        k2_ms = ms["begin"] + ms["finish"]
+        out[tag] = {
+            "rank": rank, "machine_steps": n_steps, "k2_ms_per_step": k2_ms,
+            "k2_begin_ms_per_step": ms["begin"], "k2_finish_ms_per_step": ms["finish"],
+            "logp_grad_ms_per_step": ms["logp_grad"],
+            "plain_begin_ms_per_step": plain["begin"],
+            "plain_finish_ms_per_step": plain["finish"], "plain_machine_steps": plain["steps"],
+            "bytes_per_step": work["bytes"] / n_steps, "bytes_bound_ms_per_step": t_bytes,
+            "ops_bound_ms_per_step": t_ops, "share_of_bound": max(t_bytes, t_ops) / k2_ms,
+            **{k: v for k, v in work.items() if k != "bytes"},
+        }
+        if tag == "rank32":
+            ctx.update(lr_step_ms=k2_ms, lr_step_plain_ms=plain["begin"] + plain["finish"],
+                       lr_step_bound_ms=max(t_bytes, t_ops),
+                       lr_step_bound_by="bytes" if t_bytes >= t_ops else "operations")
+    emit({"phase": "step_timing_lowrank", "chains": LR_CHAINS, "dim": LR_DIM,
+          "chunk": chunk, "dtype": "float32", **out, "card": ctx["card"]})
 
 
 PHASES = {
     "build": phase_build,
     "parity": phase_parity,
     "step_parity": phase_step_parity,
+    "lowrank_parity": phase_lowrank_parity,
     "main": phase_main,
     "glm": phase_glm,
+    "lowrank": phase_lowrank,
     "warmup": phase_warmup,
     "timing": phase_timing,
     "step_timing": phase_step_timing,
     "profile": phase_profile,
 }
 # phases whose results a later phase reads
-NEEDS = {"timing": "warmup", "step_timing": "step_parity"}
+NEEDS = {"timing": ("warmup",), "step_timing": ("step_parity", "lowrank_parity")}
 
 
 def main() -> int:
@@ -1354,7 +1869,7 @@ def main() -> int:
 
     ctx: dict = {}
     asked = {p for p in args.phases.split(",") if p}
-    asked |= {"build"} | {NEEDS[p] for p in asked if p in NEEDS}
+    asked |= {"build"} | {n for p in asked for n in NEEDS.get(p, ())}
     phases = [p for p in PHASES if p in asked]
     # every phase runs, so one call reads them all; any failure fails the run
     failed, seconds = [], {}
@@ -1408,6 +1923,17 @@ def main() -> int:
             "library_ms": None,
             "ms_per_machine_step": ctx["step_ms"],
             "parity": "ok",
+            "low_rank_branch": {
+                "shapes": f"{LR_CHAINS} chains, dim {LR_DIM}, rank {LR_RANK}, float32",
+                "launches": ctx["lr_launches"],
+                "max_abs_err": ctx["lr_max_abs_err"],
+                "ms": ctx["lr_step_ms"],
+                "plain_ms": ctx["lr_step_plain_ms"],
+                "bound_ms": ctx["lr_step_bound_ms"],
+                "bound_by": ctx["lr_step_bound_by"],
+                "library_ms": None,
+                "parity": "ok",
+            },
         }]})
     print(ctx["card"], flush=True)
     if not full:

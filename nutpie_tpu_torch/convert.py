@@ -5,9 +5,13 @@ named numpy arrays: ``rng_key`` (raw key data, ``jax.random.key_data``),
 ``vecs``, ``ckpt_p``, ``ckpt_s``, ``flts``, ``ints``, and the adaptation
 leaves ``adapt.da.*``, ``adapt.adam.*``, ``adapt.inv_mass`` and
 ``adapt.{draws,grads}_{cur,bg}.{mean,m2,count}``, each with a leading
-chains axis.  ``state_from_arrays`` packs such a dict into
-:class:`NutsMachineState`; ``state_to_arrays`` unpacks it again, so both
-packages can step the same state and be compared array by array.
+chains axis.  Under low-rank adaptation the JAX ``LowRankAdaptState``
+adds ``adapt.metric.basis`` (``[C, dim, R]``, a ``LowRankMetric`` of
+``basis [dim, R]`` per chain) and ``adapt.metric.log_eigs`` (``[C, R]``),
+which map to the port's ``lr_basis`` and ``lr_log_eigs``.
+``state_from_arrays`` packs such a dict into :class:`NutsMachineState`;
+``state_to_arrays`` unpacks it again, so both packages can step the same
+state and be compared array by array.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ for _acc in ("draws_cur", "grads_cur", "draws_bg", "grads_bg"):
     ADAPT_LEAVES[f"adapt.{_acc}.count"] = ("flts", ADAPT_FLT_SLOTS[f"{_acc}_count"])
 
 STATE_LEAVES = ("vecs", "ckpt_p", "ckpt_s", "flts", "ints")
+# the low-rank metric's leaves and the port's fields
+METRIC_LEAVES = {"adapt.metric.basis": "lr_basis", "adapt.metric.log_eigs": "lr_log_eigs"}
 
 
 def adapt_from_arrays(arrays: dict, device="cpu", dtype=torch.float64):
@@ -69,6 +75,8 @@ def state_from_arrays(arrays: dict, device="cpu", dtype=None) -> NutsMachineStat
     dtype = dtype or (torch.float64 if vecs.dtype == np.float64 else torch.float32)
     t = lambda a, dt=dtype: torch.as_tensor(np.array(a), dtype=dt, device=device)
     adapt_vecs, adapt_flts = adapt_from_arrays(arrays, device, dtype)
+    metric = {field: t(arrays[leaf]) for leaf, field in METRIC_LEAVES.items()
+              if leaf in arrays}
     return NutsMachineState(
         key=t(np.asarray(arrays["rng_key"]).astype(np.int64), torch.int64),
         adapt_vecs=adapt_vecs,
@@ -78,6 +86,7 @@ def state_from_arrays(arrays: dict, device="cpu", dtype=None) -> NutsMachineStat
         ckpt_s=t(arrays["ckpt_s"]),
         flts=t(arrays["flts"]),
         ints=t(arrays["ints"], torch.int32),
+        **metric,
     )
 
 
@@ -88,4 +97,7 @@ def state_to_arrays(state: NutsMachineState) -> dict:
     for name in STATE_LEAVES:
         out[name] = a(getattr(state, name))
     out.update(adapt_to_arrays(state.adapt_vecs, state.adapt_flts))
+    for leaf, field in METRIC_LEAVES.items():
+        if getattr(state, field) is not None:
+            out[leaf] = a(getattr(state, field))
     return out

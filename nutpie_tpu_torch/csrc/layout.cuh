@@ -3,7 +3,7 @@
 //
 // The slot enums must equal the maps in nutpie_tpu_torch/sampler/state.py
 // and nutpie_tpu_torch/sampler/nuts.py (SCALAR_SLOTS); MkConfig must equal
-// the ctypes structure in nutpie_tpu_torch/sampler/megakernel.py, and the
+// the ctypes structure in nutpie_tpu_torch/sampler/abi.py, and the
 // radon tables the packing in nutpie_tpu_torch/models/radon.py
 // (RadonKernelData.tensors).
 #pragma once
@@ -86,6 +86,7 @@ struct MkConfig {
   int32_t n_obs;
   int32_t n_seg;     // segments of the lane partition
   int32_t obs_rows;  // rows of the lane-major observation table
+  int32_t lr_rank;   // R of the low-rank metric, 0 for the diagonal one (step kernel)
 };
 
 // Device pointers of one launch.  State tensors are updated in place.

@@ -22,6 +22,22 @@
 // float32.  chip_smoke.py counts the bytes from this code for each run's
 // trees (step_bytes).
 //
+// The low-rank branch (LR = true, taken when the wrapper passes a metric
+// of rank R > 0; lowrank.cuh) replaces every product inv_mass * p by the
+// low-rank metric's velocity and the momentum of a new draw by its
+// M^{1/2} z.  Each application reads the chain's [dim, R] basis twice
+// (projection and expansion), so the basis dominates the branch's bytes,
+// and the branch applies the metric only where a momentum is new: the
+// drift in step_begin, the new point's velocity in step_finish, and the
+// momentum and kinetic energy of the next draw.  The metric is fixed
+// within a draw, so every other velocity the U-turn checks need is one of
+// those, kept where its momentum is kept: the two trajectory edges' in
+// `edge_v` (the new point's is written there), each checkpoint's in
+// `ckpt_v` beside `ckpt_p` (pushed from the new point's, the slot-(D-1)
+// stash from its edge's).  A kept velocity is bitwise the one the same
+// arithmetic would compute again.  R = 0 takes the diagonal
+// instantiation, which has no low-rank code at all.
+//
 // The design is the simple one: one warp per chain and four chains per
 // block, lanes striding over the coordinates (any dim; K1 stops at 256),
 // neighbouring lanes on neighbouring addresses.  Every row stays in device
@@ -38,6 +54,7 @@
 #include <cuda_runtime.h>
 
 #include "adapt.cuh"
+#include "lowrank.cuh"
 #include "threefry.cuh"
 #include "warp.cuh"
 
@@ -45,6 +62,9 @@ namespace nutpie {
 
 constexpr int kStepWarps = 4;
 constexpr int kStepThreads = kStepWarps * kLanes;
+// One block per SM at least: without it the compiler caps the low-rank
+// finish at 96 registers (float32) and spills.
+constexpr int kStepMinBlocks = 1;
 
 // Device pointers of one launch, as the wrapper passes them (step_kernel.py
 // StepPtrs).  The state tensors are updated in place.
@@ -67,6 +87,13 @@ struct StepPtrs {
   int32_t* stagnant;     // [C] the step left the position unchanged
   const void* logp;      // [C] log density at z_new
   const void* grad;      // [C, dim] its gradient
+  const void* lr_basis;     // [C, dim, R] the low-rank metric's basis (R > 0)
+  const void* lr_log_eigs;  // [C, R] its log eigenvalues
+  void* edge_v;             // [C, 2, dim] velocities of p_minus, p_plus (R > 0)
+  void* ckpt_v;             // [C, D, dim] velocities of the ckpt_p rows (R > 0)
+  void* grad_out;           // [C, L, dim] the draws' gradients, or null
+  void* minv_out;           // [C, L, dim] the draws' inverse mass, or null
+  void* eig_out;            // [C, L, R] the draws' metric eigenvalues, or null
 };
 
 template <typename T>
@@ -90,6 +117,13 @@ struct StepArgs {
   int32_t* stagnant;
   const T* logp;
   const T* grad;
+  const T* lr_basis;
+  const T* lr_log_eigs;
+  T* edge_v;
+  T* ckpt_v;
+  T* grad_out;
+  T* minv_out;
+  T* eig_out;
 
   StepArgs(const MkConfig& c, const StepPtrs& p)
       : cfg(c), scal(p.scal), key(p.key), vecs(static_cast<T*>(p.vecs)),
@@ -100,42 +134,103 @@ struct StepArgs {
         mom(static_cast<const T*>(p.mom)), jit(static_cast<const T*>(p.jit)),
         pos_out(static_cast<T*>(p.pos_out)), scal_out(static_cast<T*>(p.scal_out)),
         z_new(static_cast<T*>(p.z_new)), u3(p.u3), stagnant(p.stagnant),
-        logp(static_cast<const T*>(p.logp)), grad(static_cast<const T*>(p.grad)) {}
+        logp(static_cast<const T*>(p.logp)), grad(static_cast<const T*>(p.grad)),
+        lr_basis(static_cast<const T*>(p.lr_basis)),
+        lr_log_eigs(static_cast<const T*>(p.lr_log_eigs)),
+        edge_v(static_cast<T*>(p.edge_v)), ckpt_v(static_cast<T*>(p.ckpt_v)),
+        grad_out(static_cast<T*>(p.grad_out)), minv_out(static_cast<T*>(p.minv_out)),
+        eig_out(static_cast<T*>(p.eig_out)) {}
+
+  __device__ __forceinline__ LowRank<T> metric(int chain, int lane) const {
+    return LowRank<T>(lr_basis, lr_log_eigs, size_t(chain), cfg.dim, cfg.lr_rank, lane);
+  }
 };
 
 __device__ __forceinline__ int chain_of_warp() {
   return blockIdx.x * kStepWarps + threadIdx.x / kLanes;
 }
 
+// The coordinates of the block of 32 that starts at `base` (the last block
+// may be short).
+__device__ __forceinline__ int block_len(int dim, int base) {
+  return dim - base < kLanes ? dim - base : kLanes;
+}
+
+// A new draw's trajectory rows at coordinate i: every edge, the proposals
+// and rho from the committed position, gradient and momentum p0.
+template <typename T>
+__device__ __forceinline__ void reset_rows(T* v, int dim, int i, T p0) {
+  const T z = v[V_POSITION * dim + i];
+  const T g = v[V_GRADIENT * dim + i];
+  v[V_Z_MINUS * dim + i] = z;
+  v[V_P_MINUS * dim + i] = p0;
+  v[V_G_MINUS * dim + i] = g;
+  v[V_Z_PLUS * dim + i] = z;
+  v[V_P_PLUS * dim + i] = p0;
+  v[V_G_PLUS * dim + i] = g;
+  v[V_RHO * dim + i] = p0;
+  v[V_RHO_SUB * dim + i] = T(0);
+  v[V_PROP_Z * dim + i] = z;
+  v[V_PROP_G * dim + i] = g;
+  v[V_SPROP_Z * dim + i] = z;
+  v[V_SPROP_G * dim + i] = g;
+}
+
 // Refresh momentum and reset the trajectory for a new draw (start_draw in
 // nuts.py): every state row from the committed position and gradient.
-template <typename T>
+// Low-rank: p0 = (z + U c) / s (its coefficients in a first pass over the
+// basis), whose velocity coefficients the second pass gathers while it
+// writes the rows, and in a third the velocity v(p0), kept for both edges
+// (ev), and the kinetic energy p0 . v(p0).
+template <typename T, bool LR>
 __device__ __forceinline__ void start_draw_strided(T* fl, int* in,
                                                    const MkConfig& cfg,
                                                    const Sched& s, int lane,
                                                    T* v, const T* im,
                                                    const T* af, const T* gauss,
-                                                   T jitter_u) {
+                                                   T jitter_u, const LowRank<T>& m, T* ev) {
   const int dim = cfg.dim;
   T ke[1] = {T(0)};
-  for (int i = lane; i < dim; i += kLanes) {
-    const T m = im[i];
-    const T p0 = gauss[i] / sqrt(m);
-    ke[0] += p0 * (m * p0);
-    const T z = v[V_POSITION * dim + i];
-    const T g = v[V_GRADIENT * dim + i];
-    v[V_Z_MINUS * dim + i] = z;
-    v[V_P_MINUS * dim + i] = p0;
-    v[V_G_MINUS * dim + i] = g;
-    v[V_Z_PLUS * dim + i] = z;
-    v[V_P_PLUS * dim + i] = p0;
-    v[V_G_PLUS * dim + i] = g;
-    v[V_RHO * dim + i] = p0;
-    v[V_RHO_SUB * dim + i] = T(0);
-    v[V_PROP_Z * dim + i] = z;
-    v[V_PROP_G * dim + i] = g;
-    v[V_SPROP_Z * dim + i] = z;
-    v[V_SPROP_G * dim + i] = g;
+  if constexpr (LR) {
+    T c = T(0);
+    for (int base = 0; base < dim; base += kLanes) {
+      const int i = base + lane;
+      lr_project_block(m, base, block_len(dim, base), i < dim ? gauss[i] : T(0), lane, c);
+    }
+    c = m.momentum_factor() * c;
+    T cv = T(0);
+    for (int base = 0; base < dim; base += kLanes) {
+      const int i = base + lane;
+      const T uc = lr_expand(m, i, c);
+      T wi = T(0);
+      if (i < dim) {
+        const T si = sqrt(im[i]);
+        const T p0 = (gauss[i] + uc) / si;
+        reset_rows(v, dim, i, p0);
+        wi = si * p0;
+      }
+      lr_project_block(m, base, block_len(dim, base), wi, lane, cv);
+    }
+    cv = m.velocity_factor() * cv;
+    for (int base = 0; base < dim; base += kLanes) {
+      const int i = base + lane;
+      const T uc = lr_expand(m, i, cv);
+      if (i < dim) {
+        const T si = sqrt(im[i]);
+        const T p0 = v[V_P_MINUS * dim + i];
+        const T vi = si * (si * p0 + uc);
+        ev[i] = vi;
+        ev[dim + i] = vi;
+        ke[0] += p0 * vi;
+      }
+    }
+  } else {
+    for (int i = lane; i < dim; i += kLanes) {
+      const T mi = im[i];
+      const T p0 = gauss[i] / sqrt(mi);
+      ke[0] += p0 * (mi * p0);
+      reset_rows(v, dim, i, p0);
+    }
   }
   warp_sum(ke);
   const bool tuning = in[I_DRAW_IDX] < s.num_tune;
@@ -170,8 +265,8 @@ __device__ __forceinline__ void start_draw_strided(T* fl, int* in,
 }
 
 // The step up to the log density (leapfrog_begin in nuts.py).
-template <typename T>
-__global__ void __launch_bounds__(kStepThreads) step_begin(StepArgs<T> a) {
+template <typename T, bool LR>
+__global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_begin(StepArgs<T> a) {
   const MkConfig& cfg = a.cfg;
   const int chain = chain_of_warp();
   if (chain >= cfg.n_chains) return;  // the whole warp
@@ -212,14 +307,49 @@ __global__ void __launch_bounds__(kStepThreads) step_begin(StepArgs<T> a) {
   // slot D-1 stashes the old edge momentum for the cross U-turn checks
   T* stash = a.ckpt_p + (size_t(chain) * D + (D - 1)) * dim;
   bool moved = false;
-  for (int i = lane; i < dim; i += kLanes) {
-    const T p_e = pe[i];
-    if (at_start) stash[i] = p_e;
-    const T z_e = ze[i];
-    const T p_half = p_e + half_eps * ge[i];
-    const T z = z_e + eps_s * (im[i] * p_half);
-    zn[i] = z;
-    moved = moved || (z != z_e);
+  if constexpr (LR) {
+    // the drift's velocity: its coefficients from w = s * p_half, then
+    // z_new = z_e + eps * s (w + U c); the stash keeps its edge's velocity
+    const LowRank<T> m = a.metric(chain, lane);
+    const T* ev = a.edge_v + (size_t(chain) * 2 + (fwd ? 1 : 0)) * dim;
+    T* stash_v = a.ckpt_v + (size_t(chain) * D + (D - 1)) * dim;
+    T c = T(0);
+    for (int base = 0; base < dim; base += kLanes) {
+      const int i = base + lane;
+      T wi = T(0);
+      if (i < dim) {
+        const T p_e = pe[i];
+        if (at_start) {
+          stash[i] = p_e;
+          stash_v[i] = ev[i];
+        }
+        wi = sqrt(im[i]) * (p_e + half_eps * ge[i]);
+      }
+      lr_project_block(m, base, block_len(dim, base), wi, lane, c);
+    }
+    c = m.velocity_factor() * c;
+    for (int base = 0; base < dim; base += kLanes) {
+      const int i = base + lane;
+      const T uc = lr_expand(m, i, c);
+      if (i < dim) {
+        const T si = sqrt(im[i]);
+        const T p_half = pe[i] + half_eps * ge[i];
+        const T z_e = ze[i];
+        const T z = z_e + eps_s * (si * (si * p_half + uc));
+        zn[i] = z;
+        moved = moved || (z != z_e);
+      }
+    }
+  } else {
+    for (int i = lane; i < dim; i += kLanes) {
+      const T p_e = pe[i];
+      if (at_start) stash[i] = p_e;
+      const T z_e = ze[i];
+      const T p_half = p_e + half_eps * ge[i];
+      const T z = z_e + eps_s * (im[i] * p_half);
+      zn[i] = z;
+      moved = moved || (z != z_e);
+    }
   }
   // an unintegrable step (eps below the position's resolution) is a
   // divergence; finish reads the flag
@@ -231,8 +361,8 @@ __global__ void __launch_bounds__(kStepThreads) step_begin(StepArgs<T> a) {
 }
 
 // The step after the log density (leapfrog_finish in nuts.py).
-template <typename T>
-__global__ void __launch_bounds__(kStepThreads) step_finish(StepArgs<T> a) {
+template <typename T, bool LR>
+__global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(StepArgs<T> a) {
   const MkConfig& cfg = a.cfg;
   const int chain = chain_of_warp();
   if (chain >= cfg.n_chains) return;  // the whole warp
@@ -263,6 +393,10 @@ __global__ void __launch_bounds__(kStepThreads) step_finish(StepArgs<T> a) {
   const T u1 = T(a.u3[3 * size_t(chain) + 1]);
   const T u2 = T(a.u3[3 * size_t(chain) + 2]);
   const bool stagnant = a.stagnant[chain] != 0;
+  // the low-rank branch's metric and kept velocities
+  const LowRank<T> m = a.metric(chain, lane);
+  T* ev = a.edge_v + size_t(chain) * 2 * dim;  // p_minus's, then p_plus's
+  T* cv = a.ckpt_v + size_t(chain) * D * dim;  // each ckpt_p row's
 
   const int direction = in[I_DIRECTION];  // begin's choice
   const bool fwd = direction > 0;
@@ -275,18 +409,51 @@ __global__ void __launch_bounds__(kStepThreads) step_finish(StepArgs<T> a) {
   T* rho_sub = v + V_RHO_SUB * dim;
   T* sz = v + V_SPROP_Z * dim;
   T* sg = v + V_SPROP_G * dim;
+  T* ve = ev + (fwd ? 1 : 0) * dim;        // LR: the new point's velocity
+  const T* v_far = ev + (fwd ? 0 : 1) * dim;
 
   // ---------------------------------------------- second half-kick; the
   // extended edge becomes the new point
   T ke[1] = {T(0)};
-  for (int i = lane; i < dim; i += kLanes) {
-    const T p_half = pe[i] + half_eps * ge[i];
-    const T g = gn[i];
-    const T p = p_half + half_eps * g;
-    ke[0] += p * (im[i] * p);
-    ze[i] = zn[i];
-    pe[i] = p;
-    ge[i] = g;
+  if constexpr (LR) {
+    // v_new = s (w + U c), w = s p_new, kept as the edge's velocity
+    T c = T(0);
+    for (int base = 0; base < dim; base += kLanes) {
+      const int i = base + lane;
+      T wi = T(0);
+      if (i < dim) {
+        const T p_half = pe[i] + half_eps * ge[i];
+        const T g = gn[i];
+        const T p = p_half + half_eps * g;
+        ze[i] = zn[i];
+        pe[i] = p;
+        ge[i] = g;
+        wi = sqrt(im[i]) * p;
+      }
+      lr_project_block(m, base, block_len(dim, base), wi, lane, c);
+    }
+    c = m.velocity_factor() * c;
+    for (int base = 0; base < dim; base += kLanes) {
+      const int i = base + lane;
+      const T uc = lr_expand(m, i, c);
+      if (i < dim) {
+        const T si = sqrt(im[i]);
+        const T p = pe[i];
+        const T vn = si * (si * p + uc);
+        ve[i] = vn;
+        ke[0] += p * vn;
+      }
+    }
+  } else {
+    for (int i = lane; i < dim; i += kLanes) {
+      const T p_half = pe[i] + half_eps * ge[i];
+      const T g = gn[i];
+      const T p = p_half + half_eps * g;
+      ke[0] += p * (im[i] * p);
+      ze[i] = zn[i];
+      pe[i] = p;
+      ge[i] = g;
+    }
   }
   warp_sum(ke);
 
@@ -330,6 +497,7 @@ __global__ void __launch_bounds__(kStepThreads) step_finish(StepArgs<T> a) {
     if (odd) {
       cp[top_c * dim + i] = p;
       cs[top_c * dim + i] = rs;
+      if constexpr (LR) cv[top_c * dim + i] = ve[i];
     }
     rho_sub[i] = rs + p;  // rho_sub + p_new, reset below at a doubling
   }
@@ -339,11 +507,21 @@ __global__ void __launch_bounds__(kStepThreads) step_finish(StepArgs<T> a) {
     const int lo = top_after - tz > 0 ? top_after - tz : 0;
     for (int slot = lo; slot < top_after && slot < D; ++slot) {
       T dots[2] = {T(0), T(0)};
-      for (int i = lane; i < dim; i += kLanes) {
-        const T m = im[i];
-        const T rho_ab = rho_sub[i] - cs[slot * dim + i];
-        dots[0] += rho_ab * (cp[slot * dim + i] * m);
-        dots[1] += rho_ab * (m * pe[i]);
+      if constexpr (LR) {
+        const T* cvs = cv + slot * dim;
+        for (int i = lane; i < dim; i += kLanes) {
+          const T rho_ab = rho_sub[i] - cs[slot * dim + i];
+          dots[0] += rho_ab * cvs[i];
+          dots[1] += rho_ab * ve[i];
+        }
+      } else {
+        const T* cps = cp + slot * dim;
+        for (int i = lane; i < dim; i += kLanes) {
+          const T mi = im[i];
+          const T rho_ab = rho_sub[i] - cs[slot * dim + i];
+          dots[0] += rho_ab * (cps[i] * mi);
+          dots[1] += rho_ab * (mi * pe[i]);
+        }
       }
       warp_sum(dots);
       turning_here = turning_here || dots[0] <= T(0) || dots[1] <= T(0);
@@ -375,6 +553,7 @@ __global__ void __launch_bounds__(kStepThreads) step_finish(StepArgs<T> a) {
   T dots[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
   if (merge_ok) {
     T* rho = v + V_RHO * dim;
+    const T* edge_old = cp + (D - 1) * dim;
     for (int i = lane; i < dim; i += kLanes) {
       if (m_take2) {
         pz[i] = sz[i];
@@ -384,18 +563,26 @@ __global__ void __launch_bounds__(kStepThreads) step_finish(StepArgs<T> a) {
       const T rsn = rho_sub[i];
       const T rho_full = r + rsn;
       if (check_traj) {
-        const T m = im[i];
         const T first_new_p = cp[i];
-        const T edge_old_p = cp[(D - 1) * dim + i];
-        const T v_far = m * p_far[i];
-        const T v_first_new = m * first_new_p;
-        const T v_edge_old = m * edge_old_p;
-        const T v_new = m * pe[i];
+        const T edge_old_p = edge_old[i];
+        T vf, v_first_new, v_edge_old, v_new;
+        if constexpr (LR) {
+          vf = v_far[i];
+          v_first_new = cv[i];
+          v_edge_old = cv[(D - 1) * dim + i];
+          v_new = ve[i];
+        } else {
+          const T mi = im[i];
+          vf = mi * p_far[i];
+          v_first_new = mi * first_new_p;
+          v_edge_old = mi * edge_old_p;
+          v_new = mi * pe[i];
+        }
         const T r2 = r + first_new_p;
         const T r3 = rsn + edge_old_p;
-        dots[0] += rho_full * v_far;
+        dots[0] += rho_full * vf;
         dots[1] += rho_full * v_new;
-        dots[2] += r2 * v_far;
+        dots[2] += r2 * vf;
         dots[3] += r2 * v_first_new;
         dots[4] += r3 * v_edge_old;
         dots[5] += r3 * v_new;
@@ -451,13 +638,23 @@ __global__ void __launch_bounds__(kStepThreads) step_finish(StepArgs<T> a) {
       row[S_FISHER_DISTANCE] = T(0);
       row[N_SCALAR - 1] = T(0);
     }
-    // commit the proposal: the draw, the committed position and gradient
+    // commit the proposal: the draw, the committed position and gradient,
+    // and the stored gradient and inverse mass where asked (the inverse
+    // mass of the step's state, before this draw's adaptation)
     T* pos_row = a.pos_out + out_row * dim;
+    T* grad_row = a.grad_out ? a.grad_out + out_row * dim : nullptr;
+    T* minv_row = a.minv_out ? a.minv_out + out_row * dim : nullptr;
     for (int i = lane; i < dim; i += kLanes) {
       const T z = pz[i];
+      const T g = pg[i];
       pos_row[i] = z;
       v[V_POSITION * dim + i] = z;
-      v[V_GRADIENT * dim + i] = pg[i];
+      v[V_GRADIENT * dim + i] = g;
+      if (grad_row) grad_row[i] = g;
+      if (minv_row) minv_row[i] = im[i];
+    }
+    if constexpr (LR) {
+      if (a.eig_out && lane < m.R) a.eig_out[out_row * m.R + lane] = exp(m.log_eig);
     }
     fl[F_LOGP] = fl[F_PROP_LOGP];
     // adaptation (tuning draws only; skipped when frozen)
@@ -481,7 +678,8 @@ __global__ void __launch_bounds__(kStepThreads) step_finish(StepArgs<T> a) {
     if (!done) {
       const int nidx = idx + 1 > L - 1 ? L - 1 : (idx + 1 < 0 ? 0 : idx + 1);
       const size_t r = size_t(chain) * L + nidx;
-      start_draw_strided<T>(fl, in, cfg, s, lane, v, im, af, a.mom + r * dim, a.jit[r]);
+      start_draw_strided<T, LR>(fl, in, cfg, s, lane, v, im, af, a.mom + r * dim,
+                                a.jit[r], m, ev);
     }
   }
 
@@ -497,33 +695,45 @@ __global__ void __launch_bounds__(kStepThreads) step_finish(StepArgs<T> a) {
 
 template <typename T>
 int launch(bool begin, const MkConfig* cfg, const StepPtrs* p, void* stream) {
-  if (cfg->n_chains < 1 || cfg->dim < 1 || cfg->depth_slots < 2) {
+  const int R = cfg->lr_rank;
+  if (cfg->n_chains < 1 || cfg->dim < 1 || cfg->depth_slots < 2 || R < 0 ||
+      R > kMaxRank ||
+      (R > 0 && (!p->lr_basis || !p->lr_log_eigs || !p->edge_v || !p->ckpt_v))) {
     return int(cudaErrorInvalidValue);
   }
   const StepArgs<T> a(*cfg, *p);
   const dim3 grid((cfg->n_chains + kStepWarps - 1) / kStepWarps);
   const auto s = static_cast<cudaStream_t>(stream);
   if (begin) {
-    step_begin<T><<<grid, kStepThreads, 0, s>>>(a);
+    if (R > 0) step_begin<T, true><<<grid, kStepThreads, 0, s>>>(a);
+    else step_begin<T, false><<<grid, kStepThreads, 0, s>>>(a);
   } else {
-    step_finish<T><<<grid, kStepThreads, 0, s>>>(a);
+    if (R > 0) step_finish<T, true><<<grid, kStepThreads, 0, s>>>(a);
+    else step_finish<T, false><<<grid, kStepThreads, 0, s>>>(a);
   }
   return int(cudaGetLastError());
 }
 
 // What was compiled: registers and local (spill) bytes per thread of
-// step_begin and step_finish, and the threads per block.
+// step_begin and step_finish, the threads per block, then the same four
+// of the low-rank instantiations.
 template <typename T>
 int geometry(int32_t* out) {
-  cudaFuncAttributes b, f;
-  cudaError_t err = cudaFuncGetAttributes(&b, step_begin<T>);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&f, step_finish<T>);
+  cudaFuncAttributes f[4];
+  cudaError_t err = cudaFuncGetAttributes(&f[0], step_begin<T, false>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&f[1], step_finish<T, false>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&f[2], step_begin<T, true>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&f[3], step_finish<T, true>);
   if (err != cudaSuccess) return int(err);
-  out[0] = b.numRegs;
-  out[1] = int32_t(b.localSizeBytes);
-  out[2] = f.numRegs;
-  out[3] = int32_t(f.localSizeBytes);
+  out[0] = f[0].numRegs;
+  out[1] = int32_t(f[0].localSizeBytes);
+  out[2] = f[1].numRegs;
+  out[3] = int32_t(f[1].localSizeBytes);
   out[4] = kStepThreads;
+  out[5] = f[2].numRegs;
+  out[6] = int32_t(f[2].localSizeBytes);
+  out[7] = f[3].numRegs;
+  out[8] = int32_t(f[3].localSizeBytes);
   return 0;
 }
 

@@ -34,9 +34,9 @@ from .sampler.adapt import AdaptConfig, make_schedule
 from .sampler.megakernel import make_megakernel_chunk_runner
 from .sampler.nuts import (
     _FLOW_ITEM,
-    _LOW_RANK_ITEM,
     _MCLMC_ITEM,
     SCALAR_SLOTS,
+    LowRankConfig,
     NutsConfig,
 )
 from .sampler.run import fleet_depth_cap, init_chains, make_chunk_runner, resolve_dtype
@@ -73,14 +73,17 @@ def _make_settings(sampler: str, adaptation: str, seed) -> NutsSettings:
 
 
 def nuts_config_from_settings(settings: NutsSettings) -> NutsConfig:
-    """Settings tree -> NutsConfig (diagonal branch of the JAX package's)."""
-    if settings.adaptation == "low_rank":
-        raise NotImplementedError(f"low-rank adaptation: {_LOW_RANK_ITEM}")
+    """Settings tree -> NutsConfig (the JAX package's, without its flow
+    branch)."""
     if settings.adaptation == "flow":
         raise NotImplementedError(f"flow adaptation: {_FLOW_ITEM}")
     ao = settings.adapt_options
     ss = ao.step_size_settings
     mm = ao.mass_matrix_options
+    low_rank = None
+    if settings.adaptation == "low_rank":
+        low_rank = LowRankConfig(eigval_cutoff=mm.eigval_cutoff, gamma=mm.gamma,
+                                 window=ao.mass_matrix_switch_freq)
     adapt = AdaptConfig(
         num_tune=settings.num_tune,
         target_accept=ss.target_accept,
@@ -98,7 +101,7 @@ def nuts_config_from_settings(settings: NutsSettings) -> NutsConfig:
         early_switch_freq=ao.early_mass_matrix_switch_freq,
         early_phase_share=ao.early_phase_share,
         freeze_share=ao.freeze_share,
-        use_grad_based_estimate=mm.use_grad_based_estimate,
+        use_grad_based_estimate=getattr(mm, "use_grad_based_estimate", True),
     )
     return NutsConfig(
         maxdepth=settings.maxdepth,
@@ -112,16 +115,32 @@ def nuts_config_from_settings(settings: NutsSettings) -> NutsConfig:
         store_mass_matrix=mm.store_mass_matrix,
         store_divergences=settings.store_divergences,
         store_transformed=settings.store_transformed,
+        low_rank=low_rank,
         adapt=adapt,
     )
 
 
 def default_chunk_size(settings, n_chains: int, dim: int, itemsize: int) -> int:
-    """Draws per chunk: ~256 MB of position buffer, clipped to [8, 128]."""
+    """Draws per chunk: ~256 MB of [dim]-row buffers (the draws and the
+    stored gradients, mass matrices and divergence rows), clipped to
+    [8, 128]."""
     if settings.chunk_size is not None:
         return max(1, int(settings.chunk_size))
-    bytes_per_draw = n_chains * (dim * itemsize + 128)
+    mm = settings.adapt_options.mass_matrix_options
+    n_vec_buffers = (1 + settings.store_gradient + 4 * settings.store_divergences
+                     + bool(mm.store_mass_matrix))
+    bytes_per_draw = n_chains * (dim * itemsize * n_vec_buffers + 128)
     return int(np.clip((256 * 1024 * 1024) // max(bytes_per_draw, 1), 8, 128))
+
+
+def chunk_length(settings, n_chains: int, dim: int, itemsize: int) -> int:
+    """The run's chunk length.  Without a ``chunk_size``, low-rank
+    adaptation puts the chunk boundaries, where its metric updates, on the
+    mass-matrix switch cadence, as the JAX package does."""
+    total = settings.num_tune + settings.num_draws
+    if settings.adaptation == "low_rank" and settings.chunk_size is None:
+        return min(max(settings.adapt_options.mass_matrix_switch_freq, 1), max(total, 1))
+    return min(default_chunk_size(settings, n_chains, dim, itemsize), max(total, 1))
 
 
 def resolve_device(device) -> torch.device:
@@ -144,11 +163,20 @@ _SCALAR_DTYPES = {
 
 
 def chunk_to_host(bufs, expanded: dict, limit: int,
-                  store_unconstrained: bool = False) -> dict:
-    """One chunk's buffers -> host arrays cut to the draws produced."""
+                  store_unconstrained: bool = False,
+                  store_gradient: bool = False) -> dict:
+    """One chunk's buffers -> host arrays cut to the draws produced.
+
+    The optional buffers become statistics under the JAX trace's names;
+    the gradient only when ``store_gradient`` asked for it (low-rank
+    adaptation allocates it for its own update)."""
     cut = lambda x: x[:, :limit].detach().cpu().numpy()
     packed = cut(bufs.scalars)
     stats = {}
+    for name in ("gradient", "mass_matrix_inv", "mass_matrix_eigvals"):
+        value = getattr(bufs, name)
+        if value is not None and (name != "gradient" or store_gradient):
+            stats[name] = cut(value)
     for name, slot in SCALAR_SLOTS.items():
         if name == "fisher_distance":
             continue  # flow adaptation only
@@ -159,6 +187,8 @@ def chunk_to_host(bufs, expanded: dict, limit: int,
         elif dt is not None:
             arr = arr.astype(dt)
         stats[name] = arr
+    if "mass_matrix_inv" in stats:
+        stats["mass_matrix_stds"] = np.sqrt(stats["mass_matrix_inv"])
     position = cut(bufs.position)
     if store_unconstrained:
         stats["unconstrained_draw"] = position
@@ -201,8 +231,7 @@ def run_chains(model: ModelDef, cfg: NutsConfig, settings: NutsSettings,
     n_chains = settings.num_chains
     num_tune, total = settings.num_tune, settings.num_tune + settings.num_draws
     itemsize = torch.tensor([], dtype=dtype).element_size()
-    chunk_len = min(default_chunk_size(settings, n_chains, model.ndim, itemsize),
-                    max(total, 1))
+    chunk_len = chunk_length(settings, n_chains, model.ndim, itemsize)
     states, ok = init_chains(
         model, cfg, settings.seed, n_chains, init_mean, dtype, device=device,
         num_try_init=settings.num_try_init,
@@ -233,8 +262,8 @@ def run_chains(model: ModelDef, cfg: NutsConfig, settings: NutsSettings,
         if n_chains >= 64 and start + limit <= cap_until:
             sched = sched._replace(depth_cap=fleet_depth_cap(cfg, bufs, limit))
         expanded = expand_chunk(model, bufs.position)
-        chunks.append(chunk_to_host(bufs, expanded, limit,
-                                    settings.store_unconstrained))
+        chunks.append(chunk_to_host(bufs, expanded, limit, settings.store_unconstrained,
+                                    settings.store_gradient))
         start += limit
     return chunks
 
@@ -274,7 +303,7 @@ def sample(
     ``pool_mass_matrix`` and ``pool_step_size``.  ``device`` defaults to
     CUDA.  Not yet ported (each raises ``NotImplementedError``):
     non-blocking runs and progress callbacks, Zarr storage, checkpoints,
-    MCLMC, low-rank and flow adaptation.
+    MCLMC, flow adaptation, ``store_divergences`` and ``store_transformed``.
     """
     if not blocking or progress_callback is not None or progress_template \
             or progress_style:

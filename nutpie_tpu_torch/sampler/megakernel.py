@@ -42,15 +42,22 @@ MAX_KERNEL_DIM = 8 * 32
 def supports(cfg: NutsConfig) -> bool:
     """Whether the CUDA chunk kernel handles this configuration.
 
-    The port's ``NutsConfig`` already refuses low-rank, flow,
-    microcanonical and ``store_*`` configurations, the JAX kernel's
-    exclusions.  The kernel narrows further to dual averaging (no Adam,
-    no fixed step) and no ``target_integration_time``.  It also needs a
-    model with a ``kernel_model`` (the radon log density it evaluates in
-    place); ``sample.route`` checks both.
+    The JAX kernel's exclusions (``nutpie_tpu/sampler/megakernel.py:62-71``):
+    no flow or low-rank adaptation, no microcanonical kinetic, no
+    ``store_*`` buffer; ``sample.route`` sends those to the step kernel.
+    The kernel narrows further to dual averaging (no Adam, no fixed step)
+    and no ``target_integration_time``.  It also needs a model with a
+    ``kernel_model`` (the radon log density it evaluates in place);
+    ``sample.route`` checks both.
     """
     return (
-        cfg.target_time is None
+        cfg.flow is None
+        and cfg.low_rank is None
+        and cfg.kinetic != "microcanonical"
+        and not cfg.store_divergences
+        and not cfg.store_gradient
+        and not cfg.store_mass_matrix
+        and cfg.target_time is None
         and cfg.adapt.method == "dual_average"
         and cfg.adapt.update_mass_matrix
     )

@@ -11,9 +11,12 @@ wait for each other inside a chunk.
 Here the functions are written batched over a leading chains axis with
 per-chain masks (no vmap), and the chunk buffers are updated in place by
 indexed assignment.  This is the plain version of the CUDA chunk kernel
-(``csrc/machine_step.cuh``), which runs the same steps for one chain per
-warp.  Only the diagonal metric with the exact-normal kinetic is
-ported in this slice.
+(``csrc/machine_step.cuh``) and of the step kernel (``csrc/step_kernel.cu``),
+which run the same steps for one chain per warp.  The metric is the
+diagonal one or, with ``NutsConfig.low_rank``, the low-rank modified one
+(``low_rank.py``), applied through ``metric_velocity``,
+``metric_velocity_rows`` and ``metric_momentum`` at every site where the
+JAX machine step applies it.  The kinetic is the exact-normal one.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from ..ops import threefry
 from .adapt import AdaptConfig, Schedule, diag_adapt_init, diag_adapt_update
+from .low_rank import identity_metric, lr_sample_momentum, lr_velocity, lr_velocity_rows
 from .state import (
     ADAPT_FLT_SLOTS,
     FLT_SLOTS,
@@ -39,10 +43,21 @@ from .state import (
     where as _w,
 )
 
-_LOW_RANK_ITEM = "ROADMAP.md queue 1: low-rank mass matrix"
 _FLOW_ITEM = "ROADMAP.md queue 1: flow adaptation"
 _MCLMC_ITEM = "ROADMAP.md queue 1: MCLMC and the microcanonical kinetic"
-_STORE_ITEM = "ROADMAP.md queue 1: optional draw buffers (store_*)"
+_STORE_ITEM = "ROADMAP.md queue 1: optional draw buffers (store_divergences, store_transformed)"
+
+
+@dataclasses.dataclass(frozen=True)
+class LowRankConfig:
+    """Low-rank mass-matrix options (``nutpie_tpu/sampler/nuts.py:66-75``)."""
+
+    eigval_cutoff: float = 100.0
+    gamma: float = 1e-5
+    max_rank: int = 32
+    # the window: the metric recomputes at chunk boundaries from the
+    # chunk's draws, so chunks follow the mass-matrix switch cadence
+    window: int = 80
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,22 +79,42 @@ class NutsConfig:
     store_mass_matrix: bool = False
     store_divergences: bool = False
     store_transformed: bool = False
-    low_rank: Optional[object] = None
+    low_rank: Optional[LowRankConfig] = None
     flow: Optional[object] = None
     adapt: AdaptConfig = dataclasses.field(
         default_factory=lambda: AdaptConfig(num_tune=300)
     )
 
     def __post_init__(self):
-        if self.low_rank is not None:
-            raise NotImplementedError(f"low-rank adaptation: {_LOW_RANK_ITEM}")
         if self.flow is not None:
             raise NotImplementedError(f"flow adaptation: {_FLOW_ITEM}")
         if self.kinetic != "exact_normal":
             raise NotImplementedError(f"{self.kinetic} kinetic: {_MCLMC_ITEM}")
-        if (self.store_gradient or self.store_mass_matrix
-                or self.store_divergences or self.store_transformed):
-            raise NotImplementedError(f"store_* buffers: {_STORE_ITEM}")
+        if self.store_divergences:
+            raise NotImplementedError(f"store_divergences: {_STORE_ITEM}")
+        if self.store_transformed:
+            raise NotImplementedError(f"store_transformed: {_STORE_ITEM}")
+
+
+def metric_velocity(cfg: NutsConfig, s, p: torch.Tensor) -> torch.Tensor:
+    """v = M^{-1} p for the active metric of state ``s`` (``p [C, dim]``)."""
+    if cfg.low_rank is not None:
+        return lr_velocity(s.inv_mass, s.lr_basis, s.lr_log_eigs, p)
+    return s.inv_mass * p
+
+
+def metric_velocity_rows(cfg: NutsConfig, s, P: torch.Tensor) -> torch.Tensor:
+    """``metric_velocity`` of every row of ``P [C, k, dim]``."""
+    if cfg.low_rank is not None:
+        return lr_velocity_rows(s.inv_mass, s.lr_basis, s.lr_log_eigs, P)
+    return P * s.inv_mass[:, None, :]
+
+
+def metric_momentum(cfg: NutsConfig, s, gauss: torch.Tensor) -> torch.Tensor:
+    """p ~ N(0, M) from standard normals ``gauss [C, dim]``."""
+    if cfg.low_rank is not None:
+        return lr_sample_momentum(s.inv_mass, s.lr_basis, s.lr_log_eigs, gauss)
+    return gauss / torch.sqrt(s.inv_mass)
 
 
 # slot layout of the packed per-draw scalar statistics buffer; integers and
@@ -101,10 +136,18 @@ N_SCALAR_SLOTS = 12
 
 
 class ChunkBuffers(NamedTuple):
-    """Per-chain output buffers for one chunk of draws (NaN until written)."""
+    """Per-chain output buffers for one chunk of draws (NaN until written).
+
+    The optional ones are allocated only where ``init_buffers`` is given a
+    configuration that asks for them (the JAX package's ``ChunkBuffers``).
+    """
 
     position: torch.Tensor  # [C, L, dim] unconstrained draws
     scalars: torch.Tensor   # [C, L, N_SCALAR_SLOTS]
+    # [C, L, dim] if store_gradient or low_rank (the boundary update reads it)
+    gradient: Optional[torch.Tensor] = None
+    mass_matrix_inv: Optional[torch.Tensor] = None      # [C, L, dim] if store_mass_matrix
+    mass_matrix_eigvals: Optional[torch.Tensor] = None  # [C, L, R] (low_rank)
 
     def _slot(self, name):
         return self.scalars[..., SCALAR_SLOTS[name]]
@@ -123,11 +166,21 @@ class ChunkBuffers(NamedTuple):
 
 
 def init_buffers(chunk_len: int, dim: int, dtype, n_chains: int,
-                 device=None) -> ChunkBuffers:
+                 device=None, cfg: Optional[NutsConfig] = None) -> ChunkBuffers:
+    """The chunk's buffers; ``cfg`` adds the optional ones it asks for."""
     f = lambda *shape: torch.full((n_chains,) + shape, math.nan, dtype=dtype,
                                   device=device)
-    return ChunkBuffers(position=f(chunk_len, dim),
-                        scalars=f(chunk_len, N_SCALAR_SLOTS))
+    L = chunk_len
+    cfg = cfg or NutsConfig()
+    lr = cfg.low_rank
+    return ChunkBuffers(
+        position=f(L, dim),
+        scalars=f(L, N_SCALAR_SLOTS),
+        gradient=f(L, dim) if cfg.store_gradient or lr is not None else None,
+        mass_matrix_inv=f(L, dim) if cfg.store_mass_matrix else None,
+        mass_matrix_eigvals=(f(L, lr.max_rank)
+                             if lr is not None and cfg.store_mass_matrix else None),
+    )
 
 
 def _pack(slots: dict, n: int, values: dict, dtype) -> torch.Tensor:
@@ -156,15 +209,14 @@ def start_draw(cfg: NutsConfig, sched: Schedule, state: NutsMachineState,
     """Refresh momentum and reset trajectory/subtree state for a new draw."""
     dtype = state.vecs.dtype
     position, gradient, logp = state.position, state.gradient, state.logp
-    inv_mass = state.inv_mass
     tuning = state.draw_idx < sched.num_tune
     log_eps = torch.where(tuning, state.adapt_flt("log_step"),
                           state.adapt_flt("log_step_bar"))
     eps = torch.exp(log_eps)
     if cfg.adapt.step_size_jitter is not None:
         eps = eps * (1.0 + cfg.adapt.step_size_jitter * (2.0 * jitter_u - 1.0))
-    p0 = gauss / torch.sqrt(inv_mass)
-    ke = 0.5 * _dot(p0, inv_mass * p0)
+    p0 = metric_momentum(cfg, state, gauss)
+    ke = 0.5 * _dot(p0, metric_velocity(cfg, state, p0))
     h0 = -logp + ke
     zeros = torch.zeros_like(logp)
     zeros_i = torch.zeros_like(state.draw_idx)
@@ -209,11 +261,15 @@ def init_machine_state(cfg: NutsConfig, key: torch.Tensor, position, gradient,
     flts[:, FLT_SLOTS["logw_sub"]] = -math.inf
     ints = torch.zeros((n, N_INT), dtype=torch.int32, device=device)
     ints[:, INT_SLOTS["direction"]] = 1
+    metric = {}
+    if cfg.low_rank is not None:
+        basis, log_eigs = identity_metric(n, dim, cfg.low_rank.max_rank, dtype, device)
+        metric = dict(lr_basis=basis, lr_log_eigs=log_eigs)
     return NutsMachineState(
         key=key, adapt_vecs=adapt_vecs, adapt_flts=adapt_flts, vecs=vecs,
         ckpt_p=torch.zeros((n, D, dim), dtype=dtype, device=device),
         ckpt_s=torch.zeros((n, D, dim), dtype=dtype, device=device),
-        flts=flts, ints=ints,
+        flts=flts, ints=ints, **metric,
     )
 
 
@@ -314,7 +370,7 @@ def leapfrog_begin(cfg: NutsConfig, s: NutsMachineState,
     g_e = _w(fwd, vec("g_plus"), vec("g_minus"))
     eps_s = (direction.to(dtype) * s.flts[:, FLT_SLOTS["eps"]])[:, None]
     p_half = p_e + 0.5 * eps_s * g_e
-    z_new = z_e + eps_s * (s.inv_mass * p_half)
+    z_new = z_e + eps_s * metric_velocity(cfg, s, p_half)
     # an unintegrable step (eps below the position's resolution) counts as
     # a divergence, as in the JAX package
     stagnant = torch.all(z_new == z_e, dim=1)
@@ -359,7 +415,6 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
     vec = lambda name: s.vecs[:, V[name]]
     flt = lambda name: s.flts[:, F[name]]
     int_ = lambda name: s.ints[:, I[name]]
-    inv_mass = s.inv_mass
 
     in_p_minus, in_p_plus = vec("p_minus"), vec("p_plus")
     in_rho, in_rho_sub = vec("rho"), vec("rho_sub")
@@ -381,7 +436,7 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
     logp_new = logp_new.to(dtype)
     g_new = g_new.to(dtype)
     p_new = carry.p_half + 0.5 * eps_s * g_new
-    v_new = inv_mass * p_new
+    v_new = metric_velocity(cfg, s, p_new)
     ke = 0.5 * _dot(p_new, v_new)
     h = -logp_new + ke
 
@@ -434,7 +489,7 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
             slots >= (top_after_push - tz)[:, None]
         )
         rho_ab = rho_sub_new[:, None, :] - ckpt_s                 # [C, D, dim]
-        d_a = torch.sum(rho_ab * (ckpt_p * inv_mass[:, None, :]), dim=2)
+        d_a = torch.sum(rho_ab * metric_velocity_rows(cfg, s, ckpt_p), dim=2)
         d_b = torch.sum(rho_ab * v_new[:, None, :], dim=2)
         turn_vec = (d_a <= 0) | (d_b <= 0)
         turning_here = torch.any(turn_vec & slot_mask, dim=1)
@@ -471,9 +526,9 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
         far_p = _w(fwd, in_p_minus, in_p_plus)
         first_new_p = ckpt_p[:, 0]
         edge_old_p = ckpt_p[:, D - 1]
-        v_far = inv_mass * far_p
-        v_first_new = inv_mass * first_new_p
-        v_edge_old = inv_mass * edge_old_p
+        v_far = metric_velocity(cfg, s, far_p)
+        v_first_new = metric_velocity(cfg, s, first_new_p)
+        v_edge_old = metric_velocity(cfg, s, edge_old_p)
 
         def turn(r, va, vb):
             return (_dot(r, va) <= 0) | (_dot(r, vb) <= 0)
@@ -548,8 +603,15 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
         scalar_row[:, SCALAR_SLOTS[name]] = value.to(dtype)
     done_rows = torch.nonzero(draw_done).squeeze(1)
     if done_rows.numel():
-        bufs.position[done_rows, idx_c[done_rows]] = prop_z[done_rows]
-        bufs.scalars[done_rows, idx_c[done_rows]] = scalar_row[done_rows]
+        at = (done_rows, idx_c[done_rows])
+        bufs.position[at] = prop_z[done_rows]
+        bufs.scalars[at] = scalar_row[done_rows]
+        if bufs.gradient is not None:
+            bufs.gradient[at] = prop_g[done_rows]
+        if bufs.mass_matrix_inv is not None:
+            bufs.mass_matrix_inv[at] = s.inv_mass[done_rows]
+        if bufs.mass_matrix_eigvals is not None:
+            bufs.mass_matrix_eigvals[at] = torch.exp(s.lr_log_eigs[done_rows])
 
     # adaptation (tuning draws only)
     adapt_vecs, adapt_flts = s.adapt_vecs, s.adapt_flts

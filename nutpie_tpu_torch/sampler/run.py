@@ -11,6 +11,8 @@ loops where the JAX package used ``while_loop``:
 - ``fleet_depth_cap`` and ``rescue_trapped``: cross-chain statistics at
   chunk boundaries.  Medians average the two middle values, as numpy's
   and ``jnp.median`` do (``torch.median`` returns the lower one).
+- ``update_low_rank``: the low-rank metric's chunk-boundary update
+  (``nutpie_tpu/sampler/run.py:450-475``), after the rescue.
 - ``draw_randoms``: the per-draw momentum normals and jitter uniforms,
   keyed by absolute draw index, so streams do not depend on chunking.
 - ``make_chunk_runner``: the chunk runner of every model without a
@@ -31,7 +33,16 @@ import torch
 from ..model import ModelDef
 from ..ops import threefry
 from .adapt import Schedule, flts_set, pool_adapt_state
-from .nuts import NutsConfig, SCALAR_SLOTS, init_buffers, init_machine_state, start_draw
+from .low_rank import estimate_low_rank
+from .nuts import (
+    SCALAR_SLOTS,
+    NutsConfig,
+    init_buffers,
+    init_machine_state,
+    metric_momentum,
+    metric_velocity,
+    start_draw,
+)
 from .state import NutsMachineState, state_with, tree_where, where
 from .step_kernel import PlainSteps, step_kernel
 
@@ -58,11 +69,10 @@ def find_initial_step(cfg: NutsConfig, logp_and_grad, state: NutsMachineState,
     and starts dual averaging there.
     """
     dtype = state.vecs.dtype
-    inv_mass = state.inv_mass
     key = threefry.fold_in_data(state.key, 6)
     gauss = threefry.normal(key, (state.position.shape[1],), dtype)
-    p0 = gauss / torch.sqrt(inv_mass)
-    h0 = -state.logp + 0.5 * torch.sum(p0 * (inv_mass * p0), dim=1)
+    p0 = metric_momentum(cfg, state, gauss)
+    h0 = -state.logp + 0.5 * torch.sum(p0 * metric_velocity(cfg, state, p0), dim=1)
 
     def accept_prob(log_eps, n_steps: int = 4):
         eps = torch.exp(log_eps)[:, None]
@@ -70,11 +80,12 @@ def find_initial_step(cfg: NutsConfig, logp_and_grad, state: NutsMachineState,
         worst = torch.zeros_like(log_eps)
         for _ in range(n_steps):
             p_half = p + 0.5 * eps * g
-            z = z + eps * (inv_mass * p_half)
+            z = z + eps * metric_velocity(cfg, state, p_half)
             logp_new, g = logp_and_grad(z)
             g = g.to(dtype)
             p = p_half + 0.5 * eps * g
-            h = -logp_new.to(dtype) + 0.5 * torch.sum(p * (inv_mass * p), dim=1)
+            h = -logp_new.to(dtype) + 0.5 * torch.sum(
+                p * metric_velocity(cfg, state, p), dim=1)
             a = h0 - h
             a = torch.where(torch.isfinite(a), a, torch.full_like(a, -math.inf))
             worst = torch.minimum(worst, a)
@@ -211,8 +222,9 @@ def rescue_trapped(states: NutsMachineState, chunk_start: int, limit: int,
 
     A chain whose logp sits ~1000 sigma below the fleet's at a tiny step
     size is locally self-consistent and globally dead; only the fleet can
-    see it.  Its position, step size and mass matrix are replaced by the
-    donor's; its own RNG stream decorrelates it again.
+    see it.  Its position, step size and mass matrix (the low-rank metric
+    too) are replaced by the donor's; its own RNG stream decorrelates it
+    again.
     """
     n_chains = states.vecs.shape[0]
     end = chunk_start + limit
@@ -227,12 +239,35 @@ def rescue_trapped(states: NutsMachineState, chunk_start: int, limit: int,
     def teleport(leaf):
         return where(trapped, leaf[donor][None].expand_as(leaf), leaf)
 
-    return states.replace(
-        vecs=teleport(states.vecs),
-        flts=teleport(states.flts),
-        adapt_vecs=teleport(states.adapt_vecs),
-        adapt_flts=teleport(states.adapt_flts),
-    )
+    names = ("vecs", "flts", "adapt_vecs", "adapt_flts", "lr_basis", "lr_log_eigs")
+    return states.replace(**{name: teleport(t) for name, t in states.tensors().items()
+                             if name in names})
+
+
+def update_low_rank(cfg: NutsConfig, states: NutsMachineState, bufs,
+                    chunk_start: int, limit: int, sched: Schedule) -> NutsMachineState:
+    """The low-rank metric's update at a chunk's end.
+
+    Each chain's metric is re-estimated from the chunk's valid draws
+    (``row < limit`` and not divergent) and gradients with its current
+    inverse mass, and replaced where the update is due: the chunk ends
+    after the early phase and no later than the freeze, with at least 8
+    valid draws.  The JAX package computes the estimate for every chunk and
+    keeps the old metric where it is not due; here a chunk whose end rules
+    the update out for every chain skips the estimate, which changes
+    nothing.
+    """
+    end = chunk_start + limit
+    if cfg.low_rank is None or not (sched.early_end < end <= sched.freeze_start):
+        return states
+    lr = cfg.low_rank
+    rows = torch.arange(bufs.position.shape[1], device=bufs.position.device)
+    valid = (rows[None, :] < limit) & ~bufs.diverging
+    new = estimate_low_rank(bufs.position, bufs.gradient, valid, states.inv_mass,
+                            lr.max_rank, lr.eigval_cutoff, lr.gamma)
+    due = valid.sum(dim=1) >= 8
+    return states.replace(lr_basis=where(due, new.basis, states.lr_basis),
+                          lr_log_eigs=where(due, new.log_eigs, states.lr_log_eigs))
 
 
 def draw_randoms(keys: torch.Tensor, chunk_start: int, chunk_len: int,
@@ -275,7 +310,8 @@ class StepChunkRunner:
     Per chunk, in the order of ``nutpie_tpu/sampler/run.py:make_chunk_runner``:
     pooling at the chunk's start, the per-draw randoms, ``start_draw``,
     then machine steps until every chain has produced ``limit`` draws, then
-    the trapped-chain rescue after warmup chunks.  Each machine step is the
+    the trapped-chain rescue after warmup chunks and the low-rank metric's
+    update (``update_low_rank``).  Each machine step is the
     step kernel's ``begin``, one ``model.logp_and_grad`` over all chains,
     and its ``finish``.  A done chain is fully masked, so stepping past
     the last chain's end is a no-op, and the loop reads "all done" only
@@ -305,7 +341,7 @@ class StepChunkRunner:
         n_chains, _, dim = states.vecs.shape
         mom, jit = draw_randoms(states.key, chunk_start, self.chunk_len, dim, self.dtype)
         bufs = init_buffers(self.chunk_len, dim, self.dtype, n_chains,
-                            device=states.vecs.device)
+                            device=states.vecs.device, cfg=cfg)
         # every chain begins the chunk at a draw boundary; the copy is the
         # chunk's own, which the kernel updates in place
         states = start_draw(cfg, sched, state_with(states, done=False),
@@ -323,6 +359,7 @@ class StepChunkRunner:
                 break
         if not self.adapt_frozen:
             states = rescue_trapped(states, chunk_start, limit, sched)
+        states = update_low_rank(cfg, states, bufs, chunk_start, limit, sched)
         return states, bufs
 
 
@@ -331,7 +368,7 @@ def make_chunk_runner(model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
                       adapt_frozen: bool = False, pool_step_size: bool = False,
                       plain: bool = False) -> StepChunkRunner:
     """Build the step runner (the JAX function's call semantics, without its
-    flow and low-rank branches).  ``unroll=None`` checks for the chunk's end
+    flow branch).  ``unroll=None`` checks for the chunk's end
     every ``CUDA_UNROLL`` steps on the card and every step on the CPU."""
     return StepChunkRunner(model, cfg, chunk_len, dtype,
                            pool_mass_matrix=pool_mass_matrix, unroll=unroll,

@@ -7,12 +7,16 @@ vectors live in ``vecs [C, 14, dim]``, the float scalars in
 (int32, booleans as 0/1).  The adaptation state is packed the same way:
 ``adapt_vecs [C, 9, dim]`` (inverse mass plus four Welford mean/m2 pairs)
 and ``adapt_flts [C, 12]`` (dual averaging, Adam, Welford counts).  That
-gives the CUDA chunk kernel one flat ABI: seven tensors plus the key data.
+gives the CUDA kernels one flat ABI: seven tensors plus the key data.
+Under low-rank adaptation the state also carries the metric's factors
+(``lr_basis [C, dim, R]``, ``lr_log_eigs [C, R]``; the JAX package's
+``LowRankAdaptState.metric``); they are None under the diagonal metric.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -125,17 +129,20 @@ class NutsMachineState:
     ckpt_s: torch.Tensor      # [C, D, dim] momentum prefix-sum before ckpt leaf
     flts: torch.Tensor        # [C, 12]
     ints: torch.Tensor        # [C, 15] int32
+    # the low-rank metric (None under the diagonal metric)
+    lr_basis: Optional[torch.Tensor] = None     # [C, dim, R] orthonormal columns
+    lr_log_eigs: Optional[torch.Tensor] = None  # [C, R] log eigenvalues
 
     def replace(self, **changes) -> "NutsMachineState":
         return dataclasses.replace(self, **changes)
 
     def clone(self) -> "NutsMachineState":
-        return NutsMachineState(
-            **{f.name: getattr(self, f.name).clone() for f in dataclasses.fields(self)}
-        )
+        return NutsMachineState(**{k: v.clone() for k, v in self.tensors().items()})
 
     def tensors(self) -> dict:
-        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        """Every tensor of the state by field name (absent metric left out)."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
     @property
     def position(self):
@@ -205,9 +212,7 @@ def where(pred: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Ten
 def tree_where(pred: torch.Tensor, a: NutsMachineState,
                b: NutsMachineState) -> NutsMachineState:
     """Per-chain select between two states."""
+    other = b.tensors()
     return NutsMachineState(
-        **{
-            f.name: where(pred, getattr(a, f.name), getattr(b, f.name))
-            for f in dataclasses.fields(a)
-        }
+        **{name: where(pred, t, other[name]) for name, t in a.tensors().items()}
     )

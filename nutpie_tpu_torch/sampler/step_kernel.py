@@ -11,7 +11,10 @@ The plain version is the pair ``nuts.leapfrog_begin`` /
 
 - on CUDA tensors, ``KernelSteps``: it checks device, dtype, shape and
   contiguity once, allocates the chunk's scratch (``z_new [C, dim]``, the
-  step's uniforms ``[C, 3]`` and the stagnant flags ``[C]``) with
+  step's uniforms ``[C, 3]``, the stagnant flags ``[C]`` and, under the
+  low-rank metric, the velocities the kernel keeps beside the trajectory's
+  edges and checkpoints, ``[C, 2, dim]`` and ``[C, D, dim]``, filled here
+  from the chunk's starting state by the plain metric) with
   ``torch.empty``, and each ``begin``/``finish`` launches the kernel on
   the current stream, raising if the launch fails.  The kernel updates
   the chunk's state tensors and buffers **in place**: the caller hands it
@@ -20,6 +23,12 @@ The plain version is the pair ``nuts.leapfrog_begin`` /
   density must not keep its input;
 - on CPU tensors, ``PlainSteps``: the plain halves, with the uniforms from
   a ``LeapfrogUniformTable``.
+
+Under low-rank adaptation the state carries the metric (``lr_basis [C,
+dim, R]``, ``lr_log_eigs [C, R]``, R <= 32) and the kernel takes its
+low-rank branch; R travels in ``MkConfig.lr_rank``, 0 for the diagonal
+metric.  The commit also writes the optional buffers the chunk has
+(``gradient``, ``mass_matrix_inv``, ``mass_matrix_eigvals``).
 
 There is no fallback between the two.  ``launches`` counts kernel
 launches (two per machine step) and nothing else.
@@ -41,8 +50,9 @@ from .nuts import (
     NutsConfig,
     leapfrog_begin,
     leapfrog_finish,
+    metric_velocity_rows,
 )
-from .state import N_ADAPT_FLT, N_ADAPT_VEC, N_FLT, N_INT, N_VEC, NutsMachineState
+from .state import N_ADAPT_FLT, N_ADAPT_VEC, N_FLT, N_INT, N_VEC, VEC_SLOTS, NutsMachineState
 
 ADAM_ITEM = "ROADMAP.md queue 1: Adam and fixed step sizes on the card"
 TARGET_TIME_ITEM = "ROADMAP.md queue 1: target_integration_time on the card"
@@ -52,7 +62,10 @@ FIXED_METRIC_ITEM = "ROADMAP.md queue 1: a fixed mass matrix on the card"
 def unsupported(cfg: NutsConfig) -> Optional[str]:
     """What of this configuration the step kernel leaves out, with its
     ``ROADMAP.md`` item, or None.  (The port's ``NutsConfig`` already
-    refuses low-rank, flow, microcanonical and ``store_*`` configurations.)"""
+    refuses flow, microcanonical, ``store_divergences`` and
+    ``store_transformed`` configurations.)"""
+    if cfg.low_rank is not None and not 0 < cfg.low_rank.max_rank <= MAX_RANK:
+        return f"low-rank max_rank {cfg.low_rank.max_rank}: the step kernel takes 1..{MAX_RANK}"
     if cfg.adapt.method != "dual_average":
         return f"step size method {cfg.adapt.method!r}: {ADAM_ITEM}"
     if cfg.target_time is not None:
@@ -62,19 +75,27 @@ def unsupported(cfg: NutsConfig) -> Optional[str]:
     return None
 
 
+# the largest low-rank metric the kernel takes (one rank per lane)
+MAX_RANK = 32
+
+
 class StepPtrs(ctypes.Structure):
     """Mirror of ``StepPtrs`` in ``csrc/step_kernel.cu``."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "scal", "key", "vecs", "ckpt_p", "ckpt_s", "flts", "ints", "adapt_vecs",
         "adapt_flts", "mom", "jit", "pos_out", "scal_out", "z_new", "u3",
-        "stagnant", "logp", "grad",
+        "stagnant", "logp", "grad", "lr_basis", "lr_log_eigs", "edge_v", "ckpt_v",
+        "grad_out", "minv_out", "eig_out",
     )]
 
 
-# what nutpie_step_geometry_* reports, in its order
+# what nutpie_step_geometry_* reports, in its order: the diagonal
+# instantiations, then the low-rank ones
 GEOMETRY_FIELDS = ("begin_registers", "begin_local_bytes", "finish_registers",
-                   "finish_local_bytes", "threads_per_block")
+                   "finish_local_bytes", "threads_per_block",
+                   "lr_begin_registers", "lr_begin_local_bytes",
+                   "lr_finish_registers", "lr_finish_local_bytes")
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -117,7 +138,18 @@ class PlainSteps:
         return states
 
 
-def _check_chunk(states: NutsMachineState, mom, jit, bufs: ChunkBuffers):
+def metric_rank(cfg: NutsConfig, states: NutsMachineState) -> int:
+    """R of the state's low-rank metric (0: diagonal), checked against the
+    configuration."""
+    R = 0 if cfg.low_rank is None else cfg.low_rank.max_rank
+    if (states.lr_basis is None) != (R == 0) or (states.lr_log_eigs is None) != (R == 0):
+        raise ValueError("the state's low-rank metric does not match the configuration")
+    if not 0 <= R <= MAX_RANK:
+        raise ValueError(f"step kernel takes a low-rank metric of rank <= {MAX_RANK}, got {R}")
+    return R
+
+
+def _check_chunk(states: NutsMachineState, mom, jit, bufs: ChunkBuffers, R: int):
     """Device, dtype, shape and contiguity of everything a chunk launches on."""
     dtype = states.vecs.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -129,11 +161,17 @@ def _check_chunk(states: NutsMachineState, mom, jit, bufs: ChunkBuffers):
         "key": (C, 2), "vecs": (C, N_VEC, dim), "ckpt_p": (C, D, dim),
         "ckpt_s": (C, D, dim), "flts": (C, N_FLT), "ints": (C, N_INT),
         "adapt_vecs": (C, N_ADAPT_VEC, dim), "adapt_flts": (C, N_ADAPT_FLT),
+        "lr_basis": (C, dim, R), "lr_log_eigs": (C, R),
         "mom": (C, L, dim), "jit": (C, L), "position": (C, L, dim),
         "scalars": (C, L, bufs.scalars.shape[-1]),
+        "gradient": (C, L, dim), "mass_matrix_inv": (C, L, dim),
+        "mass_matrix_eigvals": (C, L, R),
     }
+    optional = {name: getattr(bufs, name)
+                for name in ("gradient", "mass_matrix_inv", "mass_matrix_eigvals")
+                if getattr(bufs, name) is not None}
     tensors = dict(states.tensors(), mom=mom, jit=jit, position=bufs.position,
-                   scalars=bufs.scalars)
+                   scalars=bufs.scalars, **optional)
     for name, t in tensors.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"step kernel: {name} has shape {tuple(t.shape)}, "
@@ -154,7 +192,8 @@ class KernelSteps:
                  chunk_start: int, limit: int, states: NutsMachineState,
                  mom: torch.Tensor, jit: torch.Tensor, bufs: ChunkBuffers,
                  adapt_frozen: bool):
-        _check_chunk(states, mom, jit, bufs)
+        R = metric_rank(cfg, states)
+        _check_chunk(states, mom, jit, bufs, R)
         self.owner = owner
         self.lib = owner.library()
         self.states = states
@@ -163,7 +202,7 @@ class KernelSteps:
         C, _, dim = states.vecs.shape
         self.shape = (C, dim)
         self.cfg = sampler_config(cfg, C, dim, states.ckpt_p.shape[1],
-                                  mom.shape[1], adapt_frozen)
+                                  mom.shape[1], adapt_frozen, lr_rank=R)
         sfx = dtype_suffix(self.dtype)
         self.fns = {half: getattr(self.lib, f"nutpie_step_{half}_{sfx}")
                     for half in ("begin", "finish")}
@@ -171,9 +210,14 @@ class KernelSteps:
         self.z_new = torch.empty((C, dim), dtype=self.dtype, device=self.device)
         self.u3 = torch.empty((C, 3), dtype=torch.float32, device=self.device)
         self.stagnant = torch.empty((C,), dtype=torch.int32, device=self.device)
+        self.edge_v = self.ckpt_v = None
+        if R:
+            edges = states.vecs[:, [VEC_SLOTS["p_minus"], VEC_SLOTS["p_plus"]]]
+            self.edge_v = metric_velocity_rows(cfg, states, edges).contiguous()
+            self.ckpt_v = metric_velocity_rows(cfg, states, states.ckpt_p).contiguous()
         self.scal = schedule_tensor(chunk_start, limit, sched, self.device)
         self.keep = (mom, jit, bufs)
-        ptr = lambda t: t.data_ptr()
+        ptr = lambda t: None if t is None else t.data_ptr()
         self.ptrs = StepPtrs(
             scal=ptr(self.scal), key=ptr(states.key), vecs=ptr(states.vecs),
             ckpt_p=ptr(states.ckpt_p), ckpt_s=ptr(states.ckpt_s),
@@ -182,6 +226,9 @@ class KernelSteps:
             mom=ptr(mom), jit=ptr(jit), pos_out=ptr(bufs.position),
             scal_out=ptr(bufs.scalars), z_new=ptr(self.z_new), u3=ptr(self.u3),
             stagnant=ptr(self.stagnant), logp=None, grad=None,
+            lr_basis=ptr(states.lr_basis), lr_log_eigs=ptr(states.lr_log_eigs),
+            edge_v=ptr(self.edge_v), ckpt_v=ptr(self.ckpt_v), grad_out=ptr(bufs.gradient),
+            minv_out=ptr(bufs.mass_matrix_inv), eig_out=ptr(bufs.mass_matrix_eigvals),
         )
 
     def _launch(self, half: str, states: NutsMachineState) -> None:

@@ -91,7 +91,7 @@ def test_cuda_without_card_raises():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(adaptation="low_rank"),
+    dict(store_divergences=True),
     dict(adaptation="flow"),
     dict(sampler="mclmc"),
     dict(step_size_adapt_method="adam"),

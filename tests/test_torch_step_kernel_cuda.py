@@ -8,7 +8,10 @@ positions to rtol 1e-3 on a warmup chunk (adaptation feeds rounding
 differences back through the step size) and floats to rtol 1e-6 / atol
 1e-8 on the frozen chunk that follows.  Models: a small logistic GLM and
 the 1000-d Gaussian (lanes stride over 1000 coordinates), at 4 and 37
-chains (37 leaves part of the last block's warps without a chain).
+chains (37 leaves part of the last block's warps without a chain).  The
+low-rank branch: the 40-d Gaussian with a metric of rank 8 whose last
+three slots are padded, at 4 and 37 chains, with the stored gradients,
+inverse masses and eigenvalues held too.
 """
 
 import numpy as np
@@ -17,7 +20,7 @@ import torch
 
 from nutpie_tpu_torch.models import ill_conditioned_gaussian, logistic_glm
 from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
-from nutpie_tpu_torch.sampler.nuts import NutsConfig, init_buffers
+from nutpie_tpu_torch.sampler.nuts import LowRankConfig, NutsConfig, init_buffers
 from nutpie_tpu_torch.sampler.run import draw_randoms, init_chains, make_chunk_runner
 from nutpie_tpu_torch.sampler.step_kernel import step_kernel
 
@@ -85,3 +88,39 @@ def test_done_chains_hand_their_committed_position(card):
     for name, t in sk.tensors().items():
         assert torch.equal(t, state.tensors()[name]), name
     assert bool(torch.isnan(bufs.position).all())
+
+
+@pytest.fixture(params=[4, 37], ids=lambda n: f"lowrank-{n}")
+def lr_card(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n_chains, dim, rank, padded = request.param, 40, 8, 3
+    model = ill_conditioned_gaussian(dim=dim)
+    cfg = NutsConfig(maxdepth=8, low_rank=LowRankConfig(max_rank=rank),
+                     store_mass_matrix=True, adapt=AdaptConfig(num_tune=100))
+    sched = make_schedule(cfg.adapt, 100)
+    states, _ = init_chains(model, cfg, 5, n_chains, np.zeros(dim), torch.float64,
+                            device="cuda")
+    rng = np.random.default_rng(n_chains)
+    basis = np.zeros((n_chains, dim, rank))
+    log_eigs = np.zeros((n_chains, rank))
+    for c in range(n_chains):
+        basis[c, :, :rank - padded], _ = np.linalg.qr(rng.standard_normal((dim, rank - padded)))
+        log_eigs[c, :rank - padded] = 2.0 * rng.standard_normal(rank - padded)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64, device="cuda")
+    return model, cfg, sched, states.replace(lr_basis=t(basis), lr_log_eigs=t(log_eigs))
+
+
+def test_low_rank_branch_matches_plain_version(lr_card):
+    model, cfg, sched, states = lr_card
+    (sk, bk), (sp, bp) = _both(model, cfg, sched, states, 0, False)
+    assert torch.equal(sk.ints, sp.ints)
+    torch.testing.assert_close(bk.position, bp.position, rtol=1e-3, atol=1e-3, equal_nan=True)
+    (fk, fbk), (fp, fbp) = _both(model, cfg, sched, sk, 8, True)
+    assert torch.equal(fk.ints, fp.ints)
+    for a, b in ((fbk.position, fbp.position), (fbk.scalars, fbp.scalars),
+                 (fbk.gradient, fbp.gradient), (fbk.mass_matrix_inv, fbp.mass_matrix_inv),
+                 (fbk.mass_matrix_eigvals, fbp.mass_matrix_eigvals),
+                 (fk.vecs, fp.vecs), (fk.flts, fp.flts)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-8, equal_nan=True)
+    assert torch.isfinite(fbk.mass_matrix_eigvals).all()

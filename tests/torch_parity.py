@@ -13,7 +13,8 @@ import torch
 
 
 def jax_state_arrays(state) -> dict:
-    """Flatten a JAX ``NutsMachineState`` (diag adaptation) for ``convert``."""
+    """Flatten a JAX ``NutsMachineState`` (diagonal or low-rank adaptation)
+    for ``convert``."""
     key = state.rng_key
     if getattr(key, "dtype", None) != np.uint32:
         key = jax.random.key_data(key)
@@ -30,7 +31,41 @@ def jax_state_arrays(state) -> dict:
         w = getattr(a, acc)
         for f in ("mean", "m2", "count"):
             out[f"adapt.{acc}.{f}"] = np.asarray(getattr(w, f))
+    if hasattr(a, "metric"):
+        out["adapt.metric.basis"] = np.asarray(a.metric.basis)
+        out["adapt.metric.log_eigs"] = np.asarray(a.metric.log_eigs)
     return out
+
+
+def jax_state_from_arrays(template, arrays: dict):
+    """Rebuild a JAX ``NutsMachineState`` of ``template``'s structure from
+    flattened arrays (the inverse of ``jax_state_arrays``)."""
+    import jax.numpy as jnp
+
+    a = template.adapt
+    welford = {acc: getattr(a, acc)._replace(**{
+        f: jnp.asarray(arrays[f"adapt.{acc}.{f}"]) for f in ("mean", "m2", "count")})
+        for acc in ("draws_cur", "grads_cur", "draws_bg", "grads_bg")}
+    adapt = a._replace(
+        da=a.da._replace(**{f: jnp.asarray(arrays[f"adapt.da.{f}"])
+                            for f in ("log_step", "log_step_bar", "hbar", "mu", "count")}),
+        adam=a.adam._replace(**{f: jnp.asarray(arrays[f"adapt.adam.{f}"])
+                                for f in ("m", "v", "count")}),
+        inv_mass=jnp.asarray(arrays["adapt.inv_mass"]),
+        **welford,
+    )
+    if hasattr(a, "metric"):
+        adapt = adapt._replace(metric=a.metric._replace(
+            basis=jnp.asarray(arrays["adapt.metric.basis"]),
+            log_eigs=jnp.asarray(arrays["adapt.metric.log_eigs"])))
+    key = template.rng_key
+    raw = jnp.asarray(arrays["rng_key"], jnp.uint32)
+    if getattr(key, "dtype", None) != np.uint32:
+        raw = jax.random.wrap_key_data(raw)
+    return template._replace(
+        rng_key=raw, adapt=adapt,
+        **{name: jnp.asarray(arrays[name]) for name in ("vecs", "ckpt_p", "ckpt_s", "flts", "ints")},
+    )
 
 
 def t64(x) -> torch.Tensor:
