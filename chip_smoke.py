@@ -8,8 +8,12 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases (each prints one JSON line):
 
 1. ``build``: torch version, the card's name and power limit, and the
-   build of the chunk kernel (``nutpie_tpu_torch/csrc/megakernel.cu``) from
-   the sources in the checkout with ``nvcc``.
+   build of the chunk kernel (``nutpie_tpu_torch/csrc/megakernel.cu``) and
+   the step kernel (``csrc/step_kernel.cu``) from the sources in the
+   checkout with ``nvcc``, one process each, together; their registers
+   and spill bytes (any spill of either in either dtype fails), and the
+   step kernel's low-rank plan at the low-rank path's shapes in both
+   dtypes, whose shared memory must be what the kernel lays out.
 2. ``parity``: the kernel against its plain torch version on the card, on
    radon at full width (173 parameters, 919 observations), 64 chains:
    one fresh warmup chunk of 8 draws in float64 (ints, step counts and
@@ -88,23 +92,35 @@ coefficients, 2048 observations, chunk 32):
    same for K2's low-rank branch at the low-rank path's shapes (below):
    one frozen 16-draw chunk of the float32 parity fleet, K2 with R = 32
    and with R = 0 (the same fleet without its metric), the logp+grad
-   call, the plain halves over their first ``LR_PLAIN_STEPS`` steps, and
-   the byte bound with each launch reading the chain's basis once.
+   call by CUDA events (and over the first ``LR_DEVICE_STEPS`` steps by
+   device time under ``torch.profiler``, reported beside them), the plain
+   halves over their first ``LR_PLAIN_STEPS`` steps, the
+   byte bound with each launch reading the chain's basis once, the basis
+   bytes as the plan's form reads them, the plan (form, warps, shared
+   memory) and the library yardstick of the metric part (two
+   ``torch.bmm`` per application for every chain, times the applications
+   a step).
 
 K2's low-rank branch (``adaptation="low_rank"``) on the 1000-d
 ill-conditioned Gaussian (``nutpie_tpu/models/analytic.py:166``,
 BASELINE's 1000-d target) at 1024 chains, max_rank 32, chunk 80:
 
 10. ``lowrank_parity``: K2 against its plain halves on the card.  Float64,
-    16 chains, two metrics from the port's ``estimate_low_rank`` on each
-    chain's window of exact posterior draws and gradients (a cutoff that
-    keeps all 32 slots, and the default 100, under which this target keeps
-    none: the branch's arithmetic on an all-padded metric): an 8-draw
-    warmup window from draw 0 (ints, step counts and Welford counts
-    exact, floats to 1e-3), then a 16-draw frozen chunk (ints exact,
-    floats and the stored gradients to rtol 1e-6 / atol 1e-8).  Float32 at
-    the main shapes, one frozen 16-draw chunk: at least 99.9% of step
-    counts equal and 99% of draws within 1e-3 (relative to 1 + abs x).
+    16 chains, metrics from the port's ``estimate_low_rank`` on each
+    chain's window of exact posterior draws and gradients, one case for
+    each form of ``step_kernel.low_rank_plan`` (``LR_F64_CASES``): the
+    path's shapes (dim 1000, R 32, 256,000 bytes a basis: streamed) with a
+    cutoff that keeps all 32 slots and with the default 100, under which
+    this target keeps none (the branch's arithmetic on an all-padded
+    metric); dim 500, R 32 (staged by TMA); dim 33, R 5 with two slots
+    padded (660 bytes a basis, not 16-byte aligned: staged by loads).  Each
+    runs a warmup window from draw 0 (8 draws; 4 for the last two, whose
+    trees stop at depth 6; ints, step counts and Welford counts exact,
+    floats to 1e-3), then a frozen chunk (16 draws; 8 for the last two)
+    (ints exact, floats and the stored gradients to rtol 1e-6 / atol
+    1e-8).  Float32 at the main shapes, one frozen 16-draw chunk: at least
+    99.9% of step counts equal and 99% of draws within 1e-3 (relative to 1
+    + abs x).
 11. ``lowrank``: ``sample(adaptation="low_rank")``, 1024 chains x (300
     tune + ``LR_DRAWS`` draws), float32, seed 42, default settings but the
     eigenvalue cutoff ``LR_CUTOFF`` (see there): K2 launched
@@ -133,6 +149,7 @@ script exits non-zero before printing a result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -245,9 +262,27 @@ LR_CUTOFF = 3.0
 # estimator gives on a window of LR_WINDOW posterior draws and gradients
 # (cutoff LR_CUTOFF_ALL keeps all 32 slots, the default 100 pads some)
 LR_PARITY_CHAINS, LR_WINDOW, LR_CUTOFF_ALL = 16, 80, 1.0 + 1e-6
+# the float64 parity cases (tag, dim, rank, cutoff, slots padded after the
+# estimate, maxdepth (None: the default), draws of the warmup window and of
+# the frozen chunk) and the form each takes on an H100 (low_rank_plan): the
+# path's shapes, whose 256,000-byte basis streams, with every slot kept and
+# at the default cutoff (every slot padded); dim 500, staged by TMA; dim 33
+# at rank 5, whose 660-byte bases are not 16-byte aligned and stage by
+# loads, with two slots padded.  The last two keep the script's time: their
+# trees stop at depth 6 (every code path of the step still runs: checks,
+# merges, draws ended by a U-turn and by the depth limit) over 4 + 8 draws
+LR_F64_CASES = (
+    ("all_slots", LR_DIM, LR_RANK, LR_CUTOFF_ALL, 0, None, (8, 16)),
+    ("default_cutoff", LR_DIM, LR_RANK, 100.0, 0, None, (8, 16)),
+    ("dim500", 500, LR_RANK, LR_CUTOFF_ALL, 0, 6, (4, 8)),
+    ("dim33_rank5", 33, 5, LR_CUTOFF_ALL, 2, 6, (4, 8)),
+)
 LR_F32_CHUNK = 16
-# plain machine steps timed at the low-rank shapes (each is a few ms)
+# plain machine steps timed at the low-rank shapes (each is a few ms), and
+# the kernel's steps timed by device time under the profiler (reported
+# beside the CUDA-event times the kernels line and its share of bound use)
 LR_PLAIN_STEPS = 64
+LR_DEVICE_STEPS = 128
 # the low-rank profile's cut: tune, draws and the switch cadence (so the
 # chunk length), which put boundary updates at draws 2, 4 and 6.  A tree of
 # this target runs to the depth cap, hundreds of machine steps a draw, and
@@ -377,6 +412,13 @@ def phase_build(ctx):
         geometry[str(dtype).removeprefix("torch.")] = chunk_kernel.geometry(
             _main_kernel_config(model, cfg), dtype, torch.device("cuda"))
     ctx["geometry"] = geometry
+    # K2's instantiations in both dtypes, with the low-rank plan of the
+    # low-rank path's shapes (float32 stages the basis, float64 streams it)
+    k2, plans = {}, {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).removeprefix("torch.")
+        k2[name] = step_kernel.geometry(dt, LR_CHAINS, LR_DIM, LR_RANK)
+        plans[name] = dataclasses.asdict(step_kernel.plan(LR_CHAINS, LR_DIM, LR_RANK, dt, DEVICE))
     emit({
         "phase": "build", "torch": torch.__version__,
         "cuda": torch.version.cuda, "card": ctx["card"],
@@ -386,15 +428,18 @@ def phase_build(ctx):
         "geometry": geometry,
         "step_kernel": {
             "library": os.path.relpath(str(libs["step_kernel"]), ROOT),
-            "geometry": {str(dt).removeprefix("torch."): step_kernel.geometry(dt)
-                         for dt in (torch.float32, torch.float64)},
+            "geometry": k2,
+            "low_rank_plan": plans,
         },
     })
     g32 = geometry["float32"]
     assert g32["resident_chains_per_sm"] >= 10 and g32["local_bytes_per_thread"] == 0, g32
-    k2 = step_kernel.geometry(torch.float32)
-    assert all(v == 0 for k, v in k2.items() if k.endswith("local_bytes")), \
-        f"the step kernel spills in float32: {k2}"
+    for dt, geo in k2.items():
+        assert all(v == 0 for k, v in geo.items() if k.endswith("local_bytes")), \
+            f"the step kernel spills in {dt}: {geo}"
+        # the plan's shared memory is what the kernel lays out, and fits
+        assert geo["lr_smem_bytes"] == plans[dt]["smem_bytes"], (geo, plans[dt])
+        assert min(geo["lr_begin_blocks_per_sm"], geo["lr_finish_blocks_per_sm"]) >= 1, geo
 
 
 def _main_kernel_config(model, cfg):
@@ -1240,7 +1285,8 @@ def phase_glm(ctx):
 
 
 def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
-               depth_slots: int, itemsize: int, rank: int = 0) -> dict:
+               depth_slots: int, itemsize: int, rank: int = 0,
+               streamed: bool = False) -> dict:
     """Bytes the step kernel must move over one frozen chunk, counted from
     csrc/step_kernel.cu for this chunk's trees (each row a launch touches
     read once and written once; the multinomial's copies of the proposal
@@ -1251,11 +1297,15 @@ def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
     checkpoints, and the checks and merges count as in ``chunk_ops``.
 
     Under a low-rank metric of rank ``rank`` each launch of an active chain
-    also reads the chain's basis and log eigenvalues once (the bound; the
-    kernel reads the basis twice per application of the metric, which
-    ``lr_basis_bytes_as_read`` counts: two passes for the drift and two for
-    the new point's velocity, three per draw's start; the checks and merges
-    use the velocities the kernel keeps)."""
+    also reads the chain's basis and log eigenvalues once (the bound).
+    ``lr_basis_bytes_as_read`` counts the basis as csrc/lowrank.cuh reads
+    it: staged, once per launch of an active chain, and at a draw's start
+    twice more (the chain's own basis staged again over the next chain's,
+    which the block had sent for, and the next chain's sent for again);
+    ``streamed``, once per pass: two for the drift, two for the new point's
+    velocity, three for a draw's start (its middle pass expands and
+    projects the same tiles).  The checks and merges use the velocities
+    the kernel keeps."""
     import numpy as np
 
     from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
@@ -1296,7 +1346,8 @@ def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
         metric = (rank * dim + rank) * T
         begin += leapfrogs * metric
         finish += leapfrogs * metric
-        passes = 4 * leapfrogs + 3 * (draws - n_chains)
+        starts = draws - n_chains
+        passes = 4 * leapfrogs + 3 * starts if streamed else 2 * leapfrogs + 2 * starts
         out["lr_basis_bytes_as_read"] = passes * rank * dim * T
     return {"bytes": begin + finish, "begin_bytes": begin, "finish_bytes": finish, **out}
 
@@ -1449,39 +1500,42 @@ def phase_step_timing(ctx):
 # ---------------------------------------------------------------- low-rank path
 
 
-def _lr_truth():
-    """The 1000-d Gaussian's rotation and eigenvalues as
+def _lr_truth(dim: int = LR_DIM):
+    """The ``dim``-d Gaussian's rotation and eigenvalues as
     ``models/analytic.py:ill_conditioned_gaussian`` draws them (seed 0):
     covariance ``Q diag(eigs) Q^T``, eigenvalues ascending."""
     import numpy as np
 
     rng = np.random.default_rng(0)
-    eigs = np.logspace(0, 4, LR_DIM)
-    q, _ = np.linalg.qr(rng.standard_normal((LR_DIM, LR_DIM)))
+    eigs = np.logspace(0, 4, dim)
+    q, _ = np.linalg.qr(rng.standard_normal((dim, dim)))
     return q, eigs
 
 
-def _lr_posterior(n_chains: int, n_draws: int, seed: int):
+def _lr_posterior(n_chains: int, n_draws: int, seed: int, dim: int = LR_DIM):
     """Exact posterior draws ``[C, n, dim]`` and their gradients, float64 on
     the card (normals from numpy)."""
     import numpy as np
     import torch
 
-    q, eigs = _lr_truth()
+    q, eigs = _lr_truth(dim)
     qt = torch.as_tensor(q, device=DEVICE)
     e = torch.as_tensor(eigs, device=DEVICE)
     rng = np.random.default_rng(seed)
-    y = torch.as_tensor(rng.standard_normal((n_chains, n_draws, LR_DIM)), device=DEVICE)
+    y = torch.as_tensor(rng.standard_normal((n_chains, n_draws, dim)), device=DEVICE)
     y = y * torch.sqrt(e)                        # the draws in the eigenbasis
     return y @ qt.T, -(y / e) @ qt.T              # x = Q y, -P x = -Q (y / eigs)
 
 
-def _lr_fleet(n_chains: int, dtype, seed: int, cutoff: float):
+def _lr_fleet(n_chains: int, dtype, seed: int, cutoff: float, dim: int = LR_DIM,
+              rank: int = LR_RANK, padded: int = 0, maxdepth=None):
     """A fleet of the low-rank path at stationarity: each chain at an exact
     posterior draw, with the gradient-based diagonal estimate sqrt(var x /
     var g) and the port's low-rank estimate (``estimate_low_rank``) from
-    ``LR_WINDOW`` earlier posterior draws and gradients of its own, and a
-    step size from the initial step search.  Returns the model, config,
+    ``LR_WINDOW`` earlier posterior draws and gradients of its own, its last
+    ``padded`` slots then padded as the estimator pads (a zero column and a
+    zero log eigenvalue), and a step size from the initial step search;
+    ``maxdepth`` overrides the default.  Returns the model, config,
     schedule, state and each chain's kept slots."""
     import numpy as np
     import torch
@@ -1493,30 +1547,35 @@ def _lr_fleet(n_chains: int, dtype, seed: int, cutoff: float):
     from nutpie_tpu_torch.sampler.run import find_initial_step, init_chains
     from nutpie_tpu_torch.sampler.state import ADAPT_VEC_SLOTS, state_with
 
-    model = ill_conditioned_gaussian(dim=LR_DIM)
-    cfg = NutsConfig(low_rank=LowRankConfig(eigval_cutoff=cutoff, max_rank=LR_RANK),
-                     adapt=AdaptConfig(num_tune=LR_TUNE))
+    model = ill_conditioned_gaussian(dim=dim)
+    cfg = NutsConfig(low_rank=LowRankConfig(eigval_cutoff=cutoff, max_rank=rank),
+                     adapt=AdaptConfig(num_tune=LR_TUNE),
+                     **({} if maxdepth is None else {"maxdepth": maxdepth}))
     sched = make_schedule(cfg.adapt, LR_TUNE, cfg.initial_depth_cap)
-    states, ok = init_chains(model, cfg, seed, n_chains, np.zeros(LR_DIM), dtype,
+    states, ok = init_chains(model, cfg, seed, n_chains, np.zeros(dim), dtype,
                              device=DEVICE, step_search=False)
     assert bool(ok.all()), "chain initialization failed"
-    x, g = _lr_posterior(n_chains, LR_WINDOW + 1, seed)
+    x, g = _lr_posterior(n_chains, LR_WINDOW + 1, seed, dim)
     win_x, win_g = x[:, :LR_WINDOW], g[:, :LR_WINDOW]
     inv_mass = torch.sqrt(win_x.var(dim=1) / win_g.var(dim=1))
     valid = torch.ones((n_chains, LR_WINDOW), dtype=torch.bool, device=DEVICE)
     lr = cfg.low_rank
     metric = estimate_low_rank(win_x, win_g, valid, inv_mass, lr.max_rank,
                                lr.eigval_cutoff, lr.gamma)
+    basis, log_eigs = metric.basis.clone(), metric.log_eigs.clone()
+    if padded:
+        basis[..., rank - padded:] = 0
+        log_eigs[..., rank - padded:] = 0
     pos = x[:, -1].to(dtype)
     logp, grad = model.logp_and_grad(pos)
     adapt_vecs = states.adapt_vecs.clone()
     adapt_vecs[:, ADAPT_VEC_SLOTS["inv_mass"]] = inv_mass.to(dtype)
     states = state_with(states, position=pos, gradient=grad.to(dtype), logp=logp.to(dtype))
     states = states.replace(adapt_vecs=adapt_vecs,
-                            lr_basis=metric.basis.to(dtype).contiguous(),
-                            lr_log_eigs=metric.log_eigs.to(dtype).contiguous())
+                            lr_basis=basis.to(dtype).contiguous(),
+                            lr_log_eigs=log_eigs.to(dtype).contiguous())
     states = find_initial_step(cfg, model.logp_and_grad, states)
-    return model, cfg, sched, states, (metric.log_eigs != 0).sum(dim=1)
+    return model, cfg, sched, states, (log_eigs != 0).sum(dim=1)
 
 
 def _check_lowrank_frozen_f64(tag, s_k, b_k, s_p, b_p) -> float:
@@ -1531,25 +1590,34 @@ def phase_lowrank_parity(ctx):
 
     from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
 
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
     ns = SCALAR_SLOTS["n_steps"]
     failed = []
     readings = {}
-    for tag, cutoff in (("all_slots", LR_CUTOFF_ALL), ("default_cutoff", 100.0)):
-        model, cfg, sched, states, kept = _lr_fleet(LR_PARITY_CHAINS, torch.float64, 31, cutoff)
-        (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, states, 0, 8, 8, False)
-        warm_err = _held(failed, _check_warmup_f64, f"low-rank {tag} warmup", 8,
+    for tag, dim, rank, cutoff, padded, maxdepth, (n_warm, n_frozen) in LR_F64_CASES:
+        model, cfg, sched, states, kept = _lr_fleet(LR_PARITY_CHAINS, torch.float64, 31,
+                                                    cutoff, dim, rank, padded, maxdepth)
+        plan = step_kernel.plan(LR_PARITY_CHAINS, dim, rank, torch.float64, DEVICE,
+                                aligned=states.lr_basis.data_ptr() % 16 == 0)
+        (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, states, 0, n_warm, n_warm,
+                                             False)
+        warm_err = _held(failed, _check_warmup_f64, f"low-rank {tag} warmup", n_warm,
                          s_k, b_k, s_p, b_p)
-        (f_k, fb_k), (f_p, fb_p) = _steps_both(model, cfg, sched, s_k, 8, 16, 16, True)
+        (f_k, fb_k), (f_p, fb_p) = _steps_both(model, cfg, sched, s_k, n_warm, n_frozen,
+                                               n_frozen, True)
         frozen_err = _held(failed, _check_lowrank_frozen_f64, f"low-rank {tag} frozen",
                            f_k, fb_k, f_p, fb_p)
         readings[tag] = {
+            "dim": dim, "rank": rank, "form": plan.form, "copy": plan.copy,
+            "smem_bytes": plan.smem_bytes, "padded_slots": padded, "maxdepth": cfg.maxdepth,
             "eigval_cutoff": cutoff, "kept_slots_min": int(kept.min()),
             "kept_slots_max": int(kept.max()),
-            "warmup": {"draws": 8, "held": warm_err is not None,
+            "warmup": {"draws": n_warm, "held": warm_err is not None,
                        "ints_equal": bool(torch.equal(s_k.ints, s_p.ints)),
                        "max_abs_err_position": max_abs(b_k.position, b_p.position),
                        "leapfrogs": int(b_k.scalars[..., ns].nansum()), "rtol": 1e-3},
-            "frozen": {"draws": 16, "held": frozen_err is not None,
+            "frozen": {"draws": n_frozen, "held": frozen_err is not None,
                        "ints_equal": bool(torch.equal(f_k.ints, f_p.ints)),
                        "max_abs_err_position": max_abs(fb_k.position, fb_p.position),
                        "leapfrogs": int(fb_k.scalars[..., ns].nansum()),
@@ -1748,6 +1816,38 @@ def _timed_steps(model, cfg, sched, states, chunk: int):
     return ms, n_steps, bufs
 
 
+def _device_step_ms(model, cfg, sched, states, chunk: int, max_steps: int) -> dict:
+    """K2's halves and the logp+grad call per machine step by device time
+    under ``torch.profiler``, over the first ``max_steps`` steps of the same
+    chunk (a host that falls behind the card stretches an event pair, not a
+    kernel's device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nutpie_tpu_torch.sampler.nuts import init_buffers, start_draw
+    from nutpie_tpu_torch.sampler.run import draw_randoms
+    from nutpie_tpu_torch.sampler.state import state_with
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    n_chains, _, dim = states.vecs.shape
+    dtype = states.vecs.dtype
+    mom, jit = draw_randoms(states.key, 0, chunk, dim, dtype)
+    bufs = init_buffers(chunk, dim, dtype, n_chains, device=DEVICE, cfg=cfg)
+    st = start_draw(cfg, sched, state_with(states, done=False), mom[:, 0], jit[:, 0]).clone()
+    steps = step_kernel.chunk(cfg, sched, 0, chunk, st, mom, jit, bufs, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(max_steps):
+            z_new, carry = steps.begin(st)
+            logp, grad = model.logp_and_grad(z_new)
+            st = steps.finish(st, z_new, carry, logp, grad)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    dev = {half: sum(r[0] for r in rows if f"step_{half}" in r[1]) for half in ("begin", "finish")}
+    dev["logp_grad"] = sum(r[0] for r in rows) - dev["begin"] - dev["finish"]
+    return {k: 1e3 * v / max_steps for k, v in dev.items()}
+
+
 def _plain_step_ms(model, cfg, sched, states, chunk: int, max_steps: int) -> dict:
     """The plain halves per machine step by CUDA events after a synchronize,
     over the first ``max_steps`` steps of the same chunk."""
@@ -1784,18 +1884,45 @@ def _plain_step_ms(model, cfg, sched, states, chunk: int, max_steps: int) -> dic
     return {k: v / n for k, v in out.items()} | {"steps": n}
 
 
+def _bmm_metric_ms(basis, reps: int = 50) -> float:
+    """The library yardstick of the branch's metric part: one application of
+    the basis products for every chain, w^T U and then U c, as two
+    ``torch.bmm`` calls ([C, 1, dim] x [C, dim, R] and [C, 1, R] x [C, R,
+    dim]), ms by CUDA events.  The port never calls it."""
+    import torch
+
+    n_chains, dim, _ = basis.shape
+    w = torch.randn((n_chains, 1, dim), dtype=basis.dtype, device=basis.device)
+    ut = basis.transpose(1, 2)
+
+    def apply():
+        torch.bmm(torch.bmm(w, basis), ut)
+
+    apply()
+    torch.cuda.synchronize()
+    return _event_ms(apply, reps)[0]
+
+
 def lowrank_step_timing(ctx):
     """K2 at the low-rank path's shapes (1024 chains, dim 1000, float32,
     one frozen 16-draw chunk from the float32 parity fleet) with R = 32 and
     with R = 0 (the same fleet without its low-rank metric), beside the
-    logp+grad call, the byte bound and the plain halves."""
-    import dataclasses
-
+    logp+grad call, the byte bound, the plain halves and the library
+    yardstick of the metric part: two ``torch.bmm`` calls per application
+    for every chain (``_bmm_metric_ms``) times the kernel's applications a
+    step, counted in whole fleets (two per leapfrog of an active chain, two
+    per draw's start)."""
     from nutpie_tpu_torch.sampler.nuts import NutsConfig
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
 
     model, cfg, sched, states = ctx["lr_fleet"]
     chunk = LR_F32_CHUNK
-    out = {}
+    plan = step_kernel.plan(LR_CHAINS, LR_DIM, LR_RANK, states.vecs.dtype, DEVICE,
+                            aligned=states.lr_basis.data_ptr() % 16 == 0)
+    bmm_ms = _bmm_metric_ms(states.lr_basis)
+    out = {"plan": dataclasses.asdict(plan), "bmm_ms_per_application": bmm_ms}
+    ctx["lr_plan"] = f"{plan.form} by {plan.copy}, {plan.warps} warps a chain, " \
+                     f"{plan.smem_bytes} bytes of shared memory a block"
     for tag, c, st in (
             ("rank32", cfg, states),
             ("rank0", dataclasses.replace(cfg, low_rank=None),
@@ -1803,9 +1930,11 @@ def lowrank_step_timing(ctx):
         assert isinstance(c, NutsConfig)
         rank = 0 if c.low_rank is None else c.low_rank.max_rank
         ms, n_steps, bufs = _timed_steps(model, c, sched, st, chunk)
+        device = _device_step_ms(model, c, sched, st, chunk, LR_DEVICE_STEPS)
         plain = _plain_step_ms(model, c, sched, st, chunk, LR_PLAIN_STEPS)
         work = step_bytes(bufs.scalars, chunk, LR_CHAINS, n_steps, LR_DIM,
-                          st.ckpt_p.shape[1], 4, rank=rank)
+                          st.ckpt_p.shape[1], 4, rank=rank,
+                          streamed=plan.form == "streamed")
         t_bytes = 1e3 * work["bytes"] / PEAK_BYTES / n_steps
         t_ops = 1e3 * step_ops(work, LR_DIM, rank) / PEAK_F32_OPS / n_steps
         k2_ms = ms["begin"] + ms["finish"]
@@ -1813,6 +1942,11 @@ def lowrank_step_timing(ctx):
             "rank": rank, "machine_steps": n_steps, "k2_ms_per_step": k2_ms,
             "k2_begin_ms_per_step": ms["begin"], "k2_finish_ms_per_step": ms["finish"],
             "logp_grad_ms_per_step": ms["logp_grad"],
+            "k2_device_ms_per_step": device["begin"] + device["finish"],
+            "k2_begin_device_ms_per_step": device["begin"],
+            "k2_finish_device_ms_per_step": device["finish"],
+            "logp_grad_device_ms_per_step": device["logp_grad"],
+            "device_steps": LR_DEVICE_STEPS,
             "plain_begin_ms_per_step": plain["begin"],
             "plain_finish_ms_per_step": plain["finish"], "plain_machine_steps": plain["steps"],
             "bytes_per_step": work["bytes"] / n_steps, "bytes_bound_ms_per_step": t_bytes,
@@ -1820,8 +1954,13 @@ def lowrank_step_timing(ctx):
             **{k: v for k, v in work.items() if k != "bytes"},
         }
         if tag == "rank32":
-            ctx.update(lr_step_ms=k2_ms, lr_step_plain_ms=plain["begin"] + plain["finish"],
-                       lr_step_bound_ms=max(t_bytes, t_ops),
+            apps = (2 * work["leapfrogs"] + 2 * (work["draws"] - LR_CHAINS)) / LR_CHAINS
+            library = bmm_ms * apps / n_steps
+            out[tag].update(metric_applications_per_step=apps / n_steps,
+                            library_metric_ms_per_step=library)
+            ctx.update(lr_step_ms=k2_ms, lr_step_device_ms=device["begin"] + device["finish"],
+                       lr_step_plain_ms=plain["begin"] + plain["finish"],
+                       lr_step_bound_ms=max(t_bytes, t_ops), lr_library_ms=library,
                        lr_step_bound_by="bytes" if t_bytes >= t_ops else "operations")
     emit({"phase": "step_timing_lowrank", "chains": LR_CHAINS, "dim": LR_DIM,
           "chunk": chunk, "dtype": "float32", **out, "card": ctx["card"]})
@@ -1925,13 +2064,17 @@ def main() -> int:
             "parity": "ok",
             "low_rank_branch": {
                 "shapes": f"{LR_CHAINS} chains, dim {LR_DIM}, rank {LR_RANK}, float32",
+                "plan": ctx["lr_plan"],
                 "launches": ctx["lr_launches"],
                 "max_abs_err": ctx["lr_max_abs_err"],
                 "ms": ctx["lr_step_ms"],
+                "device_ms": ctx["lr_step_device_ms"],
                 "plain_ms": ctx["lr_step_plain_ms"],
                 "bound_ms": ctx["lr_step_bound_ms"],
                 "bound_by": ctx["lr_step_bound_by"],
-                "library_ms": None,
+                "library_ms": ctx["lr_library_ms"],
+                "library": "two torch.bmm per metric application, times the applications "
+                           "a step (the metric part only)",
                 "parity": "ok",
             },
         }]})

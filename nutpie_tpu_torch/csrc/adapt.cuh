@@ -207,37 +207,38 @@ __device__ __forceinline__ void diag_adapt_update(
 }
 
 // The same update for a chain whose rows all stay in global memory and
-// whose lanes stride over any number of coordinates (the step kernel):
-// the inverse mass is the A_INV_MASS row of `av`, and the estimate is
-// recomputed from the written m2 rows instead of held in registers.
-template <typename T>
+// whose threads (a group of group.cuh) stride over any number of
+// coordinates (the step kernel): the inverse mass is the A_INV_MASS row of
+// `av`, and the estimate is recomputed from the written m2 rows instead of
+// held in registers.
+template <typename T, typename G>
 __device__ __forceinline__ void diag_adapt_update_strided(
-    const MkConfig& cfg, const Sched& s, int lane, T* av, T* af,
+    const G& g, const MkConfig& cfg, const Sched& s, T* av, T* af,
     const T* x, const T* gr, int draw_idx, bool diverging, T accept) {
   const int dim = cfg.dim;
   bool fin = true;
-  for (int i = lane; i < dim; i += kLanes) {
+  for (int i = g.rank; i < dim; i += G::kThreads) {
     fin = fin && isfinite(x[i]) && isfinite(gr[i]);
   }
-  const bool ok = __all_sync(kFullMask, fin) && !diverging;
+  const bool ok = g.all(fin) && !diverging;
   const AdaptWindow<T> w(cfg, s, af, draw_idx, ok);
 
   bool est_fin = true;
-  for (int i = lane; i < dim; i += kLanes) {
+  for (int i = g.rank; i < dim; i += G::kThreads) {
     T dv, gv;
     welford_coord(w, ok, av + i, dim, x[i], gr[i], dv, gv);
     est_fin = est_fin && isfinite(mass_estimate(cfg, w, dv, gv));
   }
-  const bool use_est = __all_sync(kFullMask, est_fin) && w.dcur > T(2);
+  const bool use_est = g.all(est_fin) && w.dcur > T(2);
 
   T ratio = -T(INFINITY);
-  for (int i = lane; i < dim; i += kLanes) {
+  for (int i = g.rank; i < dim; i += G::kThreads) {
     const T est = mass_estimate(cfg, w, av[A_DRAWS_CUR_M2 * dim + i],
                                 av[A_GRADS_CUR_M2 * dim + i]);
     T* im = av + A_INV_MASS * dim + i;
     *im = mass_update(cfg, w, use_est, est, *im, ratio);
   }
-  ratio = warp_max(ratio);
+  ratio = g.max(ratio);
   adapt_scalars(cfg, w, af, ratio, accept);
 }
 

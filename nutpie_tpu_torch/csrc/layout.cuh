@@ -87,6 +87,10 @@ struct MkConfig {
   int32_t n_seg;     // segments of the lane partition
   int32_t obs_rows;  // rows of the lane-major observation table
   int32_t lr_rank;   // R of the low-rank metric, 0 for the diagonal one (step kernel)
+  // the step kernel's low-rank plan (sampler/step_kernel.py:low_rank_plan):
+  int32_t lr_streamed;  // 1: the basis streams through a ring; 0: staged whole
+  int32_t lr_tma;       // 1: tiles arrive by bulk copy; 0: by the warps' loads
+  int32_t lr_grid;      // persistent blocks of a launch
 };
 
 // Device pointers of one launch.  State tensors are updated in place.

@@ -22,49 +22,77 @@
 // float32.  chip_smoke.py counts the bytes from this code for each run's
 // trees (step_bytes).
 //
-// The low-rank branch (LR = true, taken when the wrapper passes a metric
-// of rank R > 0; lowrank.cuh) replaces every product inv_mass * p by the
-// low-rank metric's velocity and the momentum of a new draw by its
-// M^{1/2} z.  Each application reads the chain's [dim, R] basis twice
-// (projection and expansion), so the basis dominates the branch's bytes,
-// and the branch applies the metric only where a momentum is new: the
-// drift in step_begin, the new point's velocity in step_finish, and the
-// momentum and kinetic energy of the next draw.  The metric is fixed
-// within a draw, so every other velocity the U-turn checks need is one of
-// those, kept where its momentum is kept: the two trajectory edges' in
-// `edge_v` (the new point's is written there), each checkpoint's in
-// `ckpt_v` beside `ckpt_p` (pushed from the new point's, the slot-(D-1)
-// stash from its edge's).  A kept velocity is bitwise the one the same
-// arithmetic would compute again.  R = 0 takes the diagonal
-// instantiation, which has no low-rank code at all.
+// The step body is written once against a thread group (group.cuh) and
+// instantiated twice:
+//   - the diagonal metric (LR = false): one warp per chain (WarpGroup),
+//     four chains per block, lanes striding over the coordinates (any
+//     dim), neighbouring lanes on neighbouring addresses;
+//   - the low-rank metric (LR = true, taken when the wrapper passes a
+//     metric of rank R > 0): a block of kLrWarps warps per chain
+//     (BlockGroup), the blocks persistent, each running every gridDim.x-th
+//     chain in turn.  It replaces every product inv_mass * p by the
+//     low-rank metric's velocity and the momentum of a new draw by its
+//     M^{1/2} z (lowrank.cuh).  Its bytes are the chain's [dim, R] basis:
+//     128 KB in float32 at dim 1000, R 32, against about 40 KB of rows a
+//     step.  So the block stages the basis in shared memory by TMA bulk
+//     copies once per launch where it fits (or streams it through a ring
+//     of tiles twice per application where it does not:
+//     sampler/step_kernel.py:low_rank_plan decides), and sends the next
+//     chain's basis on its way as soon as a chain's last pass is done; the
+//     block's 256 threads share every coordinate loop.  With one block
+//     (8 warps) an SM little latency hides behind other warps, so the
+//     products are laid out for independent instructions (lowrank.cuh).
+//     The branch applies the metric only where a momentum is new: the
+//     drift in step_begin, the new point's velocity in step_finish, and
+//     the momentum and kinetic energy of the next draw.
+//     The metric is fixed within a draw, so every other velocity the
+//     U-turn checks need is one of those, kept where its momentum is kept:
+//     the two trajectory edges' in `edge_v` (the new point's is written
+//     there), each checkpoint's in `ckpt_v` beside `ckpt_p` (pushed from the
+//     new point's, the slot-(D-1) stash from its edge's).  A kept velocity
+//     is bitwise the one the same arithmetic would compute again.
 //
-// The design is the simple one: one warp per chain and four chains per
-// block, lanes striding over the coordinates (any dim; K1 stops at 256),
-// neighbouring lanes on neighbouring addresses.  Every row stays in device
-// memory and is updated in place; each launch loads only the rows its half
-// touches.  The scalars of a chain are loaded into registers in every lane
-// (lane-uniform), every decision is computed in every lane from the same
-// values, and reductions are xor butterflies (warp.cuh), so no lane waits
-// for another and lane 0 alone writes the scalars back.  A done chain
-// hands the log density its committed position and is otherwise left
-// alone.  The step's uniforms come from the in-kernel Threefry
-// (threefry.cuh), bit-equal to leapfrog_uniforms; the adaptation is
-// adapt.cuh's arithmetic in its strided form.  It is built without FMA
-// contraction (ops/build.py), so it rounds as the plain version does.
+// Every row stays in device memory and is updated in place; each launch
+// loads only the rows its half touches, and a thread owns the same
+// coordinates in every loop.  The scalars of a chain are loaded into
+// registers in every thread, every decision is computed in every thread
+// from the same values and the same reductions (group.cuh), so no thread
+// waits for another to decide, and one thread writes the scalars back.  A
+// done chain hands the log density its committed position and is
+// otherwise left alone (its block stages nothing).  The step's uniforms
+// come from the in-kernel Threefry (threefry.cuh), bit-equal to
+// leapfrog_uniforms; the adaptation is adapt.cuh's arithmetic in its
+// strided form.  It is built without FMA contraction (ops/build.py), so it
+// rounds as the plain version does.
 #include <cuda_runtime.h>
 
 #include "adapt.cuh"
+#include "group.cuh"
 #include "lowrank.cuh"
 #include "threefry.cuh"
 #include "warp.cuh"
 
 namespace nutpie {
 
-constexpr int kStepWarps = 4;
-constexpr int kStepThreads = kStepWarps * kLanes;
-// One block per SM at least: without it the compiler caps the low-rank
-// finish at 96 registers (float32) and spills.
+// chains (warps) per block of the diagonal instantiations
+constexpr int kStepWarps = WarpGroup::kChainsPerBlock;
+constexpr int kStepThreads = WarpGroup::kBlockThreads;
+constexpr int kLrThreads = BlockGroup<kLrWarps>::kBlockThreads;
+// One block per SM at least: with the thread count alone the compiler
+// capped a finish's registers low enough to spill.
 constexpr int kStepMinBlocks = 1;
+
+template <bool LR>
+struct StepGroup {
+  using type = WarpGroup;
+};
+template <>
+struct StepGroup<true> {
+  using type = BlockGroup<kLrWarps>;
+};
+
+// the low-rank block's dynamic shared memory (LrLayout)
+extern __shared__ __align__(128) unsigned char step_smem[];
 
 // Device pointers of one launch, as the wrapper passes them (step_kernel.py
 // StepPtrs).  The state tensors are updated in place.
@@ -95,6 +123,11 @@ struct StepPtrs {
   void* minv_out;           // [C, L, dim] the draws' inverse mass, or null
   void* eig_out;            // [C, L, R] the draws' metric eigenvalues, or null
 };
+
+template <typename T>
+__host__ __device__ inline LrLayout lr_layout(const MkConfig& c) {
+  return LrLayout(c.dim, c.lr_rank, int(sizeof(T)), c.lr_streamed != 0);
+}
 
 template <typename T>
 struct StepArgs {
@@ -141,19 +174,33 @@ struct StepArgs {
         grad_out(static_cast<T*>(p.grad_out)), minv_out(static_cast<T*>(p.minv_out)),
         eig_out(static_cast<T*>(p.eig_out)) {}
 
-  __device__ __forceinline__ LowRank<T> metric(int chain, int lane) const {
-    return LowRank<T>(lr_basis, lr_log_eigs, size_t(chain), cfg.dim, cfg.lr_rank, lane);
+  // The block's view of the low-rank metric (its barriers initialized).
+  template <typename G>
+  __device__ __forceinline__ LowRank<T> metric(const G& g) const {
+    return LowRank<T>(cfg, lr_basis, lr_log_eigs, step_smem, lr_layout<T>(cfg), g.warp(),
+                      g.lane());
   }
 };
 
-__device__ __forceinline__ int chain_of_warp() {
-  return blockIdx.x * kStepWarps + threadIdx.x / kLanes;
+// The first chain after `chain` in the block's order (every gridDim.x-th)
+// that is not done, among the next 32; -1 if none.  Every warp reads the
+// same flags, so every thread gets the same chain.
+__device__ __forceinline__ int next_active(const int32_t* ints, int chain, int n_chains,
+                                           int lane) {
+  const int stride = int(gridDim.x);
+  const int cand = chain + (lane + 1) * stride;
+  const bool active = cand < n_chains && ints[size_t(cand) * N_INT + I_DONE] == 0;
+  const unsigned ahead = __ballot_sync(kFullMask, active);
+  return ahead ? chain + __ffs(ahead) * stride : -1;
 }
 
-// The coordinates of the block of 32 that starts at `base` (the last block
-// may be short).
-__device__ __forceinline__ int block_len(int dim, int base) {
-  return dim - base < kLanes ? dim - base : kLanes;
+template <typename T, bool LR>
+__device__ __forceinline__ typename StepGroup<LR>::type make_group(const MkConfig& cfg) {
+  if constexpr (LR) {
+    return BlockGroup<kLrWarps>(step_smem + lr_layout<T>(cfg).red);
+  } else {
+    return WarpGroup();
+  }
 }
 
 // A new draw's trajectory rows at coordinate i: every edge, the proposals
@@ -182,26 +229,36 @@ __device__ __forceinline__ void reset_rows(T* v, int dim, int i, T p0) {
 // basis), whose velocity coefficients the second pass gathers while it
 // writes the rows, and in a third the velocity v(p0), kept for both edges
 // (ev), and the kinetic energy p0 . v(p0).
-template <typename T, bool LR>
-__device__ __forceinline__ void start_draw_strided(T* fl, int* in,
+template <typename T, bool LR, typename G>
+__device__ __forceinline__ void start_draw_strided(const G& g, T* fl, int* in,
                                                    const MkConfig& cfg,
-                                                   const Sched& s, int lane,
-                                                   T* v, const T* im,
+                                                   const Sched& s, T* v, const T* im,
                                                    const T* af, const T* gauss,
-                                                   T jitter_u, const LowRank<T>& m, T* ev) {
+                                                   T jitter_u, LowRank<T>& m, T* ev) {
   const int dim = cfg.dim;
   T ke[1] = {T(0)};
   if constexpr (LR) {
-    T c = T(0);
-    for (int base = 0; base < dim; base += kLanes) {
+    // staged, the tiles may be receiving the next chain's basis: this
+    // chain's is staged again, and the next one's set out again after
+    const int lane = g.lane();
+    T acc[kHalf] = {};
+    m.use(m.chain);
+    m.rewind();
+    for (int base = g.warp() * kLanes; base < dim; base += G::kThreads) {
+      const int t = base / kLanes;
       const int i = base + lane;
-      lr_project_block(m, base, block_len(dim, base), i < dim ? gauss[i] : T(0), lane, c);
+      m.project(m.tile(t), t, i < dim ? gauss[i] : T(0), acc);
+      m.release(t);
     }
-    c = m.momentum_factor() * c;
-    T cv = T(0);
-    for (int base = 0; base < dim; base += kLanes) {
+    m.rewind();
+    m.set_coefficients(g, acc, m.momentum_factor());
+#pragma unroll
+    for (int k = 0; k < kHalf; ++k) acc[k] = T(0);
+    for (int base = g.warp() * kLanes; base < dim; base += G::kThreads) {
+      const int t = base / kLanes;
       const int i = base + lane;
-      const T uc = lr_expand(m, i, c);
+      const T* u = m.tile(t);
+      const T uc = m.expand(u, t, i);
       T wi = T(0);
       if (i < dim) {
         const T si = sqrt(im[i]);
@@ -209,12 +266,16 @@ __device__ __forceinline__ void start_draw_strided(T* fl, int* in,
         reset_rows(v, dim, i, p0);
         wi = si * p0;
       }
-      lr_project_block(m, base, block_len(dim, base), wi, lane, cv);
+      m.project(u, t, wi, acc);
+      m.release(t);
     }
-    cv = m.velocity_factor() * cv;
-    for (int base = 0; base < dim; base += kLanes) {
+    m.rewind();
+    m.set_coefficients(g, acc, m.velocity_factor());
+    for (int base = g.warp() * kLanes; base < dim; base += G::kThreads) {
+      const int t = base / kLanes;
       const int i = base + lane;
-      const T uc = lr_expand(m, i, cv);
+      const T uc = m.expand(m.tile(t), t, i);
+      m.release(t);
       if (i < dim) {
         const T si = sqrt(im[i]);
         const T p0 = v[V_P_MINUS * dim + i];
@@ -224,15 +285,16 @@ __device__ __forceinline__ void start_draw_strided(T* fl, int* in,
         ke[0] += p0 * vi;
       }
     }
+    m.prefetch();
   } else {
-    for (int i = lane; i < dim; i += kLanes) {
+    for (int i = g.rank; i < dim; i += G::kThreads) {
       const T mi = im[i];
       const T p0 = gauss[i] / sqrt(mi);
       ke[0] += p0 * (mi * p0);
       reset_rows(v, dim, i, p0);
     }
   }
-  warp_sum(ke);
+  g.sum(ke);
   const bool tuning = in[I_DRAW_IDX] < s.num_tune;
   T eps = exp(tuning ? af[AF_LOG_STEP] : af[AF_LOG_STEP_BAR]);
   if (cfg.has_jitter) {
@@ -264,36 +326,41 @@ __device__ __forceinline__ void start_draw_strided(T* fl, int* in,
   in[I_TURNING_SUB] = 0;
 }
 
-// The step up to the log density (leapfrog_begin in nuts.py).
-template <typename T, bool LR>
-__global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_begin(StepArgs<T> a) {
+// The step up to the log density (leapfrog_begin in nuts.py) of one chain.
+template <typename T, bool LR, typename G>
+__device__ __forceinline__ void begin_chain(const StepArgs<T>& a, int chain, const G& g,
+                                            LowRank<T>& m) {
   const MkConfig& cfg = a.cfg;
-  const int chain = chain_of_warp();
-  if (chain >= cfg.n_chains) return;  // the whole warp
-  const int lane = threadIdx.x & (kLanes - 1);
+  const int lane = g.lane();
   const int dim = cfg.dim;
   const int D = cfg.depth_slots;
   const int32_t* in = a.ints + size_t(chain) * N_INT;
   const T* v = a.vecs + size_t(chain) * N_VEC * dim;
   T* zn = a.z_new + size_t(chain) * dim;
-  if (in[I_DONE]) {
+  const bool done = in[I_DONE];
+  int next = -1;
+  if constexpr (LR) next = next_active(a.ints, chain, cfg.n_chains, lane);
+  if (done) {
     // a done chain hands the log density its committed position (finite)
-    for (int i = lane; i < dim; i += kLanes) zn[i] = v[V_POSITION * dim + i];
+    for (int i = g.rank; i < dim; i += G::kThreads) zn[i] = v[V_POSITION * dim + i];
     return;
   }
+  // the basis sets out for shared memory (unless it is on its way) before
+  // anything else is read
+  if constexpr (LR) m.begin_chain(chain, next);
   const int total_steps = in[I_TOTAL_STEPS];
   const bool at_start = in[I_N_LEAF] == 0;
   const int old_direction = in[I_DIRECTION];
 
-  // uniform(fold_in(fold_in(key, 3), total_steps), (3,)): lane l < 3 hashes
-  // element l
+  // uniform(fold_in(fold_in(key, 3), total_steps), (3,)): lane l < 3 of
+  // each warp hashes element l
   float u = 0.0f;
   if (lane < 3) {
     uint32_t k1 = uint32_t(a.key[2 * chain]), k2 = uint32_t(a.key[2 * chain + 1]);
     fold_in(k1, k2, 3u);
     fold_in(k1, k2, uint32_t(total_steps));
     u = uniform3_element(k1, k2, uint32_t(lane));
-    a.u3[3 * size_t(chain) + lane] = u;
+    if (g.rank < 3) a.u3[3 * size_t(chain) + lane] = u;
   }
   const float u0 = __shfl_sync(kFullMask, u, 0);
   const int direction = at_start ? (T(u0) < T(0.5) ? -1 : 1) : old_direction;
@@ -310,11 +377,11 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_begin(StepA
   if constexpr (LR) {
     // the drift's velocity: its coefficients from w = s * p_half, then
     // z_new = z_e + eps * s (w + U c); the stash keeps its edge's velocity
-    const LowRank<T> m = a.metric(chain, lane);
     const T* ev = a.edge_v + (size_t(chain) * 2 + (fwd ? 1 : 0)) * dim;
     T* stash_v = a.ckpt_v + (size_t(chain) * D + (D - 1)) * dim;
-    T c = T(0);
-    for (int base = 0; base < dim; base += kLanes) {
+    T acc[kHalf] = {};
+    for (int base = g.warp() * kLanes; base < dim; base += G::kThreads) {
+      const int t = base / kLanes;
       const int i = base + lane;
       T wi = T(0);
       if (i < dim) {
@@ -325,12 +392,16 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_begin(StepA
         }
         wi = sqrt(im[i]) * (p_e + half_eps * ge[i]);
       }
-      lr_project_block(m, base, block_len(dim, base), wi, lane, c);
+      m.project(m.tile(t), t, wi, acc);
+      m.release(t);
     }
-    c = m.velocity_factor() * c;
-    for (int base = 0; base < dim; base += kLanes) {
+    m.rewind();
+    m.set_coefficients(g, acc, m.velocity_factor());
+    for (int base = g.warp() * kLanes; base < dim; base += G::kThreads) {
+      const int t = base / kLanes;
       const int i = base + lane;
-      const T uc = lr_expand(m, i, c);
+      const T uc = m.expand(m.tile(t), t, i);
+      m.release(t);
       if (i < dim) {
         const T si = sqrt(im[i]);
         const T p_half = pe[i] + half_eps * ge[i];
@@ -340,8 +411,9 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_begin(StepA
         moved = moved || (z != z_e);
       }
     }
+    m.prefetch();
   } else {
-    for (int i = lane; i < dim; i += kLanes) {
+    for (int i = g.rank; i < dim; i += G::kThreads) {
       const T p_e = pe[i];
       if (at_start) stash[i] = p_e;
       const T z_e = ze[i];
@@ -353,20 +425,39 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_begin(StepA
   }
   // an unintegrable step (eps below the position's resolution) is a
   // divergence; finish reads the flag
-  const bool stagnant = !__any_sync(kFullMask, moved);
-  if (lane == 0) {
+  const bool stagnant = !g.any(moved);
+  if (g.leader()) {
     a.stagnant[chain] = stagnant;
     a.ints[size_t(chain) * N_INT + I_DIRECTION] = direction;
   }
 }
 
-// The step after the log density (leapfrog_finish in nuts.py).
+// The diagonal instantiation runs one chain per warp; the low-rank one runs
+// persistent blocks, block b the chains b, b + gridDim.x, ... in turn.
 template <typename T, bool LR>
-__global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(StepArgs<T> a) {
+__global__ void __launch_bounds__(StepGroup<LR>::type::kBlockThreads, kStepMinBlocks)
+    step_begin(StepArgs<T> a) {
+  using G = typename StepGroup<LR>::type;
+  const G g = make_group<T, LR>(a.cfg);
+  if constexpr (LR) {
+    LowRank<T> m = a.metric(g);
+    for (int chain = blockIdx.x; chain < a.cfg.n_chains; chain += gridDim.x) {
+      begin_chain<T, true>(a, chain, g, m);
+    }
+  } else {
+    const int chain = G::chain();
+    if (chain >= a.cfg.n_chains) return;  // the whole warp
+    LowRank<T> m;
+    begin_chain<T, false>(a, chain, g, m);
+  }
+}
+
+// The step after the log density (leapfrog_finish in nuts.py) of one
+// chain.
+template <typename T, bool LR, typename G>
+__device__ __forceinline__ void finish_chain(const StepArgs<T>& a, int chain, const G& g,
+                                             LowRank<T>& m) {
   const MkConfig& cfg = a.cfg;
-  const int chain = chain_of_warp();
-  if (chain >= cfg.n_chains) return;  // the whole warp
-  const int lane = threadIdx.x & (kLanes - 1);
   const int dim = cfg.dim;
   const int D = cfg.depth_slots;
   const int L = cfg.chunk_len;
@@ -374,7 +465,12 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
   int in[N_INT];
 #pragma unroll
   for (int k = 0; k < N_INT; ++k) in[k] = a.ints[size_t(chain) * N_INT + k];
+  int next = -1;
+  if constexpr (LR) next = next_active(a.ints, chain, cfg.n_chains, g.lane());
   if (in[I_DONE]) return;
+  // the low-rank branch's basis sets out for shared memory (unless it is on
+  // its way)
+  if constexpr (LR) m.begin_chain(chain, next);
 #pragma unroll
   for (int k = 0; k < N_FLT; ++k) fl[k] = a.flts[size_t(chain) * N_FLT + k];
   T af[N_ADAPT_FLT];
@@ -393,8 +489,7 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
   const T u1 = T(a.u3[3 * size_t(chain) + 1]);
   const T u2 = T(a.u3[3 * size_t(chain) + 2]);
   const bool stagnant = a.stagnant[chain] != 0;
-  // the low-rank branch's metric and kept velocities
-  const LowRank<T> m = a.metric(chain, lane);
+  // the low-rank branch's kept velocities
   T* ev = a.edge_v + size_t(chain) * 2 * dim;  // p_minus's, then p_plus's
   T* cv = a.ckpt_v + size_t(chain) * D * dim;  // each ckpt_p row's
 
@@ -417,25 +512,31 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
   T ke[1] = {T(0)};
   if constexpr (LR) {
     // v_new = s (w + U c), w = s p_new, kept as the edge's velocity
-    T c = T(0);
-    for (int base = 0; base < dim; base += kLanes) {
+    const int lane = g.lane();
+    T acc[kHalf] = {};
+    for (int base = g.warp() * kLanes; base < dim; base += G::kThreads) {
+      const int t = base / kLanes;
       const int i = base + lane;
       T wi = T(0);
       if (i < dim) {
         const T p_half = pe[i] + half_eps * ge[i];
-        const T g = gn[i];
-        const T p = p_half + half_eps * g;
+        const T gi = gn[i];
+        const T p = p_half + half_eps * gi;
         ze[i] = zn[i];
         pe[i] = p;
-        ge[i] = g;
+        ge[i] = gi;
         wi = sqrt(im[i]) * p;
       }
-      lr_project_block(m, base, block_len(dim, base), wi, lane, c);
+      m.project(m.tile(t), t, wi, acc);
+      m.release(t);
     }
-    c = m.velocity_factor() * c;
-    for (int base = 0; base < dim; base += kLanes) {
+    m.rewind();
+    m.set_coefficients(g, acc, m.velocity_factor());
+    for (int base = g.warp() * kLanes; base < dim; base += G::kThreads) {
+      const int t = base / kLanes;
       const int i = base + lane;
-      const T uc = lr_expand(m, i, c);
+      const T uc = m.expand(m.tile(t), t, i);
+      m.release(t);
       if (i < dim) {
         const T si = sqrt(im[i]);
         const T p = pe[i];
@@ -444,18 +545,19 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
         ke[0] += p * vn;
       }
     }
+    m.prefetch();
   } else {
-    for (int i = lane; i < dim; i += kLanes) {
+    for (int i = g.rank; i < dim; i += G::kThreads) {
       const T p_half = pe[i] + half_eps * ge[i];
-      const T g = gn[i];
-      const T p = p_half + half_eps * g;
+      const T gi = gn[i];
+      const T p = p_half + half_eps * gi;
       ke[0] += p * (im[i] * p);
       ze[i] = zn[i];
       pe[i] = p;
-      ge[i] = g;
+      ge[i] = gi;
     }
   }
-  warp_sum(ke);
+  g.sum(ke);
 
   // ---------------------------------------------- leaf processing
   const T h = -logp_new + T(0.5) * ke[0];
@@ -487,7 +589,7 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
   const int top_c = top < 0 ? 0 : (top > D - 1 ? D - 1 : top);
   const int top_after = odd ? top + 1 : top;
   const int tz = __ffs(n) - 1;
-  for (int i = lane; i < dim; i += kLanes) {
+  for (int i = g.rank; i < dim; i += G::kThreads) {
     const T p = pe[i];
     const T rs = rho_sub[i];
     if (m_take) {
@@ -509,21 +611,21 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
       T dots[2] = {T(0), T(0)};
       if constexpr (LR) {
         const T* cvs = cv + slot * dim;
-        for (int i = lane; i < dim; i += kLanes) {
+        for (int i = g.rank; i < dim; i += G::kThreads) {
           const T rho_ab = rho_sub[i] - cs[slot * dim + i];
           dots[0] += rho_ab * cvs[i];
           dots[1] += rho_ab * ve[i];
         }
       } else {
         const T* cps = cp + slot * dim;
-        for (int i = lane; i < dim; i += kLanes) {
+        for (int i = g.rank; i < dim; i += G::kThreads) {
           const T mi = im[i];
           const T rho_ab = rho_sub[i] - cs[slot * dim + i];
           dots[0] += rho_ab * (cps[i] * mi);
           dots[1] += rho_ab * (mi * pe[i]);
         }
       }
-      warp_sum(dots);
+      g.sum(dots);
       turning_here = turning_here || dots[0] <= T(0) || dots[1] <= T(0);
     }
   }
@@ -554,7 +656,7 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
   if (merge_ok) {
     T* rho = v + V_RHO * dim;
     const T* edge_old = cp + (D - 1) * dim;
-    for (int i = lane; i < dim; i += kLanes) {
+    for (int i = g.rank; i < dim; i += G::kThreads) {
       if (m_take2) {
         pz[i] = sz[i];
         pg[i] = sg[i];
@@ -592,7 +694,7 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
   }
   bool turning_traj = false;
   if (check_traj) {
-    warp_sum(dots);
+    g.sum(dots);
     for (int k = 0; k < 6; ++k) turning_traj = turning_traj || dots[k] <= T(0);
   }
 
@@ -607,7 +709,7 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
   const bool next_doubling = merge_ok && !draw_done;
   if (next_doubling) {
     in[I_DEPTH] = in_depth + 1;
-    for (int i = lane; i < dim; i += kLanes) rho_sub[i] = T(0);
+    for (int i = g.rank; i < dim; i += G::kThreads) rho_sub[i] = T(0);
   }
   in[I_N_LEAF] = next_doubling ? 0 : n;
   fl[F_LOGW_SUB] = next_doubling ? -T(INFINITY) : logw_sub_new;
@@ -623,7 +725,7 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
     const int n_leaves = in[I_N_LEAVES];
     const T accept_mean = fl[F_SUM_ACC] / T(n_leaves > 1 ? n_leaves : 1);
     const size_t out_row = size_t(chain) * L + idx_c;
-    if (lane == 0) {
+    if (g.leader()) {
       T* row = a.scal_out + out_row * N_SCALAR;
       row[S_LOGP] = fl[F_PROP_LOGP];
       row[S_ENERGY] = fl[F_PROP_ENERGY];
@@ -644,27 +746,28 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
     T* pos_row = a.pos_out + out_row * dim;
     T* grad_row = a.grad_out ? a.grad_out + out_row * dim : nullptr;
     T* minv_row = a.minv_out ? a.minv_out + out_row * dim : nullptr;
-    for (int i = lane; i < dim; i += kLanes) {
+    for (int i = g.rank; i < dim; i += G::kThreads) {
       const T z = pz[i];
-      const T g = pg[i];
+      const T gi = pg[i];
       pos_row[i] = z;
       v[V_POSITION * dim + i] = z;
-      v[V_GRADIENT * dim + i] = g;
-      if (grad_row) grad_row[i] = g;
+      v[V_GRADIENT * dim + i] = gi;
+      if (grad_row) grad_row[i] = gi;
       if (minv_row) minv_row[i] = im[i];
     }
     if constexpr (LR) {
-      if (a.eig_out && lane < m.R) a.eig_out[out_row * m.R + lane] = exp(m.log_eig);
+      // thread r < R is lane r of the first warp
+      if (a.eig_out && g.rank < m.R) a.eig_out[out_row * m.R + g.rank] = exp(m.log_eig);
     }
     fl[F_LOGP] = fl[F_PROP_LOGP];
     // adaptation (tuning draws only; skipped when frozen)
     if (in_draw_idx < s.num_tune && !cfg.adapt_frozen) {
-      diag_adapt_update_strided<T>(cfg, s, lane, av, af, pz, pg, in_draw_idx,
-                                   diverging, accept_mean);
+      diag_adapt_update_strided<T>(g, cfg, s, av, af, pz, pg, in_draw_idx, diverging,
+                                   accept_mean);
       // at the end of tuning, freeze the step size at its averaged value
       if (in_draw_idx == s.num_tune - 1) af[AF_LOG_STEP] = af[AF_LOG_STEP_BAR];
-      __syncwarp();
-      if (lane == 0) {
+      g.sync();
+      if (g.leader()) {
 #pragma unroll
         for (int k = 0; k < N_ADAPT_FLT; ++k) {
           a.adapt_flts[size_t(chain) * N_ADAPT_FLT + k] = af[k];
@@ -678,19 +781,71 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks) step_finish(Step
     if (!done) {
       const int nidx = idx + 1 > L - 1 ? L - 1 : (idx + 1 < 0 ? 0 : idx + 1);
       const size_t r = size_t(chain) * L + nidx;
-      start_draw_strided<T, LR>(fl, in, cfg, s, lane, v, im, af, a.mom + r * dim,
-                                a.jit[r], m, ev);
+      start_draw_strided<T, LR>(g, fl, in, cfg, s, v, im, af, a.mom + r * dim, a.jit[r], m,
+                                ev);
     }
   }
 
-  // every lane has read the chain's scalars; lane 0 writes them back
-  __syncwarp();
-  if (lane == 0) {
+  // every thread has read the chain's scalars; one writes them back
+  g.sync();
+  if (g.leader()) {
 #pragma unroll
     for (int k = 0; k < N_FLT; ++k) a.flts[size_t(chain) * N_FLT + k] = fl[k];
 #pragma unroll
     for (int k = 0; k < N_INT; ++k) a.ints[size_t(chain) * N_INT + k] = in[k];
   }
+}
+
+template <typename T, bool LR>
+__global__ void __launch_bounds__(StepGroup<LR>::type::kBlockThreads, kStepMinBlocks)
+    step_finish(StepArgs<T> a) {
+  using G = typename StepGroup<LR>::type;
+  const G g = make_group<T, LR>(a.cfg);
+  if constexpr (LR) {
+    LowRank<T> m = a.metric(g);
+    for (int chain = blockIdx.x; chain < a.cfg.n_chains; chain += gridDim.x) {
+      finish_chain<T, true>(a, chain, g, m);
+    }
+  } else {
+    const int chain = G::chain();
+    if (chain >= a.cfg.n_chains) return;  // the whole warp
+    LowRank<T> m;
+    finish_chain<T, false>(a, chain, g, m);
+  }
+}
+
+// Raise a low-rank kernel's dynamic shared-memory cap to `bytes` before the
+// first launch that needs them (every launch of a run asks for the same
+// bytes, so once per instantiation and device).
+template <typename T, bool Begin>
+cudaError_t allow_smem(size_t bytes) {
+  constexpr int kMaxDevices = 64;
+  static size_t cap[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && bytes <= cap[dev]) return cudaSuccess;
+  if (Begin) {
+    err = cudaFuncSetAttribute(step_begin<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(bytes));
+  } else {
+    err = cudaFuncSetAttribute(step_finish<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(bytes));
+  }
+  if (err == cudaSuccess && dev < kMaxDevices) cap[dev] = bytes;
+  return err;
+}
+
+// The low-rank plan of `cfg` against what a launch and a bulk copy need
+// (16-byte aligned source and size).
+template <typename T>
+int check_lr_plan(const MkConfig& cfg, const void* basis) {
+  const bool aligned = reinterpret_cast<uintptr_t>(basis) % 16 == 0 &&
+                       (size_t(cfg.dim) * cfg.lr_rank * sizeof(T)) % 16 == 0;
+  if (cfg.lr_grid < 1 || cfg.lr_grid > cfg.n_chains || (cfg.lr_tma && !aligned)) {
+    return int(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 template <typename T>
@@ -702,23 +857,31 @@ int launch(bool begin, const MkConfig* cfg, const StepPtrs* p, void* stream) {
     return int(cudaErrorInvalidValue);
   }
   const StepArgs<T> a(*cfg, *p);
-  const dim3 grid((cfg->n_chains + kStepWarps - 1) / kStepWarps);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (begin) {
-    if (R > 0) step_begin<T, true><<<grid, kStepThreads, 0, s>>>(a);
-    else step_begin<T, false><<<grid, kStepThreads, 0, s>>>(a);
-  } else {
-    if (R > 0) step_finish<T, true><<<grid, kStepThreads, 0, s>>>(a);
+  if (R == 0) {
+    const dim3 grid((cfg->n_chains + kStepWarps - 1) / kStepWarps);
+    if (begin) step_begin<T, false><<<grid, kStepThreads, 0, s>>>(a);
     else step_finish<T, false><<<grid, kStepThreads, 0, s>>>(a);
+    return int(cudaGetLastError());
   }
+  // low-rank: persistent blocks, each running its share of the chains
+  const int code = check_lr_plan<T>(*cfg, p->lr_basis);
+  if (code != 0) return code;
+  const size_t smem = lr_layout<T>(*cfg).bytes;
+  const cudaError_t err = begin ? allow_smem<T, true>(smem) : allow_smem<T, false>(smem);
+  if (err != cudaSuccess) return int(err);
+  if (begin) step_begin<T, true><<<cfg->lr_grid, kLrThreads, smem, s>>>(a);
+  else step_finish<T, true><<<cfg->lr_grid, kLrThreads, smem, s>>>(a);
   return int(cudaGetLastError());
 }
 
 // What was compiled: registers and local (spill) bytes per thread of
-// step_begin and step_finish, the threads per block, then the same four
-// of the low-rank instantiations.
+// step_begin and step_finish, the threads per block, then the same five of
+// the low-rank instantiations, and for the low-rank plan in `cfg` (lr_rank
+// > 0; zeros otherwise) the dynamic shared-memory bytes of a block and the
+// blocks of each half resident on an SM.
 template <typename T>
-int geometry(int32_t* out) {
+int geometry(const MkConfig* cfg, int32_t* out) {
   cudaFuncAttributes f[4];
   cudaError_t err = cudaFuncGetAttributes(&f[0], step_begin<T, false>);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&f[1], step_finish<T, false>);
@@ -734,6 +897,30 @@ int geometry(int32_t* out) {
   out[6] = int32_t(f[2].localSizeBytes);
   out[7] = f[3].numRegs;
   out[8] = int32_t(f[3].localSizeBytes);
+  out[9] = kLrThreads;
+  out[10] = out[11] = out[12] = 0;
+  if (cfg == nullptr || cfg->lr_rank < 1) return 0;
+  // the plan as a launch checks it, without a basis to align
+  MkConfig c = *cfg;
+  c.lr_tma = 0;
+  const int code = check_lr_plan<T>(c, nullptr);
+  if (code != 0) return code;
+  const size_t smem = lr_layout<T>(c).bytes;
+  int blocks[2] = {0, 0};
+  err = allow_smem<T, true>(smem);
+  if (err == cudaSuccess) err = allow_smem<T, false>(smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[0], step_begin<T, true>,
+                                                        kLrThreads, smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[1], step_finish<T, true>,
+                                                        kLrThreads, smem);
+  }
+  if (err != cudaSuccess) return int(err);
+  out[10] = int32_t(smem);
+  out[11] = blocks[0];
+  out[12] = blocks[1];
   return 0;
 }
 
@@ -763,9 +950,30 @@ int nutpie_step_finish_f64(const nutpie::MkConfig* cfg, const nutpie::StepPtrs* 
   return nutpie::launch<double>(false, cfg, p, stream);
 }
 
-int nutpie_step_geometry_f32(int32_t* out) { return nutpie::geometry<float>(out); }
+int nutpie_step_geometry_f32(const nutpie::MkConfig* cfg, int32_t* out) {
+  return nutpie::geometry<float>(cfg, out);
+}
 
-int nutpie_step_geometry_f64(int32_t* out) { return nutpie::geometry<double>(out); }
+int nutpie_step_geometry_f64(const nutpie::MkConfig* cfg, int32_t* out) {
+  return nutpie::geometry<double>(cfg, out);
+}
+
+// The current device's shared memory a block may opt in to, shared memory
+// per SM, the SMs, and the shared memory the system keeps per block, in
+// that order.
+int nutpie_step_device(int32_t* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const cudaDeviceAttr attrs[4] = {
+      cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+      cudaDevAttrMultiProcessorCount, cudaDevAttrReservedSharedMemoryPerBlock};
+  for (int k = 0; k < 4 && err == cudaSuccess; ++k) {
+    int value = 0;
+    err = cudaDeviceGetAttribute(&value, attrs[k], dev);
+    out[k] = value;
+  }
+  return int(err);
+}
 
 const char* nutpie_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -2,9 +2,9 @@
 
 ``MkConfig`` mirrors the struct of the same name in ``csrc/layout.cuh``,
 the static configuration both kernels take (the radon sizes are used by
-the chunk kernel only and stay 0 for the step kernel, the low-rank
-metric's rank ``lr_rank`` is the step kernel's and stays 0 for the chunk
-kernel).  The schedule
+the chunk kernel only and stay 0 for the step kernel; the low-rank
+metric's rank ``lr_rank`` and its launch plan, ``lr_streamed`` to
+``lr_grid``, are the step kernel's and stay 0 for the chunk kernel).  The schedule
 scalars travel as one int32 tensor on the device, so a ``depth_cap`` that
 lives on the device needs no host round trip.
 """
@@ -49,6 +49,9 @@ class MkConfig(ctypes.Structure):
         ("n_seg", ctypes.c_int32),
         ("obs_rows", ctypes.c_int32),
         ("lr_rank", ctypes.c_int32),
+        ("lr_streamed", ctypes.c_int32),
+        ("lr_tma", ctypes.c_int32),
+        ("lr_grid", ctypes.c_int32),
     ]
 
 
@@ -56,7 +59,7 @@ def sampler_config(cfg: NutsConfig, n_chains: int, dim: int, depth_slots: int,
                    chunk_len: int, adapt_frozen: bool, **model_sizes) -> MkConfig:
     """``MkConfig`` from the sampler's configuration; ``model_sizes`` sets
     the radon fields (``n_counties``, ``n_obs``, ``n_seg``, ``obs_rows``)
-    or the step kernel's ``lr_rank``."""
+    or the step kernel's ``lr_*`` fields."""
     ac = cfg.adapt
     return MkConfig(
         max_energy_error=cfg.max_energy_error,

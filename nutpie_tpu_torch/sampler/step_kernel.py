@@ -26,9 +26,15 @@ The plain version is the pair ``nuts.leapfrog_begin`` /
 
 Under low-rank adaptation the state carries the metric (``lr_basis [C,
 dim, R]``, ``lr_log_eigs [C, R]``, R <= 32) and the kernel takes its
-low-rank branch; R travels in ``MkConfig.lr_rank``, 0 for the diagonal
-metric.  The commit also writes the optional buffers the chunk has
-(``gradient``, ``mass_matrix_inv``, ``mass_matrix_eigvals``).
+low-rank branch: a block of ``LR_WARPS`` warps per chain with the chain's
+basis in shared memory.  ``low_rank_plan`` decides how, from the shapes
+and the card's shared memory, before anything runs: the whole basis
+staged once per launch where it fits, or streamed through a ring of tiles
+where it does not; by TMA bulk copies where a chain's basis is 16-byte
+aligned, by the warps' own loads where not.  R and the plan travel in
+``MkConfig`` (``lr_rank`` 0 for the diagonal metric).  The commit also
+writes the optional buffers the chunk has (``gradient``,
+``mass_matrix_inv``, ``mass_matrix_eigvals``).
 
 There is no fallback between the two.  ``launches`` counts kernel
 launches (two per machine step) and nothing else.
@@ -37,6 +43,7 @@ launches (two per machine step) and nothing else.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -77,6 +84,94 @@ def unsupported(cfg: NutsConfig) -> Optional[str]:
 
 # the largest low-rank metric the kernel takes (one rank per lane)
 MAX_RANK = 32
+# the low-rank instantiations (csrc/lowrank.cuh: kLrWarps, kTileRows,
+# kRingStages): warps per chain, basis rows per tile (one warp's block of
+# coordinates), and the ring slots per warp of the streamed form (a copy in
+# flight while the warp reads a tile)
+LR_WARPS = 8
+TILE_ROWS = 32
+RING_STAGES = 2
+# threads an SM holds
+SM_THREADS = 2048
+
+
+def _align(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
+def lr_smem_bytes(dim: int, rank: int, itemsize: int, streamed: bool) -> int:
+    """Dynamic shared memory of a low-rank block, as ``LrLayout`` in
+    ``csrc/lowrank.cuh`` lays it out (chip_smoke's build phase holds the
+    two equal on the card): the barriers (one per tile staged, one per ring
+    slot streamed), the reductions' scratch and each warp's coefficients,
+    then the tiles (the whole basis staged, ``LR_WARPS * RING_STAGES``
+    slots streamed)."""
+    n_tiles = -(-dim // TILE_ROWS)
+    n_bars = LR_WARPS * RING_STAGES if streamed else n_tiles
+    red = _align(n_bars * 8, 16)
+    coef = red + LR_WARPS * 32 * itemsize
+    tiles = _align(coef + LR_WARPS * 32 * itemsize, 128)
+    if streamed:
+        return tiles + LR_WARPS * RING_STAGES * TILE_ROWS * rank * itemsize
+    return tiles + _align(dim * rank * itemsize, 16)
+
+
+@dataclass(frozen=True)
+class LowRankPlan:
+    """How the low-rank instantiations run one launch (``low_rank_plan``)."""
+
+    form: str           # "staged": read once a launch; "streamed": twice an application
+    copy: str           # "tma": bulk copies; "loads": the warps' own loads
+    warps: int          # warps per chain (a block runs one chain at a time)
+    stages: int         # ring slots per warp (streamed; 0 staged)
+    basis_bytes: int    # one chain's basis
+    smem_bytes: int     # dynamic shared memory of a block
+    blocks_per_sm: int  # resident blocks an SM's shared memory and threads allow
+    grid: int           # persistent blocks of a launch: every resident slot, at most a chain each
+    chains_per_block: int  # the most chains a block runs in turn
+
+
+def low_rank_plan(n_chains: int, dim: int, rank: int, itemsize: int, smem_per_block: int,
+                  sm_count: int, smem_per_sm: int, reserved_per_block: int = 0,
+                  aligned: bool = True) -> LowRankPlan:
+    """The low-rank launch for these shapes on a card with this shared
+    memory (bytes a block may opt in to, per SM, and kept by the system per
+    block) and these SMs: the basis staged whole if it fits a block beside
+    the barriers and scratch, else streamed through a ring of
+    ``RING_STAGES`` tiles per warp; bulk copies where a chain's basis is
+    16-byte aligned (``aligned``: the tensor's start is), else loads.
+    Raises if neither fits."""
+    if not 0 < rank <= MAX_RANK or dim < 1 or n_chains < 1:
+        raise ValueError(f"low-rank plan of {n_chains} chains, dim {dim}, rank {rank}")
+    basis = dim * rank * itemsize
+    form, stages = "staged", 0
+    smem = lr_smem_bytes(dim, rank, itemsize, False)
+    if smem > smem_per_block:
+        form, stages = "streamed", RING_STAGES
+        smem = lr_smem_bytes(dim, rank, itemsize, True)
+    if smem > smem_per_block:
+        raise RuntimeError(
+            f"the low-rank step kernel does not fit: dim {dim}, rank {rank}, {itemsize}-byte "
+            f"values need {smem} bytes of shared memory a block streamed, the card allows "
+            f"{smem_per_block}")
+    threads = LR_WARPS * 32
+    blocks = min(smem_per_sm // (smem + reserved_per_block), SM_THREADS // threads)
+    if blocks < 1 or sm_count < 1:
+        raise RuntimeError(f"the low-rank step kernel does not fit: {smem} bytes a block, "
+                           f"{smem_per_sm} an SM, {sm_count} SMs")
+    return LowRankPlan(
+        form=form, copy="tma" if aligned and basis % 16 == 0 else "loads", warps=LR_WARPS,
+        stages=stages, basis_bytes=basis, smem_bytes=smem, blocks_per_sm=blocks,
+        grid=min(n_chains, blocks * sm_count),
+        chains_per_block=-(-n_chains // min(n_chains, blocks * sm_count)))
+
+
+def plan_fields(plan: Optional[LowRankPlan]) -> dict:
+    """The plan's ``MkConfig`` fields (all 0 without one)."""
+    if plan is None:
+        return {"lr_streamed": 0, "lr_tma": 0, "lr_grid": 0}
+    return {"lr_streamed": int(plan.form == "streamed"), "lr_tma": int(plan.copy == "tma"),
+            "lr_grid": plan.grid}
 
 
 class StepPtrs(ctypes.Structure):
@@ -91,11 +186,15 @@ class StepPtrs(ctypes.Structure):
 
 
 # what nutpie_step_geometry_* reports, in its order: the diagonal
-# instantiations, then the low-rank ones
+# instantiations, the low-rank ones, then for a low-rank plan its dynamic
+# shared memory and the blocks of each half an SM holds
 GEOMETRY_FIELDS = ("begin_registers", "begin_local_bytes", "finish_registers",
                    "finish_local_bytes", "threads_per_block",
                    "lr_begin_registers", "lr_begin_local_bytes",
-                   "lr_finish_registers", "lr_finish_local_bytes")
+                   "lr_finish_registers", "lr_finish_local_bytes", "lr_threads_per_block",
+                   "lr_smem_bytes", "lr_begin_blocks_per_sm", "lr_finish_blocks_per_sm")
+# what nutpie_step_device reports, in its order
+DEVICE_FIELDS = ("smem_per_block", "smem_per_sm", "sm_count", "reserved_per_block")
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -107,8 +206,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     for sfx in ("f32", "f64"):
         fn = getattr(lib, f"nutpie_step_geometry_{sfx}")
-        fn.argtypes = [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.nutpie_step_device.argtypes = [ctypes.c_void_p]
+    lib.nutpie_step_device.restype = ctypes.c_int
     lib.nutpie_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nutpie_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -201,8 +302,13 @@ class KernelSteps:
         self.device = states.vecs.device
         C, _, dim = states.vecs.shape
         self.shape = (C, dim)
+        # the low-rank launch, decided here before anything runs
+        self.plan = None if R == 0 else owner.plan(
+            C, dim, R, self.dtype, self.device,
+            aligned=states.lr_basis.data_ptr() % 16 == 0)
         self.cfg = sampler_config(cfg, C, dim, states.ckpt_p.shape[1],
-                                  mom.shape[1], adapt_frozen, lr_rank=R)
+                                  mom.shape[1], adapt_frozen, lr_rank=R,
+                                  **plan_fields(self.plan))
         sfx = dtype_suffix(self.dtype)
         self.fns = {half: getattr(self.lib, f"nutpie_step_{half}_{sfx}")
                     for half in ("begin", "finish")}
@@ -274,16 +380,44 @@ class StepKernel:
 
     def __init__(self):
         self.launches = 0
+        self._devices: dict = {}
 
     def library(self):
         return bind(build.load("step_kernel"))
 
-    def geometry(self, dtype) -> dict:
-        """Registers and spill bytes of the two kernels as compiled."""
+    def device_limits(self, device) -> dict:
+        """``DEVICE_FIELDS`` of a CUDA device, queried once."""
+        device = torch.device(device)
+        key = device.index if device.index is not None else torch.cuda.current_device()
+        if key not in self._devices:
+            lib = self.library()
+            out = (ctypes.c_int32 * len(DEVICE_FIELDS))()
+            with torch.cuda.device(key):
+                raise_on(lib, lib.nutpie_step_device(out), "step kernel device query")
+            self._devices[key] = dict(zip(DEVICE_FIELDS, out))
+        return self._devices[key]
+
+    def plan(self, n_chains: int, dim: int, rank: int, dtype, device,
+             aligned: bool = True) -> LowRankPlan:
+        """``low_rank_plan`` on ``device``'s shared memory and SMs."""
+        d = self.device_limits(device)
+        return low_rank_plan(n_chains, dim, rank, torch.empty((), dtype=dtype).element_size(),
+                             d["smem_per_block"], d["sm_count"], d["smem_per_sm"],
+                             d["reserved_per_block"], aligned=aligned)
+
+    def geometry(self, dtype, n_chains: int = 1, dim: int = 1, rank: int = 0,
+                 device="cuda") -> dict:
+        """Registers and spill bytes of the kernels as compiled, and for a
+        low-rank metric of ``rank`` at these shapes, its plan's shared
+        memory and the blocks of each half an SM holds (0 at rank 0)."""
         lib = self.library()
+        plan = self.plan(n_chains, dim, rank, dtype, device) if rank else None
+        mk = MkConfig(n_chains=n_chains, dim=dim, depth_slots=2, lr_rank=rank,
+                      **plan_fields(plan))
         out = (ctypes.c_int32 * len(GEOMETRY_FIELDS))()
         fn = getattr(lib, f"nutpie_step_geometry_{dtype_suffix(dtype)}")
-        raise_on(lib, fn(out), "step kernel geometry")
+        with torch.cuda.device(torch.device(device)):
+            raise_on(lib, fn(ctypes.byref(mk), out), "step kernel geometry")
         return dict(zip(GEOMETRY_FIELDS, out))
 
     def chunk(self, cfg: NutsConfig, sched: Schedule, chunk_start: int, limit: int,

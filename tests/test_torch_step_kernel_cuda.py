@@ -11,7 +11,11 @@ the 1000-d Gaussian (lanes stride over 1000 coordinates), at 4 and 37
 chains (37 leaves part of the last block's warps without a chain).  The
 low-rank branch: the 40-d Gaussian with a metric of rank 8 whose last
 three slots are padded, at 4 and 37 chains, with the stored gradients,
-inverse masses and eigenvalues held too.
+inverse masses and eigenvalues held too; then, at 16 chains, a shape for
+each form of ``step_kernel.low_rank_plan`` on an H100: dim 1000 at rank 32
+(256,000 bytes a basis in float64: streamed through a ring), dim 500 at
+rank 32 (staged by TMA) and dim 33 at rank 5 with two slots padded (660
+bytes a basis, not 16-byte aligned: staged by loads).
 """
 
 import numpy as np
@@ -90,11 +94,21 @@ def test_done_chains_hand_their_committed_position(card):
     assert bool(torch.isnan(bufs.position).all())
 
 
-@pytest.fixture(params=[4, 37], ids=lambda n: f"lowrank-{n}")
+# (chains, dim, rank, padded slots) and the plan's form on an H100
+LR_CASES = {
+    "lowrank-4": (4, 40, 8, 3),                     # staged, TMA
+    "lowrank-37": (37, 40, 8, 3),
+    "lowrank-streamed-1000x32": (16, 1000, 32, 0),  # streamed, TMA
+    "lowrank-staged-500x32": (16, 500, 32, 0),      # staged, TMA
+    "lowrank-unaligned-33x5": (16, 33, 5, 2),       # staged, loads
+}
+
+
+@pytest.fixture(params=list(LR_CASES.values()), ids=list(LR_CASES))
 def lr_card(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    n_chains, dim, rank, padded = request.param, 40, 8, 3
+    n_chains, dim, rank, padded = request.param
     model = ill_conditioned_gaussian(dim=dim)
     cfg = NutsConfig(maxdepth=8, low_rank=LowRankConfig(max_rank=rank),
                      store_mass_matrix=True, adapt=AdaptConfig(num_tune=100))
