@@ -55,28 +55,38 @@ Phases (each prints one JSON line):
    step kernel, the log density's matrix products and other work, and
    the idle share.
 
-The generic card path (the step kernel K2, ``csrc/step_kernel.cu``, two
-launches per machine step around one batched torch logp) at the
-logistic GLM's width from ``bench_glm.py`` (10,240 chains, 64
-coefficients, 2048 observations, chunk 32):
+The generic card path (the step kernel K2, ``csrc/step_kernel.cu``: one
+``advance`` launch per machine step after one batched torch logp, and
+one ``begin`` launch per chunk; the step runner replays its machine steps
+from a CUDA graph) at the logistic GLM's width from ``bench_glm.py``
+(10,240 chains, 64 coefficients, 2048 observations, chunk 32):
 
-7. ``step_parity``: K2 against its plain version on the card, both
-   running the same torch logp.  Float64 at full width, 64 chains: one
+7. ``step_parity``: K2 (its ``begin`` and ``advance``) against its plain
+   version (``leapfrog_begin``, and ``leapfrog_finish`` then
+   ``leapfrog_begin``) on the card, both running the same torch logp.
+   Float64 at full width, 64 chains: one
    fresh 8-draw warmup window from draw 0 (ints, step counts and Welford
    counts exact, positions and adaptation state to rtol 1e-3), then a
    16-draw frozen chunk (ints exact, floats to rtol 1e-6 / atol 1e-8).
    Float64 ``ill_conditioned_gaussian(dim=1000)``, 16 chains, an 8-draw
    frozen chunk: ints and step counts exact (lanes stride past 256
-   coordinates).  Beside the GLM readings, the plain version on the CPU
+   coordinates).  Float64 eight schools, 16 chains, in each of four
+   settings with branches of their own (``SETTINGS``: step size jitter,
+   ``mindepth`` 3, no U-turn check, the draw-based mass matrix): an
+   8-draw warmup window and an 8-draw frozen chunk at those bars.  Beside
+   the GLM readings, the plain version on the CPU
    against the card's from the same state: how far two plain versions
    that round differently part over the same draws.  Float32 at the main shapes, from a fleet the step
    runner warmed through the 300 tuning draws: one frozen 32-draw chunk,
    at least 99.9% of step counts equal and 99% of draws within 1e-3
-   (relative to 1 + abs x).
+   (relative to 1 + abs x); and the same chunk's graph replays bitwise
+   equal to its launches made one by one.
 8. ``glm``: ``sample()`` on the GLM, 10,240 chains x (300 tune + 300
    draws), chunk 32, seed 42, float32, default settings, no pooling, with
-   both kernels' launch counts set to 0 just before: K2 launched twice per
-   machine step (the steps counted from the draws' step counts) and K1
+   both kernels' launch counts set to 0 just before: K2 launched once per
+   chunk and once per machine step (the steps counted from the draws'
+   step counts, rounded up to the graph's ``CUDA_UNROLL`` steps per chunk),
+   its graph replays and capture seconds printed, and K1
    not at all.  Draws finite, max split R-hat over ``bench_glm.py``'s
    monitored columns below 1.05, every posterior mean within
    ``LAPLACE_SD_TOL`` posterior sd of the mode of a numpy Laplace
@@ -84,18 +94,22 @@ coefficients, 2048 observations, chunk 32):
    the posterior mean by importance sampling from that approximation.  Prints wall, gradients/s, min bulk-ESS, ESS/s, min-ESS per
    gradient, posterior divergences and the host wall per machine step.
 9. ``step_timing``: one frozen 32-draw chunk at the GLM main shapes, step
-   by step: K2's begin and finish and the logp+grad call by CUDA events
-   around each call (and by device time under ``torch.profiler``, which
-   splits the logp's matrix products from the rest), the plain halves by
-   CUDA events, the byte bound beside them (``step_bytes``); then the
-   whole chunk through the runner at ``unroll`` 1, 4 and 8.  Then the
+   by step, launched one by one: K2's ``advance`` and the logp+grad call
+   by CUDA events around each call (and by device time under
+   ``torch.profiler``, which splits the logp's matrix products from the
+   rest), the plain ``advance`` (finish then begin) by CUDA events, the
+   byte bound beside them (``step_bytes``: each row the fused launch
+   touches read once and written once) and the diagonal plan with its
+   resident chains an SM; then the whole chunk through the runner's
+   CUDA graphs at ``unroll`` 1, 4, 8 and 16 (host wall, and the machine
+   steps each ran).  Then the
    same for K2's low-rank branch at the low-rank path's shapes (below):
    one frozen 16-draw chunk of the float32 parity fleet, K2 with R = 32
    and with R = 0 (the same fleet without its metric), the logp+grad
    call by CUDA events (and over the first ``LR_DEVICE_STEPS`` steps by
    device time under ``torch.profiler``, reported beside them), the plain
-   halves over their first ``LR_PLAIN_STEPS`` steps, the
-   byte bound with each launch reading the chain's basis once, the basis
+   ``advance`` over its first ``LR_PLAIN_STEPS`` steps, the
+   byte bound with each machine step reading the chain's basis once, the basis
    bytes as the plan's form reads them, the plan (form, warps, shared
    memory) and the library yardstick of the metric part (two
    ``torch.bmm`` per application for every chain, times the applications
@@ -123,22 +137,24 @@ BASELINE's 1000-d target) at 1024 chains, max_rank 32, chunk 80:
     + abs x).
 11. ``lowrank``: ``sample(adaptation="low_rank")``, 1024 chains x (300
     tune + ``LR_DRAWS`` draws), float32, seed 42, default settings but the
-    eigenvalue cutoff ``LR_CUTOFF`` (see there): K2 launched
-    twice per machine step, every chunk with R = 32, K1 never; the
+    eigenvalue cutoff ``LR_CUTOFF`` (see there): K2 launched once per
+    chunk and once per machine step, its graph replays and capture
+    seconds printed, every chunk with R = 32, K1 never; the
     boundary updates at draws 160 and 240 (timed with a synchronize on
     each side), after which at least 90% of chains keep a slot; max split
     R-hat over ``LR_MONITORED`` below 1.05; each monitored column's
     variance, and the variance along the covariance's largest and
     smallest eigenvectors, within ``LR_VAR_BAND`` of the truth.  Prints
     wall, gradients/s, leapfrogs per draw, min bulk-ESS, ESS/s, min-ESS
-    per gradient and posterior divergences.  The profile phase runs this
+    per gradient, posterior divergences and the host wall per machine
+    step.  The profile phase runs this
     path once more with tune and draws cut to ``LR_PROFILE_TUNE`` +
     ``LR_PROFILE_DRAWS`` and the switch cadence to ``LR_PROFILE_SWITCH``
     (boundary updates at draws 2, 4 and 6): K2, the matrix products,
     the boundary's QR and eigendecompositions, copies and idle.
 
-Then the kernels line (K1, and K2 with its low-rank branch), the card
-line, and the last line
+Then the script's seconds, the kernels line (K1, and K2 with its
+low-rank branch), the card line, and the last line
 
 ``{"ok": true, "device": {...}}``.  Every phase runs even after one
 fails; any failed phase makes the script exit non-zero with no result
@@ -235,7 +251,7 @@ LAPLACE_SD_TOL = 0.25
 # about 0.01 sd of Monte Carlo error): the mean and the mode of this
 # posterior differ by up to 0.24 sd, its skew
 IMPORTANCE_SD_TOL = 0.05
-UNROLLS = (1, 4, 8)
+UNROLLS = (1, 4, 8, 16)
 # where the GLM path runs
 DEVICE = "cuda"
 # the low-rank path: the 1000-d ill-conditioned Gaussian
@@ -396,7 +412,7 @@ def phase_build(ctx):
 
     from nutpie_tpu_torch.ops import build
     from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
-    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import DIAG_FORM_TAGS, step_kernel
 
     t0 = time.perf_counter()
     libs = build.build_all(["megakernel", "step_kernel"])  # one nvcc each, together
@@ -414,11 +430,14 @@ def phase_build(ctx):
     ctx["geometry"] = geometry
     # K2's instantiations in both dtypes, with the low-rank plan of the
     # low-rank path's shapes (float32 stages the basis, float64 streams it)
-    k2, plans = {}, {}
+    # and the diagonal plan of the GLM's, with the chains an SM holds
+    k2, plans, diag = {}, {}, {}
     for dt in (torch.float32, torch.float64):
         name = str(dt).removeprefix("torch.")
         k2[name] = step_kernel.geometry(dt, LR_CHAINS, LR_DIM, LR_RANK)
         plans[name] = dataclasses.asdict(step_kernel.plan(LR_CHAINS, LR_DIM, LR_RANK, dt, DEVICE))
+        diag[name] = _diag_plan_reading(step_kernel, k2[name], GLM_CHAINS, GLM_DIM, dt)
+    ctx["k2_geometry"], ctx["glm_plan"] = k2, diag
     emit({
         "phase": "build", "torch": torch.__version__,
         "cuda": torch.version.cuda, "card": ctx["card"],
@@ -430,6 +449,7 @@ def phase_build(ctx):
             "library": os.path.relpath(str(libs["step_kernel"]), ROOT),
             "geometry": k2,
             "low_rank_plan": plans,
+            "glm_diag_plan": diag,
         },
     })
     g32 = geometry["float32"]
@@ -439,7 +459,22 @@ def phase_build(ctx):
             f"the step kernel spills in {dt}: {geo}"
         # the plan's shared memory is what the kernel lays out, and fits
         assert geo["lr_smem_bytes"] == plans[dt]["smem_bytes"], (geo, plans[dt])
-        assert min(geo["lr_begin_blocks_per_sm"], geo["lr_finish_blocks_per_sm"]) >= 1, geo
+        assert geo["lr_blocks_per_sm"] >= 1, geo
+        assert all(geo[f"{tag}_blocks_per_sm"] >= 1 for tag in DIAG_FORM_TAGS), geo
+
+
+def _diag_plan_reading(kernel, geometry: dict, n_chains: int, dim: int, dtype) -> dict:
+    """K2's diagonal plan at these shapes, the blocks its form an SM holds
+    as compiled, the chains that makes resident an SM and the waves of the
+    launch."""
+    plan = kernel.diag_plan(n_chains, dim, dtype, DEVICE)
+    tag = plan.form
+    blocks = geometry[f"{tag}_blocks_per_sm"]
+    sms = kernel.device_limits(DEVICE)["sm_count"]
+    return {**dataclasses.asdict(plan),
+            "registers": geometry[f"{tag}_registers"], "blocks_per_sm": blocks,
+            "resident_chains_per_sm": blocks * plan.chains_per_block,
+            "waves": -(-plan.grid // (blocks * sms))}
 
 
 def _main_kernel_config(model, cfg):
@@ -903,19 +938,26 @@ def _device_rows(prof) -> list:
 
 
 def _profiled_sample(compiled, **kwargs):
-    """``sample()`` on the card under ``torch.profiler``: (wall s, device rows)."""
+    """``sample()`` on the card under ``torch.profiler``: (wall s, device
+    rows, K2's launches in the run, K2's launches the trace holds).  The
+    step runner replays its machine steps from CUDA graphs; the trace's
+    count of K2 launches says whether it saw the kernels inside them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
 
     torch.cuda.synchronize()
+    launches = step_kernel.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         nt.sample(compiled, device=DEVICE, return_raw_trace=True, **kwargs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall, _device_rows(prof)
+    rows = _device_rows(prof)
+    traced = sum(n for _, name, n in rows if _is_k2(name))
+    return wall, rows, step_kernel.launches - launches, traced
 
 
 def _is_gemm(name: str) -> bool:
@@ -934,7 +976,7 @@ def phase_profile(ctx):
     import nutpie_tpu_torch as nt
     from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
 
-    wall, rows = _profiled_sample(
+    wall, rows, _, _ = _profiled_sample(
         compile_model_def(nt.models.radon()), chains=CHAINS, tune=TUNE,
         draws=DRAWS, seed=43, pool_mass_matrix=True, pool_step_size=True)
     device_s = sum(r[0] for r in rows)
@@ -943,13 +985,12 @@ def phase_profile(ctx):
     top = lambda rows: [{"name": k[:80], "count": n, "self_device_ms": d * 1e3}
                         for d, k, n in rows[:8]]
 
-    glm_wall, glm_rows = _profiled_sample(
+    glm_wall, glm_rows, glm_launches, glm_traced = _profiled_sample(
         compile_model_def(nt.models.logistic_glm(n_data=GLM_N_DATA, dim=GLM_DIM)),
         chains=GLM_CHAINS, tune=GLM_PROFILE_TUNE, draws=GLM_PROFILE_DRAWS,
         seed=44, chunk_size=GLM_CHUNK, precision="float32")
     glm_device = sum(r[0] for r in glm_rows)
-    k2 = {half: sum(r[0] for r in glm_rows if f"step_{half}" in r[1])
-          for half in ("begin", "finish")}
+    k2 = sum(r[0] for r in glm_rows if _is_k2(r[1]))
     gemm = sum(r[0] for r in glm_rows if _is_gemm(r[1]))
     glm_copy = sum(r[0] for r in glm_rows if r[1].startswith("Memcpy"))
     emit({
@@ -962,9 +1003,9 @@ def phase_profile(ctx):
             "chains": GLM_CHAINS, "tune": GLM_PROFILE_TUNE, "draws": GLM_PROFILE_DRAWS,
             "wall_s_profiled": glm_wall, "device_busy_s": glm_device,
             "device_idle_share": max(0.0, 1.0 - glm_device / glm_wall),
-            "step_begin_s": k2["begin"], "step_finish_s": k2["finish"],
-            "logp_matmul_s": gemm, "memcpy_s": glm_copy,
-            "other_device_s": glm_device - k2["begin"] - k2["finish"] - gemm - glm_copy,
+            "k2_launches": glm_launches, "k2_launches_traced": glm_traced,
+            "step_advance_s": k2, "logp_matmul_s": gemm, "memcpy_s": glm_copy,
+            "other_device_s": glm_device - k2 - gemm - glm_copy,
             "top_device_events": top(glm_rows),
         },
         "lowrank": _lowrank_profile(top),
@@ -979,13 +1020,13 @@ def _lowrank_profile(top) -> dict:
     import nutpie_tpu_torch as nt
     from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
 
-    wall, rows = _profiled_sample(
+    wall, rows, launches, traced = _profiled_sample(
         compile_model_def(nt.models.ill_conditioned_gaussian(dim=LR_DIM)),
         adaptation="low_rank", chains=LR_CHAINS, tune=LR_PROFILE_TUNE,
         draws=LR_PROFILE_DRAWS, mass_matrix_switch_freq=LR_PROFILE_SWITCH,
         mass_matrix_eigval_cutoff=LR_CUTOFF, seed=45, precision="float32")
     device = sum(r[0] for r in rows)
-    k2 = {half: sum(r[0] for r in rows if f"step_{half}" in r[1]) for half in ("begin", "finish")}
+    k2 = sum(r[0] for r in rows if _is_k2(r[1]))
     gemm = sum(r[0] for r in rows if _is_gemm(r[1]))
     linalg = sum(r[0] for r in rows if _is_linalg(r[1]) and not _is_gemm(r[1]))
     copy = sum(r[0] for r in rows if r[1].startswith("Memcpy"))
@@ -994,9 +1035,9 @@ def _lowrank_profile(top) -> dict:
         "switch_freq": LR_PROFILE_SWITCH,
         "wall_s_profiled": wall, "device_busy_s": device,
         "device_idle_share": max(0.0, 1.0 - device / wall),
-        "step_begin_s": k2["begin"], "step_finish_s": k2["finish"],
-        "matmul_s": gemm, "qr_eigh_s": linalg, "memcpy_s": copy,
-        "other_device_s": device - k2["begin"] - k2["finish"] - gemm - linalg - copy,
+        "k2_launches": launches, "k2_launches_traced": traced,
+        "step_advance_s": k2, "matmul_s": gemm, "qr_eigh_s": linalg, "memcpy_s": copy,
+        "other_device_s": device - k2 - gemm - linalg - copy,
         "top_device_events": top(rows),
     }
 
@@ -1126,6 +1167,78 @@ def glm_f64_parity(failed: list) -> dict:
                        "plain_card_vs_cpu": frozen_yard}}
 
 
+def _prepared(cfg, sched, states, start: int, chunk: int, frozen: bool, plain: bool = False):
+    """One chunk prepared as the step runner prepares it (the per-draw
+    randoms, the buffers, start_draw, the chunk's own copy of the state),
+    and its steps: K2's, or the plain version's (``plain``)."""
+    from nutpie_tpu_torch.sampler.nuts import init_buffers, start_draw
+    from nutpie_tpu_torch.sampler.run import draw_randoms
+    from nutpie_tpu_torch.sampler.state import state_with
+    from nutpie_tpu_torch.sampler.step_kernel import PlainSteps, step_kernel
+
+    n_chains, _, dim = states.vecs.shape
+    dtype = states.vecs.dtype
+    mom, jit = draw_randoms(states.key, start, chunk, dim, dtype)
+    bufs = init_buffers(chunk, dim, dtype, n_chains, device=DEVICE, cfg=cfg)
+    st = start_draw(cfg, sched, state_with(states, done=False), mom[:, 0], jit[:, 0]).clone()
+    args = (cfg, sched, start, chunk, st, mom, jit, bufs, frozen)
+    return st, bufs, PlainSteps(*args) if plain else step_kernel.chunk(*args)
+
+
+def _eager_chunk(model, cfg, sched, states, start: int, chunk: int, frozen: bool):
+    """A frozen chunk through K2 with its launches made one by one, no
+    graph: (state, buffers, machine steps)."""
+    st, bufs, steps = _prepared(cfg, sched, states, start, chunk, frozen)
+    z_new, carry = steps.begin(st)
+    n = 0
+    while not bool(st.done.all()):
+        logp, grad = model.logp_and_grad(z_new)
+        st, z_new, carry = steps.advance(st, z_new, carry, logp, grad)
+        n += 1
+    return st, bufs, n
+
+
+# the settings with branches of their own in K2 (NutsConfig fields,
+# AdaptConfig fields), held on eight schools in float64
+SETTINGS = {
+    "step_size_jitter": ({}, {"step_size_jitter": 0.3}),
+    "mindepth": ({"mindepth": 3}, {}),
+    "no_turning_check": ({"check_turning": False, "maxdepth": 4}, {}),
+    "draw_diag": ({}, {"use_grad_based_estimate": False}),
+}
+SETTINGS_CHAINS, SETTINGS_DRAWS = 16, 8
+
+
+def settings_f64_parity(failed: list) -> dict:
+    """K2 against its plain version in each of ``SETTINGS``: float64 eight
+    schools, 16 chains, an 8-draw warmup window from a fresh fleet, then
+    an 8-draw frozen chunk.  Failed bars go to ``failed``."""
+    import numpy as np
+    import torch
+
+    from nutpie_tpu_torch.models import eight_schools
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.nuts import NutsConfig
+    from nutpie_tpu_torch.sampler.run import init_chains
+
+    n = SETTINGS_DRAWS
+    out = {}
+    for tag, (nuts, adapt) in SETTINGS.items():
+        model = eight_schools()
+        cfg = NutsConfig(**{"maxdepth": 6, **nuts}, adapt=AdaptConfig(num_tune=GLM_TUNE, **adapt))
+        sched = make_schedule(cfg.adapt, GLM_TUNE)
+        states, ok = init_chains(model, cfg, 27, SETTINGS_CHAINS, np.zeros(model.ndim),
+                                 torch.float64, device=DEVICE)
+        assert bool(ok.all()), "chain initialization failed"
+        (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, states, 0, n, n, False)
+        warm = _held(failed, _check_warmup_f64, f"{tag} warmup window", n, s_k, b_k, s_p, b_p)
+        (f_k, fb_k), (f_p, fb_p) = _steps_both(model, cfg, sched, s_k, n, n, n, True)
+        frozen = _held(failed, _check_frozen_f64, f"{tag} frozen chunk", f_k, fb_k, f_p, fb_p)
+        out[tag] = {"warmup_held": warm is not None, "frozen_held": frozen is not None,
+                    "max_abs_err_position": max_abs(fb_k.position, fb_p.position)}
+    return out
+
+
 def phase_step_parity(ctx):
     import torch
 
@@ -1135,13 +1248,20 @@ def phase_step_parity(ctx):
     ns = SCALAR_SLOTS["n_steps"]
     failed = []
 
-    # float32 at the main shapes, from a fleet the step runner warmed
+    # float32 at the main shapes, from a fleet the step runner warmed; the
+    # graph-replayed chunk against the same launches made one by one
     model32, cfg32, sched32, warm32 = _glm_warm_fleet(25)
     ctx["glm_warm"] = (model32, cfg32, sched32, warm32)
     (g_k, gb_k), (_, gb_p) = _steps_both(model32, cfg32, sched32, warm32, GLM_TUNE,
                                          GLM_CHUNK, GLM_CHUNK, True)
     f32 = _f32_shares(GLM_CHUNK, g_k, gb_k, gb_p)
-    del g_k, gb_k, gb_p
+    e_k, eb_k, _ = _eager_chunk(model32, cfg32, sched32, warm32, GLM_TUNE, GLM_CHUNK, True)
+    torch.cuda.synchronize()
+    graph_bitwise = (all(bitwise_equal(t, e_k.tensors()[name])
+                         for name, t in g_k.tensors().items())
+                     and bitwise_equal(gb_k.position, eb_k.position)
+                     and bitwise_equal(gb_k.scalars, eb_k.scalars))
+    del g_k, gb_k, gb_p, e_k, eb_k
 
     glm64 = glm_f64_parity(failed)
 
@@ -1150,6 +1270,7 @@ def phase_step_parity(ctx):
     (i_k, ib_k), (i_p, ib_p) = _steps_both(ill, icfg, isched, istates, 0, 8, 8, True)
     ill_ints = bool(torch.equal(i_k.ints, i_p.ints))
     ill_steps = nan_equal(ib_k.scalars[..., ns], ib_p.scalars[..., ns])
+    settings = settings_f64_parity(failed)
 
     ctx["step_max_abs_err"] = glm64["frozen"]["max_abs_err_position"]
     emit({
@@ -1159,21 +1280,42 @@ def phase_step_parity(ctx):
                              "ints_equal": ill_ints, "n_steps_equal": ill_steps,
                              "max_rel_diff_position": max_rel(ib_k.position, ib_p.position),
                              "leapfrogs": int(ib_k.scalars[..., ns].nansum())},
+        "settings_f64": {"model": "eight_schools", "chains": SETTINGS_CHAINS,
+                         "draws": SETTINGS_DRAWS, **settings},
         "glm_f32": {"chains": GLM_CHAINS, "draws": GLM_CHUNK, "all_finite": True,
-                    "tol": F32_TOL, **f32},
+                    "tol": F32_TOL, "graph_replay_bitwise_eager": graph_bitwise, **f32},
         "failed": failed,
         "card": ctx["card"],
     })
     assert not failed, failed
     assert ill_ints and ill_steps, "1000-d Gaussian: ints or step counts differ"
+    assert graph_bitwise, "the graph-replayed chunk differs from its eager launches"
     assert f32["share_equal_n_steps"] >= F32_MIN_SHARE_STEPS, f32
     assert f32["share_draws_within_tol"] >= F32_MIN_SHARE_DRAWS, f32
+
+
+def _zero_counts(step_kernel, chunk_kernel) -> None:
+    """Both kernels' launch counts, K2's graph replays and capture seconds
+    set to 0 just before a path runs."""
+    step_kernel.launches = step_kernel.replays = chunk_kernel.launches = 0
+    step_kernel.capture_s = 0.0
+
+
+def _assert_step_launches(step_kernel, chunks: int, steps: int, unroll: int) -> None:
+    """K2 launched once per chunk (its first half) and once per machine
+    step, every machine step from a graph replay of ``unroll`` of them."""
+    k2 = step_kernel.launches
+    assert k2 == chunks + steps, \
+        f"step kernel launched {k2} times for {chunks} chunks and {steps} machine steps"
+    assert step_kernel.replays * unroll == steps, \
+        f"{step_kernel.replays} graph replays of {unroll} steps for {steps} machine steps"
 
 
 def machine_steps(n_steps, chunk_len: int, unroll: int) -> int:
     """Machine steps of a run from its draws' step counts ``[C, draws]``:
     each chain takes one leapfrog per step, a chunk runs until its slowest
-    chain is done, and the loop reads "all done" every ``unroll`` steps."""
+    chain is done, and the loop replays ``unroll`` steps between two "all
+    done" reads."""
     import numpy as np
 
     total = 0
@@ -1233,8 +1375,7 @@ def phase_glm(ctx):
 
     compiled = compile_model_def(_glm_model())
     torch.cuda.synchronize()
-    step_kernel.launches = 0
-    chunk_kernel.launches = 0
+    _zero_counts(step_kernel, chunk_kernel)
     t0 = time.perf_counter()
     raw = nt.sample(compiled, chains=GLM_CHAINS, tune=GLM_TUNE, draws=GLM_DRAWS,
                     seed=42, chunk_size=GLM_CHUNK, precision="float32", device=DEVICE,
@@ -1244,8 +1385,9 @@ def phase_glm(ctx):
     k2, k1 = step_kernel.launches, chunk_kernel.launches
     n_steps = raw["stats"]["n_steps"]
     steps = machine_steps(n_steps, GLM_CHUNK, CUDA_UNROLL)
+    chunks = math.ceil((GLM_TUNE + GLM_DRAWS) / GLM_CHUNK)
     assert k1 == 0, f"the chunk kernel launched {k1} times on the GLM path"
-    assert k2 == 2 * steps, f"step kernel launched {k2} times for {steps} machine steps"
+    _assert_step_launches(step_kernel, chunks, steps, CUDA_UNROLL)
 
     pos = raw["position"]
     assert pos.shape == (GLM_CHAINS, GLM_TUNE + GLM_DRAWS, GLM_DIM), pos.shape
@@ -1268,10 +1410,14 @@ def phase_glm(ctx):
         f"posterior mean {is_dev.max()} sd from the importance-sampled mean"
     assert dev.max() <= LAPLACE_SD_TOL, f"posterior mean {dev.max()} sd from the Laplace mode"
     ctx["glm_launches"] = k2
+    ctx["glm_graphs"] = {"launches_per_machine_step": k2 / steps,
+                         "graph_replays": step_kernel.replays,
+                         "capture_s": step_kernel.capture_s}
     emit({
         "phase": "glm", "chains": GLM_CHAINS, "tune": GLM_TUNE, "draws": GLM_DRAWS,
         "n_data": GLM_N_DATA, "dim": GLM_DIM, "chunk_len": GLM_CHUNK, "dtype": "float32",
         "step_kernel_launches": k2, "chunk_kernel_launches": k1, "machine_steps": steps,
+        "chunks": chunks, **ctx["glm_graphs"],
         "unroll": CUDA_UNROLL, "wall_s": wall, "host_wall_ms_per_machine_step": 1e3 * wall / steps,
         "gradients": grads, "grads_per_s": grads / wall, "min_bulk_ess": min_ess,
         "min_ess_per_s": min_ess / wall, "min_ess_per_grad": min_ess / grads,
@@ -1287,25 +1433,24 @@ def phase_glm(ctx):
 def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
                depth_slots: int, itemsize: int, rank: int = 0,
                streamed: bool = False) -> dict:
-    """Bytes the step kernel must move over one frozen chunk, counted from
-    csrc/step_kernel.cu for this chunk's trees (each row a launch touches
-    read once and written once; the multinomial's copies of the proposal
-    rows, which depend on the uniforms, are left out, so it is a lower
-    bound).  Subtrees before a draw's last are full, so a draw of depth d
+    """Bytes the step kernel must move over one frozen chunk (its ``begin``
+    launch and ``steps`` advance launches), counted from
+    csrc/step_kernel.cu for this chunk's trees: each row a launch touches
+    read once and written once.  Left out, so it is a lower bound: the
+    multinomial's copies of the proposal rows, and the other edge a
+    doubling's first step reads when it turns round (both depend on the
+    uniforms).  Subtrees before a draw's last are full, so a draw of depth d
     and n steps has subtrees of 1, 2, ..., 2^(d-2) leaves and a last of
     n_last = n - 2^(d-1) + 1; a subtree of m leaves pushes ceil(m/2)
     checkpoints, and the checks and merges count as in ``chunk_ops``.
 
-    Under a low-rank metric of rank ``rank`` each launch of an active chain
-    also reads the chain's basis and log eigenvalues once (the bound).
-    ``lr_basis_bytes_as_read`` counts the basis as csrc/lowrank.cuh reads
-    it: staged, once per launch of an active chain, and at a draw's start
-    twice more (the chain's own basis staged again over the next chain's,
-    which the block had sent for, and the next chain's sent for again);
-    ``streamed``, once per pass: two for the drift, two for the new point's
-    velocity, three for a draw's start (its middle pass expands and
-    projects the same tiles).  The checks and merges use the velocities
-    the kernel keeps."""
+    Under a low-rank metric of rank ``rank`` a machine step of an active
+    chain also reads the chain's basis and log eigenvalues once (the
+    bound).  ``lr_basis_bytes_as_read`` counts the basis as csrc/lowrank.cuh
+    reads it: staged, once per launch of an active chain; ``streamed``, once
+    per pass: two for the new point's velocity and two for the next drift,
+    three for a draw's start (its middle pass expands and projects the same
+    tiles).  The checks and merges use the velocities the kernel keeps."""
     import numpy as np
 
     from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
@@ -1324,32 +1469,35 @@ def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
     done_steps = n_chains * steps - leapfrogs
     T, row = itemsize, dim * itemsize
     ints, flts = 15 * 4, 12 * T
-    # begin: the edge's z, p, g and the inverse mass in, z_new, the
-    # uniforms, the flag and the direction out; a subtree's first step
-    # stashes the edge momentum; a done chain copies its position
-    begin = (leapfrogs * (4 * row + row + ints + T + 16 + 12 + 4 + 4)
-             + subtrees * row + done_steps * (2 * row + ints))
-    # finish: z_new, the gradient, logp, the edge's p and g, the inverse
-    # mass and rho_sub in; the edge's z, p, g and rho_sub out; the scalars
-    # in and out; pushes, subtree checks (two slot rows each), merges (rho,
-    # the far edge, two slots in, rho out), draws (the proposal in, the
-    # draw and the committed position and gradient out, the scalar row),
-    # and each next draw's start (momentum and inverse mass in, 12 rows out)
-    finish = (leapfrogs * (6 * row + 4 * row + 2 * (ints + flts) + 12 * T + T + 12)
-              + pushes * 2 * row + checks * 2 * row + merges * 5 * row
-              + draws * (2 * row + 3 * row + 12 * T)
-              + (draws - n_chains) * (2 * row + T + 12 * row)
-              + done_steps * ints)
+    # the chunk's begin: the edge's z, p, g and the inverse mass in, the
+    # stash and z_new out; the scalars and the key in, ints, the uniforms
+    # and the flag out
+    begin = n_chains * (4 * row + 2 * row + 2 * ints + flts + 16 + 12 + 4)
+    # an active chain's advance: the edge's p and g, the gradient, z_new,
+    # the inverse mass and rho_sub in; the edge's z, p, g, rho_sub and the
+    # next z_new out; ints and flts in and out, logp, two uniforms and the
+    # flag in, the key in, three uniforms and the flag out.  Pushes,
+    # subtree checks (two slot rows each), merges (rho, the far edge, two
+    # slots in, rho out), draws (the proposal in, the draw and the committed
+    # position and gradient out, the adaptation scalars in, the scalar
+    # row), each next draw's start (momentum and inverse mass in, jitter,
+    # 12 rows out), each subtree's stash; a done chain's ints
+    advance = (leapfrogs * (6 * row + 5 * row + 2 * (ints + flts) + T + 8 + 4 + 16 + 12 + 4)
+               + pushes * 2 * row + checks * 2 * row + merges * 5 * row
+               + draws * (2 * row + 3 * row + 12 * T + 12 * T)
+               + (draws - n_chains) * (2 * row + T + 12 * row)
+               + subtrees * row + done_steps * ints)
     out = {"leapfrogs": leapfrogs, "subtree_checks": checks, "merges": merges,
            "pushes": pushes, "draws": draws, "done_chain_steps": done_steps}
     if rank:
         metric = (rank * dim + rank) * T
-        begin += leapfrogs * metric
-        finish += leapfrogs * metric
+        begin += n_chains * metric
+        advance += leapfrogs * metric
         starts = draws - n_chains
-        passes = 4 * leapfrogs + 3 * starts if streamed else 2 * leapfrogs + 2 * starts
+        passes = (4 * leapfrogs + 3 * starts if streamed
+                  else leapfrogs + n_chains)
         out["lr_basis_bytes_as_read"] = passes * rank * dim * T
-    return {"bytes": begin + finish, "begin_bytes": begin, "finish_bytes": finish, **out}
+    return {"bytes": begin + advance, "begin_bytes": begin, "advance_bytes": advance, **out}
 
 
 def step_ops(work: dict, dim: int, rank: int = 0) -> int:
@@ -1368,128 +1516,126 @@ def step_ops(work: dict, dim: int, rank: int = 0) -> int:
     return ops
 
 
+def _is_k2(name: str) -> bool:
+    return "step_advance" in name
+
+
+def _unroll_sweep(model, cfg, sched, states, chunk: int, start: int = 0):
+    """One frozen chunk through the runner's CUDA graphs at each of
+    ``UNROLLS`` machine steps a graph, in turns: host wall ms of each run,
+    and the machine steps the replays ran."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.run import make_chunk_runner
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    ms = {str(u): [] for u in UNROLLS}
+    steps = {}
+    for u in UNROLLS + UNROLLS[::-1]:
+        run = make_chunk_runner(model, cfg, chunk, states.vecs.dtype, adapt_frozen=True,
+                                unroll=u)
+        replays = step_kernel.replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(states, start, chunk, sched)
+        torch.cuda.synchronize()
+        ms[str(u)].append(1e3 * (time.perf_counter() - t0))
+        steps[str(u)] = u * (step_kernel.replays - replays)
+    return ms, steps
+
+
 def phase_step_timing(ctx):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from nutpie_tpu_torch.sampler.nuts import init_buffers, start_draw
-    from nutpie_tpu_torch.sampler.run import CUDA_UNROLL, draw_randoms, make_chunk_runner
-    from nutpie_tpu_torch.sampler.state import state_with
-    from nutpie_tpu_torch.sampler.step_kernel import PlainSteps, step_kernel
+    from nutpie_tpu_torch.sampler.run import CUDA_UNROLL
 
     model, cfg, sched, states = ctx["glm_warm"]
     dtype, start, chunk = torch.float32, GLM_TUNE, GLM_CHUNK
-    mom, jit = draw_randoms(states.key, start, chunk, GLM_DIM, dtype)
 
-    def prepared():
-        """The runner's preparation of the chunk: buffers, start_draw, a copy."""
-        bufs = init_buffers(chunk, GLM_DIM, dtype, GLM_CHAINS, device=DEVICE)
-        st = start_draw(cfg, sched, state_with(states, done=False),
-                        mom[:, 0], jit[:, 0]).clone()
-        return st, bufs
-
-    # K2 and the logp, step by step, by device time under the profiler
-    # (the runner's loop: an "all done" read every CUDA_UNROLL steps)
-    st, bufs = prepared()
-    steps = step_kernel.chunk(cfg, sched, start, chunk, st, mom, jit, bufs, True)
+    # K2's advance and the logp, step by step, by device time under the
+    # profiler (the chunk's begin before it; an "all done" read every
+    # CUDA_UNROLL steps)
+    st, bufs, steps = _prepared(cfg, sched, states, start, chunk, True)
+    z_new, carry = steps.begin(st)
     torch.cuda.synchronize()
     n_steps = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         while True:
-            z_new, carry = steps.begin(st)
             logp, grad = model.logp_and_grad(z_new)
-            st = steps.finish(st, z_new, carry, logp, grad)
+            st, z_new, carry = steps.advance(st, z_new, carry, logp, grad)
             n_steps += 1
             if n_steps % CUDA_UNROLL == 0 and bool(st.done.all()):
                 break
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
     rows = _device_rows(prof)
-    dev = {half: sum(r[0] for r in rows if f"step_{half}" in r[1]) for half in ("begin", "finish")}
-    logp_s = sum(r[0] for r in rows) - dev["begin"] - dev["finish"]
+    k2_s = sum(r[0] for r in rows if _is_k2(r[1]))
+    logp_s = sum(r[0] for r in rows) - k2_s
     gemm_s = sum(r[0] for r in rows if _is_gemm(r[1]))
 
     # the same steps by CUDA events around each call, with no host read in
     # the loop (stepping a done chain is a no-op), so the host stays ahead
     # of the card and no event pair spans an idle gap
-    est, ebufs = prepared()
-    esteps = step_kernel.chunk(cfg, sched, start, chunk, est, mom, jit, ebufs, True)
-    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    est, ebufs, esteps = _prepared(cfg, sched, states, start, chunk, True)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
              for _ in range(n_steps)]
+    z_new, carry = esteps.begin(est)
     torch.cuda.synchronize()
     for ev in marks:
         ev[0].record()
-        z_new, carry = esteps.begin(est)
-        ev[1].record()
         logp, grad = model.logp_and_grad(z_new)
+        ev[1].record()
+        est, z_new, carry = esteps.advance(est, z_new, carry, logp, grad)
         ev[2].record()
-        est = esteps.finish(est, z_new, carry, logp, grad)
-        ev[3].record()
     torch.cuda.synchronize()
     assert bool(est.done.all()) and bitwise_equal(ebufs.position, bufs.position)
     event_ms = {part: sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / n_steps
-                for i, part in enumerate(("begin", "logp_grad", "finish"))}
+                for i, part in enumerate(("logp_grad", "advance"))}
 
-    # the plain halves, step by step, by CUDA events after a synchronize
-    pst, pbufs = prepared()
-    plain = PlainSteps(cfg, sched, start, chunk, pst, mom, jit, pbufs, True)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    plain_ms = {"begin": 0.0, "finish": 0.0}
-    plain_steps = 0
+    # the plain advance (finish, then begin), step by step, by CUDA events
+    # after a synchronize
+    pst, _, plain = _prepared(cfg, sched, states, start, chunk, True, plain=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    plain_ms, plain_steps = 0.0, 0
+    z_new, carry = plain.begin(pst)
     while not bool(pst.done.all()):
-        torch.cuda.synchronize()
-        ev[0].record()
-        z_new, carry = plain.begin(pst)
-        ev[1].record()
         logp, grad = model.logp_and_grad(z_new)
         torch.cuda.synchronize()
-        ev[2].record()
-        pst = plain.finish(pst, z_new, carry, logp, grad)
-        ev[3].record()
+        ev[0].record()
+        pst, z_new, carry = plain.advance(pst, z_new, carry, logp, grad)
+        ev[1].record()
         torch.cuda.synchronize()
-        plain_ms["begin"] += ev[0].elapsed_time(ev[1])
-        plain_ms["finish"] += ev[2].elapsed_time(ev[3])
+        plain_ms += ev[0].elapsed_time(ev[1])
         plain_steps += 1
 
-    # the whole chunk through the runner at each unroll, in turns
-    unroll_ms = {u: [] for u in UNROLLS}
-    for u in UNROLLS + UNROLLS[::-1]:
-        run = make_chunk_runner(model, cfg, chunk, dtype, adapt_frozen=True, unroll=u)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(states, start, chunk, sched)
-        torch.cuda.synchronize()
-        unroll_ms[u].append(1e3 * (time.perf_counter() - t0))
+    unroll_ms, unroll_steps = _unroll_sweep(model, cfg, sched, states, chunk, start)
 
     work = step_bytes(bufs.scalars, chunk, GLM_CHAINS, n_steps, GLM_DIM,
                       st.ckpt_p.shape[1], 4)
-    t_bytes = 1e3 * work["bytes"] / PEAK_BYTES / n_steps
+    t_bytes = 1e3 * work["advance_bytes"] / PEAK_BYTES / n_steps
     t_ops = 1e3 * step_ops(work, GLM_DIM) / PEAK_F32_OPS / n_steps
-    k2_ms = event_ms["begin"] + event_ms["finish"]
-    ctx.update(step_ms=k2_ms, step_plain_ms=(plain_ms["begin"] + plain_ms["finish"]) / plain_steps,
-               step_bound_ms=max(t_bytes, t_ops),
+    k2_ms = event_ms["advance"]
+    ctx.update(step_ms=k2_ms, step_device_ms=1e3 * k2_s / n_steps,
+               step_plain_ms=plain_ms / plain_steps, step_bound_ms=max(t_bytes, t_ops),
                step_bound_by="bytes" if t_bytes >= t_ops else "operations")
     emit({
         "phase": "step_timing", "chains": GLM_CHAINS, "dim": GLM_DIM, "chunk": chunk,
-        "dtype": "float32", "machine_steps": n_steps,
-        "k2_ms_per_step": k2_ms,
-        "k2_begin_ms_per_step": event_ms["begin"],
-        "k2_finish_ms_per_step": event_ms["finish"],
+        "dtype": "float32", "machine_steps": n_steps, "plan": ctx["glm_plan"]["float32"],
+        "k2_advance_ms_per_step": k2_ms,
         "logp_grad_ms_per_step": event_ms["logp_grad"],
-        "k2_device_ms_per_step": 1e3 * (dev["begin"] + dev["finish"]) / n_steps,
-        "k2_begin_device_ms_per_step": 1e3 * dev["begin"] / n_steps,
-        "k2_finish_device_ms_per_step": 1e3 * dev["finish"] / n_steps,
+        "k2_advance_device_ms_per_step": 1e3 * k2_s / n_steps,
         "logp_grad_device_ms_per_step": 1e3 * logp_s / n_steps,
         "logp_matmul_device_ms_per_step": 1e3 * gemm_s / n_steps,
         "host_wall_ms_per_step_profiled": 1e3 * profiled_wall / n_steps,
-        "plain_begin_ms_per_step": plain_ms["begin"] / plain_steps,
-        "plain_finish_ms_per_step": plain_ms["finish"] / plain_steps,
+        "plain_advance_ms_per_step": plain_ms / plain_steps,
         "plain_machine_steps": plain_steps,
-        "bytes_per_step": work["bytes"] / n_steps, "bytes_bound_ms_per_step": t_bytes,
+        "bytes_per_step": work["advance_bytes"] / n_steps, "bytes_bound_ms_per_step": t_bytes,
         "ops_bound_ms_per_step": t_ops, "share_of_bound": max(t_bytes, t_ops) / k2_ms,
+        "share_of_bound_device": max(t_bytes, t_ops) / (1e3 * k2_s / n_steps),
         **{k: v for k, v in work.items() if k != "bytes"},
-        "unroll_chunk_ms": {str(u): v for u, v in unroll_ms.items()},
+        "unroll_chunk_ms": unroll_ms, "unroll_machine_steps": unroll_steps,
         "top_device_events": [{"name": k[:80], "count": c, "self_device_ms": d * 1e3}
                               for d, k, c in rows[:8]],
         "card": ctx["card"],
@@ -1705,8 +1851,7 @@ def phase_lowrank(ctx):
     sample_module.chunk_to_host = timed(chunk_to_host, "to_host_s")
     try:
         torch.cuda.synchronize()
-        step_kernel.launches = 0
-        chunk_kernel.launches = 0
+        _zero_counts(step_kernel, chunk_kernel)
         t0 = time.perf_counter()
         raw = nt.sample(compiled, adaptation="low_rank", chains=LR_CHAINS, tune=LR_TUNE,
                         draws=LR_DRAWS, mass_matrix_eigval_cutoff=LR_CUTOFF, seed=42,
@@ -1720,8 +1865,9 @@ def phase_lowrank(ctx):
         del step_kernel.chunk
     n_steps = raw["stats"]["n_steps"]
     steps = machine_steps(n_steps, LR_CHUNK, CUDA_UNROLL)
+    chunks = math.ceil((LR_TUNE + LR_DRAWS) / LR_CHUNK)
     assert k1 == 0, f"the chunk kernel launched {k1} times on the low-rank path"
-    assert k2 == 2 * steps, f"step kernel launched {k2} times for {steps} machine steps"
+    _assert_step_launches(step_kernel, chunks, steps, CUDA_UNROLL)
     assert ranks == {LR_RANK}, f"the step kernel ran with metric ranks {ranks}"
     assert [u["end"] for u in updates] == [160, 240], updates
     assert updates[-1]["chains_with_a_kept_slot"] >= 0.9 * LR_CHAINS, updates
@@ -1742,10 +1888,14 @@ def phase_lowrank(ctx):
     proj_ratio = proj.astype(np.float64).var(axis=0) / eigs[[-1, 0]]
     lo, hi = LR_VAR_BAND
     ctx["lr_launches"] = k2
+    ctx["lr_graphs"] = {"launches_per_machine_step": k2 / steps,
+                        "graph_replays": step_kernel.replays,
+                        "capture_s": step_kernel.capture_s}
     emit({
         "phase": "lowrank", "chains": LR_CHAINS, "tune": LR_TUNE, "draws": LR_DRAWS,
         "dim": LR_DIM, "rank": LR_RANK, "chunk_len": LR_CHUNK, "dtype": "float32",
         "step_kernel_launches": k2, "chunk_kernel_launches": k1, "machine_steps": steps,
+        "chunks": chunks, **ctx["lr_graphs"], "unroll": CUDA_UNROLL,
         "eigval_cutoff": LR_CUTOFF, "metric_ranks": sorted(ranks, key=str),
         "boundary_updates": updates, **host,
         "wall_s": wall, "host_wall_ms_per_machine_step": 1e3 * wall / steps,
@@ -1767,121 +1917,82 @@ def phase_lowrank(ctx):
 
 
 def _timed_steps(model, cfg, sched, states, chunk: int):
-    """K2's halves and the logp+grad call per machine step over one frozen
-    chunk from ``states`` (chunk start 0), by CUDA events around each call:
-    a first run counts the steps, the timed run takes exactly that many
-    with no host read between them.  Returns (ms per step by part, steps,
-    the chunk's buffers)."""
+    """K2's advance and the logp+grad call per machine step over one frozen
+    chunk from ``states`` (chunk start 0), launched one by one, by CUDA
+    events around each call: a first run counts the steps, the timed run
+    takes exactly that many with no host read between them.  Returns (ms
+    per step by part, steps, the chunk's buffers)."""
     import torch
 
-    from nutpie_tpu_torch.sampler.nuts import init_buffers, start_draw
-    from nutpie_tpu_torch.sampler.run import CUDA_UNROLL, draw_randoms
-    from nutpie_tpu_torch.sampler.state import state_with
-    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+    from nutpie_tpu_torch.sampler.run import CUDA_UNROLL
 
-    n_chains, _, dim = states.vecs.shape
-    dtype = states.vecs.dtype
-    mom, jit = draw_randoms(states.key, 0, chunk, dim, dtype)
-
-    def prepared():
-        bufs = init_buffers(chunk, dim, dtype, n_chains, device=DEVICE, cfg=cfg)
-        st = start_draw(cfg, sched, state_with(states, done=False),
-                        mom[:, 0], jit[:, 0]).clone()
-        return st, bufs, step_kernel.chunk(cfg, sched, 0, chunk, st, mom, jit, bufs, True)
-
-    st, bufs, steps = prepared()
+    st, bufs, steps = _prepared(cfg, sched, states, 0, chunk, True)
+    z_new, carry = steps.begin(st)
     n_steps = 0
     while True:
-        z_new, carry = steps.begin(st)
         logp, grad = model.logp_and_grad(z_new)
-        st = steps.finish(st, z_new, carry, logp, grad)
+        st, z_new, carry = steps.advance(st, z_new, carry, logp, grad)
         n_steps += 1
         if n_steps % CUDA_UNROLL == 0 and bool(st.done.all()):
             break
-    est, ebufs, esteps = prepared()
-    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(n_steps)]
+    est, ebufs, esteps = _prepared(cfg, sched, states, 0, chunk, True)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(n_steps)]
+    z_new, carry = esteps.begin(est)
     torch.cuda.synchronize()
     for ev in marks:
         ev[0].record()
-        z_new, carry = esteps.begin(est)
-        ev[1].record()
         logp, grad = model.logp_and_grad(z_new)
+        ev[1].record()
+        est, z_new, carry = esteps.advance(est, z_new, carry, logp, grad)
         ev[2].record()
-        est = esteps.finish(est, z_new, carry, logp, grad)
-        ev[3].record()
     torch.cuda.synchronize()
     assert bool(est.done.all()) and bitwise_equal(ebufs.position, bufs.position)
     ms = {part: sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / n_steps
-          for i, part in enumerate(("begin", "logp_grad", "finish"))}
+          for i, part in enumerate(("logp_grad", "advance"))}
     return ms, n_steps, bufs
 
 
 def _device_step_ms(model, cfg, sched, states, chunk: int, max_steps: int) -> dict:
-    """K2's halves and the logp+grad call per machine step by device time
+    """K2's advance and the logp+grad call per machine step by device time
     under ``torch.profiler``, over the first ``max_steps`` steps of the same
     chunk (a host that falls behind the card stretches an event pair, not a
     kernel's device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from nutpie_tpu_torch.sampler.nuts import init_buffers, start_draw
-    from nutpie_tpu_torch.sampler.run import draw_randoms
-    from nutpie_tpu_torch.sampler.state import state_with
-    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
-
-    n_chains, _, dim = states.vecs.shape
-    dtype = states.vecs.dtype
-    mom, jit = draw_randoms(states.key, 0, chunk, dim, dtype)
-    bufs = init_buffers(chunk, dim, dtype, n_chains, device=DEVICE, cfg=cfg)
-    st = start_draw(cfg, sched, state_with(states, done=False), mom[:, 0], jit[:, 0]).clone()
-    steps = step_kernel.chunk(cfg, sched, 0, chunk, st, mom, jit, bufs, True)
+    st, _, steps = _prepared(cfg, sched, states, 0, chunk, True)
+    z_new, carry = steps.begin(st)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(max_steps):
-            z_new, carry = steps.begin(st)
             logp, grad = model.logp_and_grad(z_new)
-            st = steps.finish(st, z_new, carry, logp, grad)
+            st, z_new, carry = steps.advance(st, z_new, carry, logp, grad)
         torch.cuda.synchronize()
     rows = _device_rows(prof)
-    dev = {half: sum(r[0] for r in rows if f"step_{half}" in r[1]) for half in ("begin", "finish")}
-    dev["logp_grad"] = sum(r[0] for r in rows) - dev["begin"] - dev["finish"]
+    k2 = sum(r[0] for r in rows if _is_k2(r[1]))
+    dev = {"advance": k2, "logp_grad": sum(r[0] for r in rows) - k2}
     return {k: 1e3 * v / max_steps for k, v in dev.items()}
 
 
 def _plain_step_ms(model, cfg, sched, states, chunk: int, max_steps: int) -> dict:
-    """The plain halves per machine step by CUDA events after a synchronize,
-    over the first ``max_steps`` steps of the same chunk."""
+    """The plain advance per machine step by CUDA events after a
+    synchronize, over the first ``max_steps`` steps of the same chunk."""
     import torch
 
-    from nutpie_tpu_torch.sampler.nuts import init_buffers, start_draw
-    from nutpie_tpu_torch.sampler.run import draw_randoms
-    from nutpie_tpu_torch.sampler.state import state_with
-    from nutpie_tpu_torch.sampler.step_kernel import PlainSteps
-
-    n_chains, _, dim = states.vecs.shape
-    dtype = states.vecs.dtype
-    mom, jit = draw_randoms(states.key, 0, chunk, dim, dtype)
-    bufs = init_buffers(chunk, dim, dtype, n_chains, device=DEVICE, cfg=cfg)
-    st = start_draw(cfg, sched, state_with(states, done=False), mom[:, 0], jit[:, 0]).clone()
-    plain = PlainSteps(cfg, sched, 0, chunk, st, mom, jit, bufs, True)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    out = {"begin": 0.0, "finish": 0.0}
-    n = 0
+    st, _, plain = _prepared(cfg, sched, states, 0, chunk, True, plain=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    total, n = 0.0, 0
+    z_new, carry = plain.begin(st)
     while n < max_steps and not bool(st.done.all()):
-        torch.cuda.synchronize()
-        ev[0].record()
-        z_new, carry = plain.begin(st)
-        ev[1].record()
         logp, grad = model.logp_and_grad(z_new)
         torch.cuda.synchronize()
-        ev[2].record()
-        st = plain.finish(st, z_new, carry, logp, grad)
-        ev[3].record()
+        ev[0].record()
+        st, z_new, carry = plain.advance(st, z_new, carry, logp, grad)
+        ev[1].record()
         torch.cuda.synchronize()
-        out["begin"] += ev[0].elapsed_time(ev[1])
-        out["finish"] += ev[2].elapsed_time(ev[3])
+        total += ev[0].elapsed_time(ev[1])
         n += 1
-    return {k: v / n for k, v in out.items()} | {"steps": n}
+    return {"advance": total / n, "steps": n}
 
 
 def _bmm_metric_ms(basis, reps: int = 50) -> float:
@@ -1935,31 +2046,30 @@ def lowrank_step_timing(ctx):
         work = step_bytes(bufs.scalars, chunk, LR_CHAINS, n_steps, LR_DIM,
                           st.ckpt_p.shape[1], 4, rank=rank,
                           streamed=plan.form == "streamed")
-        t_bytes = 1e3 * work["bytes"] / PEAK_BYTES / n_steps
+        t_bytes = 1e3 * work["advance_bytes"] / PEAK_BYTES / n_steps
         t_ops = 1e3 * step_ops(work, LR_DIM, rank) / PEAK_F32_OPS / n_steps
-        k2_ms = ms["begin"] + ms["finish"]
+        k2_ms = ms["advance"]
         out[tag] = {
-            "rank": rank, "machine_steps": n_steps, "k2_ms_per_step": k2_ms,
-            "k2_begin_ms_per_step": ms["begin"], "k2_finish_ms_per_step": ms["finish"],
+            "rank": rank, "machine_steps": n_steps, "k2_advance_ms_per_step": k2_ms,
             "logp_grad_ms_per_step": ms["logp_grad"],
-            "k2_device_ms_per_step": device["begin"] + device["finish"],
-            "k2_begin_device_ms_per_step": device["begin"],
-            "k2_finish_device_ms_per_step": device["finish"],
+            "k2_advance_device_ms_per_step": device["advance"],
             "logp_grad_device_ms_per_step": device["logp_grad"],
             "device_steps": LR_DEVICE_STEPS,
-            "plain_begin_ms_per_step": plain["begin"],
-            "plain_finish_ms_per_step": plain["finish"], "plain_machine_steps": plain["steps"],
-            "bytes_per_step": work["bytes"] / n_steps, "bytes_bound_ms_per_step": t_bytes,
+            "plain_advance_ms_per_step": plain["advance"], "plain_machine_steps": plain["steps"],
+            "bytes_per_step": work["advance_bytes"] / n_steps, "bytes_bound_ms_per_step": t_bytes,
             "ops_bound_ms_per_step": t_ops, "share_of_bound": max(t_bytes, t_ops) / k2_ms,
+            "share_of_bound_device": max(t_bytes, t_ops) / device["advance"],
             **{k: v for k, v in work.items() if k != "bytes"},
         }
         if tag == "rank32":
+            out[tag]["unroll_chunk_ms"], out[tag]["unroll_machine_steps"] = _unroll_sweep(
+                model, c, sched, st, chunk)
             apps = (2 * work["leapfrogs"] + 2 * (work["draws"] - LR_CHAINS)) / LR_CHAINS
             library = bmm_ms * apps / n_steps
             out[tag].update(metric_applications_per_step=apps / n_steps,
                             library_metric_ms_per_step=library)
-            ctx.update(lr_step_ms=k2_ms, lr_step_device_ms=device["begin"] + device["finish"],
-                       lr_step_plain_ms=plain["begin"] + plain["finish"],
+            ctx.update(lr_step_ms=k2_ms, lr_step_device_ms=device["advance"],
+                       lr_step_plain_ms=plain["advance"],
                        lr_step_bound_ms=max(t_bytes, t_ops), lr_library_ms=library,
                        lr_step_bound_by="bytes" if t_bytes >= t_ops else "operations")
     emit({"phase": "step_timing_lowrank", "chains": LR_CHAINS, "dim": LR_DIM,
@@ -2006,6 +2116,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
 
+    start = time.perf_counter()
     ctx: dict = {}
     asked = {p for p in args.phases.split(",") if p}
     asked |= {"build"} | {n for p in asked for n in NEEDS.get(p, ())}
@@ -2021,7 +2132,7 @@ def main() -> int:
             print(f"chip_smoke: phase {name} failed", file=sys.stderr, flush=True)
             failed.append(name)
         seconds[name] = round(time.perf_counter() - t0, 1)
-    emit({"phase_seconds": seconds})
+    emit({"phase_seconds": seconds, "total_s": round(time.perf_counter() - start, 1)})
     if failed:
         print(f"chip_smoke: failed phases {failed}; no result line", file=sys.stderr)
         return 1
@@ -2061,11 +2172,15 @@ def main() -> int:
             "bound_by": ctx["step_bound_by"],
             "library_ms": None,
             "ms_per_machine_step": ctx["step_ms"],
+            "device_ms": ctx["step_device_ms"],
+            **ctx["glm_graphs"],
+            "plan": ctx["glm_plan"]["float32"],
             "parity": "ok",
             "low_rank_branch": {
                 "shapes": f"{LR_CHAINS} chains, dim {LR_DIM}, rank {LR_RANK}, float32",
                 "plan": ctx["lr_plan"],
                 "launches": ctx["lr_launches"],
+                **ctx["lr_graphs"],
                 "max_abs_err": ctx["lr_max_abs_err"],
                 "ms": ctx["lr_step_ms"],
                 "device_ms": ctx["lr_step_device_ms"],

@@ -12,6 +12,7 @@
 // over rows that all stay in global memory (diag_adapt_update_strided).
 #pragma once
 
+#include "group.cuh"
 #include "warp.cuh"
 
 namespace nutpie {
@@ -207,37 +208,51 @@ __device__ __forceinline__ void diag_adapt_update(
 }
 
 // The same update for a chain whose rows all stay in global memory and
-// whose threads (a group of group.cuh) stride over any number of
-// coordinates (the step kernel): the inverse mass is the A_INV_MASS row of
+// whose threads (a group of group.cuh) own chunks of N coordinates
+// (each_chunk; at most KC a thread, or any number at KC = 0), as in every
+// other loop of the step kernel: the inverse mass is the A_INV_MASS row of
 // `av`, and the estimate is recomputed from the written m2 rows instead of
 // held in registers.
-template <typename T, typename G>
+template <typename T, int N, int KC, typename G>
 __device__ __forceinline__ void diag_adapt_update_strided(
     const G& g, const MkConfig& cfg, const Sched& s, T* av, T* af,
     const T* x, const T* gr, int draw_idx, bool diverging, T accept) {
   const int dim = cfg.dim;
+  const int n_chunks = dim / N;
   bool fin = true;
-  for (int i = g.rank; i < dim; i += G::kThreads) {
-    fin = fin && isfinite(x[i]) && isfinite(gr[i]);
-  }
+  each_chunk<KC>(g, n_chunks, [&](int, int c) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int i = c * N + k;
+      fin = fin && isfinite(x[i]) && isfinite(gr[i]);
+    }
+  });
   const bool ok = g.all(fin) && !diverging;
   const AdaptWindow<T> w(cfg, s, af, draw_idx, ok);
 
   bool est_fin = true;
-  for (int i = g.rank; i < dim; i += G::kThreads) {
-    T dv, gv;
-    welford_coord(w, ok, av + i, dim, x[i], gr[i], dv, gv);
-    est_fin = est_fin && isfinite(mass_estimate(cfg, w, dv, gv));
-  }
+  each_chunk<KC>(g, n_chunks, [&](int, int c) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int i = c * N + k;
+      T dv, gv;
+      welford_coord(w, ok, av + i, dim, x[i], gr[i], dv, gv);
+      est_fin = est_fin && isfinite(mass_estimate(cfg, w, dv, gv));
+    }
+  });
   const bool use_est = g.all(est_fin) && w.dcur > T(2);
 
   T ratio = -T(INFINITY);
-  for (int i = g.rank; i < dim; i += G::kThreads) {
-    const T est = mass_estimate(cfg, w, av[A_DRAWS_CUR_M2 * dim + i],
-                                av[A_GRADS_CUR_M2 * dim + i]);
-    T* im = av + A_INV_MASS * dim + i;
-    *im = mass_update(cfg, w, use_est, est, *im, ratio);
-  }
+  each_chunk<KC>(g, n_chunks, [&](int, int c) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int i = c * N + k;
+      const T est = mass_estimate(cfg, w, av[A_DRAWS_CUR_M2 * dim + i],
+                                  av[A_GRADS_CUR_M2 * dim + i]);
+      T* im = av + A_INV_MASS * dim + i;
+      *im = mass_update(cfg, w, use_est, est, *im, ratio);
+    }
+  });
   ratio = g.max(ratio);
   adapt_scalars(cfg, w, af, ratio, accept);
 }

@@ -91,6 +91,11 @@ struct MkConfig {
   int32_t lr_streamed;  // 1: the basis streams through a ring; 0: staged whole
   int32_t lr_tma;       // 1: tiles arrive by bulk copy; 0: by the warps' loads
   int32_t lr_grid;      // persistent blocks of a launch
+  // the step kernel's diagonal plan (sampler/step_kernel.py:diag_plan):
+  int32_t step_lanes;  // lanes a chain: 8, 16 or 32
+  int32_t step_vec;    // coordinates a chunk, moved by one load or store
+  int32_t step_held;   // chunks a thread holds in registers (0: any number)
+  int32_t step_grid;   // blocks of a launch
 };
 
 // Device pointers of one launch.  State tensors are updated in place.

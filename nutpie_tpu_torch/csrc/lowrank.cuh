@@ -20,14 +20,14 @@
 //   - staged (the basis fits beside the block's other shared memory, one
 //     block an SM): each warp's lane 0 issues a TMA bulk copy
 //     (cp.async.bulk, completion on one mbarrier per tile) of every tile
-//     its warp reads; every application of the launch (the drift; the new
-//     point's velocity; a new draw's momentum and its velocity) reads the
-//     staged tiles.  The blocks are persistent (step_kernel.cu), and as soon
-//     as a chain's last pass is done each warp sends its tiles of the
-//     block's next active chain on their way (`prefetch`), so the next
-//     basis arrives while the block finishes this chain and reads the next
-//     one's scalars and rows.  A draw's start after the prefetch stages
-//     its own chain's basis again (once per draw);
+//     its warp reads; every application of the launch (the new point's
+//     velocity; a new draw's momentum and its velocity; the next step's
+//     drift) reads the staged tiles, so a machine step reads a chain's
+//     basis once.  The blocks are persistent (step_kernel.cu), and as soon
+//     as a chain's last pass of the launch is done each warp sends its
+//     tiles of the block's next active chain on their way (`prefetch`), so
+//     the next basis arrives while the block finishes this chain and reads
+//     the next one's scalars and rows;
 //   - streamed (it does not fit, e.g. float64 at dim 1000, R 32): each warp
 //     streams its tiles through a ring of kRingStages slots of its own, a
 //     bulk copy kRingStages tiles ahead of the one it reads, once for the
@@ -148,8 +148,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // r holds log_eig_r; lanes >= R hold 0).  A block runs chain after chain
 // (step_kernel.cu); `begin_chain` takes up the next.  A pass over the basis
 // is a loop over the warp's tiles, t = warp, warp + kLrWarps, ...:
-// `tile(t)` before the tile's rows are read, `release(t)` after, and
-// `rewind()` before every pass of a chain but its first.  Staged by TMA,
+// `pass()` before it, `tile(t)` before the tile's rows are read and
+// `release(t)` after.  Staged by TMA,
 // the block's next active chain's basis sets out into the tiles as soon as
 // the chain is done with them (`prefetch`), so that it arrives while the
 // block finishes this chain and reads the next one's scalars and rows.
@@ -166,6 +166,7 @@ struct LowRank {
   int chain = -1;   // the chain the block runs
   int next = -1;    // the block's next active chain (-1: none in sight)
   int staged = -1;  // staged: the chain whose basis the tiles hold or are receiving
+  bool fresh = false;  // the chain's first pass is still to come
   uint32_t stagings = 0;           // staged by TMA: the warp's stagings issued
   uint32_t fetched = 0, used = 0;  // streamed: the warp's tile copies issued, and read
   T log_eig = T(0);
@@ -232,6 +233,17 @@ struct LowRank {
       rewind();
     } else {
       use(c);
+    }
+    fresh = true;
+  }
+
+  // Before each pass over the chain's basis: its first pass finds the
+  // tiles begin_chain set out; every later one streams them anew.
+  __device__ __forceinline__ void pass() {
+    if (fresh) {
+      fresh = false;
+    } else {
+      rewind();
     }
   }
 

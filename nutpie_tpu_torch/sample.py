@@ -12,8 +12,9 @@ Route: one decision, taken before anything runs (``route``).  A model
 with a ``kernel_model`` (radon) whose configuration the chunk kernel K1
 supports runs each chunk as one K1 launch; any other model whose
 configuration the step kernel K2 supports runs through the step runner
-(``sampler/run.py:make_chunk_runner``), two K2 launches around one batched
-torch logp per machine step; anything else raises ``NotImplementedError``
+(``sampler/run.py:make_chunk_runner``), one batched torch logp and one K2
+launch per machine step, replayed from a CUDA graph on the card; anything
+else raises ``NotImplementedError``
 naming its ``ROADMAP.md`` item.  The route is the same on every device:
 ``device=None`` means CUDA, where the kernels run, and ``device="cpu"``
 runs their plain versions.  ``precision="auto"`` is float32 on CUDA and

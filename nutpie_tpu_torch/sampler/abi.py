@@ -4,7 +4,8 @@
 the static configuration both kernels take (the radon sizes are used by
 the chunk kernel only and stay 0 for the step kernel; the low-rank
 metric's rank ``lr_rank`` and its launch plan, ``lr_streamed`` to
-``lr_grid``, are the step kernel's and stay 0 for the chunk kernel).  The schedule
+``lr_grid``, and the diagonal plan, ``step_lanes`` to ``step_grid``, are
+the step kernel's and stay 0 for the chunk kernel).  The schedule
 scalars travel as one int32 tensor on the device, so a ``depth_cap`` that
 lives on the device needs no host round trip.
 """
@@ -52,6 +53,10 @@ class MkConfig(ctypes.Structure):
         ("lr_streamed", ctypes.c_int32),
         ("lr_tma", ctypes.c_int32),
         ("lr_grid", ctypes.c_int32),
+        ("step_lanes", ctypes.c_int32),
+        ("step_vec", ctypes.c_int32),
+        ("step_held", ctypes.c_int32),
+        ("step_grid", ctypes.c_int32),
     ]
 
 
@@ -59,7 +64,7 @@ def sampler_config(cfg: NutsConfig, n_chains: int, dim: int, depth_slots: int,
                    chunk_len: int, adapt_frozen: bool, **model_sizes) -> MkConfig:
     """``MkConfig`` from the sampler's configuration; ``model_sizes`` sets
     the radon fields (``n_counties``, ``n_obs``, ``n_seg``, ``obs_rows``)
-    or the step kernel's ``lr_*`` fields."""
+    or the step kernel's ``lr_*`` and ``step_*`` fields."""
     ac = cfg.adapt
     return MkConfig(
         max_energy_error=cfg.max_energy_error,

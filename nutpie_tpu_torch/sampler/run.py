@@ -16,8 +16,10 @@ loops where the JAX package used ``while_loop``:
 - ``draw_randoms``: the per-draw momentum normals and jitter uniforms,
   keyed by absolute draw index, so streams do not depend on chunking.
 - ``make_chunk_runner``: the chunk runner of every model without a
-  device-side log density, a host loop of machine steps, each the step
-  kernel's two launches around one batched ``model.logp_and_grad``.
+  device-side log density: the step kernel's ``begin``, then machine
+  steps, each one batched ``model.logp_and_grad`` and the kernel's
+  ``advance``; on the card ``unroll`` of them are captured once per chunk
+  in a CUDA graph and replayed.
 
 Randomness derives from ``fold_in`` chains of the per-chain key exactly as
 in the JAX package, so both draw the same numbers from the same seed.
@@ -26,6 +28,7 @@ in the JAX package, so both draw the same numbers from the same seed.
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
@@ -44,11 +47,12 @@ from .nuts import (
     start_draw,
 )
 from .state import NutsMachineState, state_with, tree_where, where
-from .step_kernel import PlainSteps, step_kernel
+from .step_kernel import KernelSteps, PlainSteps, StepGraph, step_kernel
 
-# machine steps between two "all done?" reads on the card (one small
-# device-to-host copy each); on the CPU every step checks
-CUDA_UNROLL = 4
+# machine steps a CUDA graph holds, replayed between two "all done?" reads
+# on the card (one small device-to-host copy each); on the CPU every step
+# checks
+CUDA_UNROLL = 8
 
 
 def resolve_dtype(precision: str, device) -> torch.dtype:
@@ -311,12 +315,22 @@ class StepChunkRunner:
     pooling at the chunk's start, the per-draw randoms, ``start_draw``,
     then machine steps until every chain has produced ``limit`` draws, then
     the trapped-chain rescue after warmup chunks and the low-rank metric's
-    update (``update_low_rank``).  Each machine step is the
-    step kernel's ``begin``, one ``model.logp_and_grad`` over all chains,
-    and its ``finish``.  A done chain is fully masked, so stepping past
-    the last chain's end is a no-op, and the loop reads "all done" only
-    every ``unroll`` steps.  ``plain=True`` runs the kernel's plain version
-    on any device (the comparisons on the card use it).
+    update (``update_low_rank``).  The step kernel's ``begin`` takes the
+    chunk's first step up to the log density; each machine step is then one
+    ``model.logp_and_grad`` over all chains and the kernel's ``advance``
+    (the step's second half and the next step's first), the same arithmetic
+    in the same order as the plain halves.  A done chain is fully masked, so
+    stepping past the last chain's end is a no-op, and the loop reads "all
+    done" only every ``unroll`` steps.
+
+    On the card those ``unroll`` machine steps, the log density with its
+    autograd and the ``advance`` launch, are captured once per chunk in a
+    CUDA graph (``StepGraph``; the run's graphs share one memory pool) and
+    replayed until every chain is done.  The capture is the card's path:
+    a log density that cannot be captured (one that syncs with the host,
+    or copies host data to the device after its first call) raises.
+    ``plain=True`` runs the kernel's plain version, step by step, on any
+    device (the comparisons on the card use it).
     """
 
     def __init__(self, model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
@@ -332,6 +346,8 @@ class StepChunkRunner:
         self.adapt_frozen = adapt_frozen
         self.pool_step_size = pool_step_size
         self.plain = plain
+        # the memory pool of the run's graphs, kept by its last graph
+        self._pool = self._graph = None
 
     def __call__(self, states: NutsMachineState, chunk_start: int, limit: int,
                  sched: Schedule):
@@ -350,17 +366,58 @@ class StepChunkRunner:
                 self.adapt_frozen)
         steps = PlainSteps(*args) if self.plain else step_kernel.chunk(*args)
         unroll = self.unroll or (CUDA_UNROLL if states.vecs.is_cuda else 1)
-        while True:
-            for _ in range(unroll):
-                z_new, carry = steps.begin(states)
-                logp, grad = self.model.logp_and_grad(z_new)
-                states = steps.finish(states, z_new, carry, logp, grad)
-            if bool(states.done.all()):
-                break
+        z_new, carry = steps.begin(states)
+        if isinstance(steps, KernelSteps):
+            graph = self._capture(steps, states, z_new, unroll)
+            while True:
+                graph.replay()
+                if bool(states.done.all()):
+                    break
+        else:
+            while True:
+                for _ in range(unroll):
+                    logp, grad = self.model.logp_and_grad(z_new)
+                    states, z_new, carry = steps.advance(states, z_new, carry, logp, grad)
+                if bool(states.done.all()):
+                    break
         if not self.adapt_frozen:
             states = rescue_trapped(states, chunk_start, limit, sched)
         states = update_low_rank(cfg, states, bufs, chunk_start, limit, sched)
         return states, bufs
+
+    def _capture(self, steps: KernelSteps, states: NutsMachineState, z_new,
+                 unroll: int) -> StepGraph:
+        """``unroll`` machine steps of this chunk in a CUDA graph; the log
+        density runs once first on a side stream (torch's warm-up before a
+        capture), which also builds its per-device constants."""
+        t0 = time.perf_counter()
+        device = states.vecs.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self.model.logp_and_grad(z_new)
+        torch.cuda.current_stream(device).wait_stream(side)
+
+        def machine_steps():
+            z = z_new
+            for _ in range(unroll):
+                logp, grad = self.model.logp_and_grad(z)
+                _, z, _ = steps.advance(states, z, None, logp, grad)
+
+        graph = StepGraph(step_kernel, device)
+        try:
+            graph.capture(machine_steps, self._pool)
+        except Exception as err:
+            name = getattr(self.model.logp_fn, "__qualname__", repr(self.model.logp_fn))
+            raise RuntimeError(
+                f"the log density {name} cannot be captured in a CUDA graph, which "
+                f"the step runner on the card replays: {err}.  A captured log density "
+                "keeps its constants on the device (built once per device and dtype), "
+                "makes no host sync and copies no host data to the device after its "
+                "first call") from err
+        self._pool, self._graph = graph.graph.pool(), graph
+        step_kernel.capture_s += time.perf_counter() - t0
+        return graph
 
 
 def make_chunk_runner(model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
@@ -368,8 +425,9 @@ def make_chunk_runner(model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
                       adapt_frozen: bool = False, pool_step_size: bool = False,
                       plain: bool = False) -> StepChunkRunner:
     """Build the step runner (the JAX function's call semantics, without its
-    flow branch).  ``unroll=None`` checks for the chunk's end
-    every ``CUDA_UNROLL`` steps on the card and every step on the CPU."""
+    flow branch).  ``unroll=None`` captures ``CUDA_UNROLL`` machine steps a
+    graph on the card and checks for the chunk's end every step on the
+    CPU."""
     return StepChunkRunner(model, cfg, chunk_len, dtype,
                            pool_mass_matrix=pool_mass_matrix, unroll=unroll,
                            adapt_frozen=adapt_frozen, pool_step_size=pool_step_size,

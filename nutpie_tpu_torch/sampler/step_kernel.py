@@ -1,29 +1,38 @@
 """Wrapper of the CUDA step kernel (K2): the machine step around a torch logp.
 
-``csrc/step_kernel.cu`` runs one machine step as two launches,
-``step_begin`` (uniforms, direction, the slot-(D-1) stash, first
-half-kick, drift; writes ``z_new``) and ``step_finish`` (everything after
-the gradient), around one batched ``model.logp_and_grad(z_new)`` call.
-The plain version is the pair ``nuts.leapfrog_begin`` /
-``nuts.leapfrog_finish``.
+A machine step splits at the log density into a first half (uniforms,
+direction, the slot-(D-1) stash, first half-kick, drift; writes ``z_new``)
+and a second half (everything after the gradient).  ``csrc/step_kernel.cu``
+runs them as one launch per machine step: ``advance`` takes the second half
+of step k and the first half of step k + 1 for every chain, after one
+batched ``model.logp_and_grad(z_new)``; ``begin`` runs a chunk's first
+first half alone.  The plain version is ``nuts.leapfrog_begin`` and, for
+``advance``, ``nuts.leapfrog_finish`` followed by ``nuts.leapfrog_begin``.
 
 ``step_kernel.chunk(...)`` prepares one chunk and returns its steps:
 
 - on CUDA tensors, ``KernelSteps``: it checks device, dtype, shape and
-  contiguity once, allocates the chunk's scratch (``z_new [C, dim]``, the
-  step's uniforms ``[C, 3]``, the stagnant flags ``[C]`` and, under the
-  low-rank metric, the velocities the kernel keeps beside the trajectory's
-  edges and checkpoints, ``[C, 2, dim]`` and ``[C, D, dim]``, filled here
-  from the chunk's starting state by the plain metric) with
-  ``torch.empty``, and each ``begin``/``finish`` launches the kernel on
-  the current stream, raising if the launch fails.  The kernel updates
-  the chunk's state tensors and buffers **in place**: the caller hands it
-  a state of its own (the chunk runner clones once per chunk) and gets
-  the same tensors back.  ``z_new`` is rewritten at every step, so a log
-  density must not keep its input;
+  contiguity once, decides the launch (``diag_plan`` for the diagonal
+  metric, ``low_rank_plan`` for the low-rank one), allocates the chunk's
+  scratch (``z_new [C, dim]``, the step's uniforms ``[C, 3]``, the stagnant
+  flags ``[C]`` and, under the low-rank metric, the velocities the kernel
+  keeps beside the trajectory's edges and checkpoints, ``[C, 2, dim]`` and
+  ``[C, D, dim]``, filled here from the chunk's starting state by the plain
+  metric) with ``torch.empty``, and each ``begin``/``advance`` launches the
+  kernel on the current stream, raising if the launch fails.  The kernel
+  updates the chunk's state tensors and buffers **in place**: the caller
+  hands it a state of its own (the chunk runner clones once per chunk) and
+  gets the same tensors back.  ``z_new`` is rewritten at every step, so a
+  log density must not keep its input.  The launches may be captured in a
+  CUDA graph (``StepGraph``): a launch takes torch's current stream, the
+  capture stream under capture, and its arguments are fixed at capture;
 - on CPU tensors, ``PlainSteps``: the plain halves, with the uniforms from
   a ``LeapfrogUniformTable``.
 
+The diagonal metric runs ``diag_plan``'s form: held, 8 (float32) or 16
+(float64) lanes of a warp per chain, each thread owning at most two chunks
+of coordinates moved by 16-byte vector loads, where dim <= 64 allows; or
+strided, 32 lanes per chain over any dim.
 Under low-rank adaptation the state carries the metric (``lr_basis [C,
 dim, R]``, ``lr_log_eigs [C, R]``, R <= 32) and the kernel takes its
 low-rank branch: a block of ``LR_WARPS`` warps per chain with the chain's
@@ -31,13 +40,15 @@ basis in shared memory.  ``low_rank_plan`` decides how, from the shapes
 and the card's shared memory, before anything runs: the whole basis
 staged once per launch where it fits, or streamed through a ring of tiles
 where it does not; by TMA bulk copies where a chain's basis is 16-byte
-aligned, by the warps' own loads where not.  R and the plan travel in
-``MkConfig`` (``lr_rank`` 0 for the diagonal metric).  The commit also
-writes the optional buffers the chunk has (``gradient``,
+aligned, by the warps' own loads where not.  Both plans travel in
+``MkConfig`` (``lr_rank`` 0 for the diagonal metric), and the kernel
+refuses a launch whose plan or rows do not match what it was built for.
+The commit also writes the optional buffers the chunk has (``gradient``,
 ``mass_matrix_inv``, ``mass_matrix_eigvals``).
 
-There is no fallback between the two.  ``launches`` counts kernel
-launches (two per machine step) and nothing else.
+There is no fallback between the two.  ``launches`` counts the kernel's
+launches the card executes (one per machine step and one per chunk),
+graph replays included, and nothing else.
 """
 
 from __future__ import annotations
@@ -166,12 +177,70 @@ def low_rank_plan(n_chains: int, dim: int, rank: int, itemsize: int, smem_per_bl
         chains_per_block=-(-n_chains // min(n_chains, blocks * sm_count)))
 
 
-def plan_fields(plan: Optional[LowRankPlan]) -> dict:
-    """The plan's ``MkConfig`` fields (all 0 without one)."""
-    if plan is None:
-        return {"lr_streamed": 0, "lr_tma": 0, "lr_grid": 0}
-    return {"lr_streamed": int(plan.form == "streamed"), "lr_tma": int(plan.copy == "tma"),
-            "lr_grid": plan.grid}
+# the diagonal instantiations (csrc/step_kernel.cu: DiagForms): threads a
+# block, and the chunks a thread of the held form owns in registers
+BLOCK_THREADS = 128
+HELD = 2
+
+
+def diag_forms(itemsize: int) -> tuple:
+    """(lanes a chain, coordinates a chunk, chunks held) of each diagonal
+    instantiation, in ``DiagForms``' order: held (16-byte chunks, as many
+    lanes as tile a warp's 32 coordinates) and strided (32 lanes, single
+    coordinates, any number a thread)."""
+    vec = 16 // itemsize
+    return ((32 // vec, vec, HELD), (32, 1, 0))
+
+
+@dataclass(frozen=True)
+class DiagPlan:
+    """How the diagonal instantiations run one launch (``diag_plan``)."""
+
+    form: str              # "held" or "strided"
+    lanes: int             # lanes of a warp per chain: 8 or 16 held, 32 strided
+    vec: int               # coordinates a chunk, moved by one load or store
+    held: int              # chunks a thread holds in registers (0: any number)
+    coords_per_lane: int   # the most coordinates a thread owns
+    chains_per_block: int
+    grid: int              # blocks of a launch
+    one_wave_blocks_per_sm: int  # resident blocks an SM needs to run the grid in one wave
+
+
+def diag_plan(n_chains: int, dim: int, itemsize: int, sm_count: int) -> DiagPlan:
+    """The diagonal launch for these shapes on a card with ``sm_count`` SMs.
+
+    The held form where ``dim`` is a multiple of the 16-byte chunk (4
+    coordinates in float32, 2 in float64) and each of its 8 (float32) or
+    16 (float64) lanes owns at most ``HELD`` chunks, that is dim <= 64:
+    a lane then owns 2-8 coordinates, several chains share a warp, and
+    the next step's drift stays in registers.  Else the strided form, 32
+    lanes striding over any dim."""
+    if n_chains < 1 or dim < 1 or sm_count < 1 or itemsize not in (4, 8):
+        raise ValueError(f"diagonal plan of {n_chains} chains, dim {dim}, "
+                         f"{itemsize}-byte values, {sm_count} SMs")
+    held_form, strided_form = diag_forms(itemsize)
+    lanes, vec, held = held_form
+    form = "held"
+    if dim % vec or dim // vec > held * lanes:
+        (lanes, vec, held), form = strided_form, "strided"
+    per_block = BLOCK_THREADS // lanes
+    grid = -(-n_chains // per_block)
+    return DiagPlan(form=form, lanes=lanes, vec=vec, held=held,
+                    coords_per_lane=vec * -(-(dim // vec) // lanes),
+                    chains_per_block=per_block, grid=grid,
+                    one_wave_blocks_per_sm=-(-grid // sm_count))
+
+
+def plan_fields(plan) -> dict:
+    """A plan's ``MkConfig`` fields (``LowRankPlan`` or ``DiagPlan``); the
+    other plan's stay 0."""
+    if isinstance(plan, LowRankPlan):
+        return {"lr_streamed": int(plan.form == "streamed"), "lr_tma": int(plan.copy == "tma"),
+                "lr_grid": plan.grid}
+    if isinstance(plan, DiagPlan):
+        return {"step_lanes": plan.lanes, "step_vec": plan.vec, "step_held": plan.held,
+                "step_grid": plan.grid}
+    return {}
 
 
 class StepPtrs(ctypes.Structure):
@@ -185,21 +254,23 @@ class StepPtrs(ctypes.Structure):
     )]
 
 
-# what nutpie_step_geometry_* reports, in its order: the diagonal
-# instantiations, the low-rank ones, then for a low-rank plan its dynamic
-# shared memory and the blocks of each half an SM holds
-GEOMETRY_FIELDS = ("begin_registers", "begin_local_bytes", "finish_registers",
-                   "finish_local_bytes", "threads_per_block",
-                   "lr_begin_registers", "lr_begin_local_bytes",
-                   "lr_finish_registers", "lr_finish_local_bytes", "lr_threads_per_block",
-                   "lr_smem_bytes", "lr_begin_blocks_per_sm", "lr_finish_blocks_per_sm")
+# what nutpie_step_geometry_* reports, in its order: for each diagonal form
+# (``diag_forms``' order) its registers and spill bytes a thread and the
+# blocks an SM holds, their threads a block; the low-rank instantiation's
+# registers, spill bytes and threads, then for a low-rank plan its dynamic
+# shared memory and the blocks an SM holds
+DIAG_FORM_TAGS = ("held", "strided")
+GEOMETRY_FIELDS = tuple(f"{tag}_{field}" for tag in DIAG_FORM_TAGS
+                        for field in ("registers", "local_bytes", "blocks_per_sm")) + (
+    "threads_per_block", "lr_registers", "lr_local_bytes", "lr_threads_per_block",
+    "lr_smem_bytes", "lr_blocks_per_sm")
 # what nutpie_step_device reports, in its order
 DEVICE_FIELDS = ("smem_per_block", "smem_per_sm", "sm_count", "reserved_per_block")
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of the kernel library's entry points."""
-    for half in ("begin", "finish"):
+    for half in ("begin", "advance"):
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"nutpie_step_{half}_{sfx}")
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -230,13 +301,15 @@ class PlainSteps:
     def begin(self, states: NutsMachineState):
         return leapfrog_begin(self.cfg, states, self.uniforms)
 
-    def finish(self, states: NutsMachineState, z_new, carry, logp, grad):
+    def advance(self, states: NutsMachineState, z_new, carry, logp, grad):
+        """The step's second half, then the next step's first:
+        ``(states, z_new, carry)``."""
         states, _ = leapfrog_finish(
             self.cfg, self.sched, self.mom, self.jit, self.chunk_start,
             self.limit, states, z_new, carry, logp, grad, self.bufs,
             self.adapt_frozen,
         )
-        return states
+        return (states, *leapfrog_begin(self.cfg, states, self.uniforms))
 
 
 def metric_rank(cfg: NutsConfig, states: NutsMachineState) -> int:
@@ -302,16 +375,18 @@ class KernelSteps:
         self.device = states.vecs.device
         C, _, dim = states.vecs.shape
         self.shape = (C, dim)
-        # the low-rank launch, decided here before anything runs
-        self.plan = None if R == 0 else owner.plan(
-            C, dim, R, self.dtype, self.device,
-            aligned=states.lr_basis.data_ptr() % 16 == 0)
+        # the launch, decided here before anything runs
+        if R:
+            self.plan = owner.plan(C, dim, R, self.dtype, self.device,
+                                   aligned=states.lr_basis.data_ptr() % 16 == 0)
+        else:
+            self.plan = owner.diag_plan(C, dim, self.dtype, self.device)
         self.cfg = sampler_config(cfg, C, dim, states.ckpt_p.shape[1],
                                   mom.shape[1], adapt_frozen, lr_rank=R,
                                   **plan_fields(self.plan))
         sfx = dtype_suffix(self.dtype)
         self.fns = {half: getattr(self.lib, f"nutpie_step_{half}_{sfx}")
-                    for half in ("begin", "finish")}
+                    for half in ("begin", "advance")}
         # the chunk's scratch, and everything the pointers below refer to
         self.z_new = torch.empty((C, dim), dtype=self.dtype, device=self.device)
         self.u3 = torch.empty((C, 3), dtype=torch.float32, device=self.device)
@@ -342,17 +417,24 @@ class KernelSteps:
             raise ValueError("the step kernel updates its chunk's state in place; "
                              "pass the state the chunk was prepared with")
         with torch.cuda.device(self.device):
+            # the current stream: the capture stream while a graph captures
             stream = torch.cuda.current_stream(self.device).cuda_stream
             code = self.fns[half](ctypes.byref(self.cfg), ctypes.byref(self.ptrs),
                                   ctypes.c_void_p(stream))
         raise_on(self.lib, code, f"step kernel {half} launch")
-        self.owner.launches += 1
+        # a captured launch runs, and counts, at each replay of its graph
+        if torch.cuda.is_current_stream_capturing():
+            self.owner.captured += 1
+        else:
+            self.owner.launches += 1
 
     def begin(self, states: NutsMachineState):
         self._launch("begin", states)
         return self.z_new, None
 
-    def finish(self, states: NutsMachineState, z_new, carry, logp, grad):
+    def advance(self, states: NutsMachineState, z_new, carry, logp, grad):
+        """The step's second half, then the next step's first:
+        ``(states, z_new, carry)`` (the same tensors, updated)."""
         C, dim = self.shape
         if tuple(logp.shape) != (C,) or tuple(grad.shape) != (C, dim):
             raise ValueError(f"log density gave shapes {tuple(logp.shape)} and "
@@ -361,17 +443,58 @@ class KernelSteps:
             raise ValueError("the log density's outputs must be on the state's device")
         logp = logp.detach().to(self.dtype).contiguous()
         grad = grad.detach().to(self.dtype).contiguous()
+        if grad.data_ptr() % 16:
+            grad = grad.clone()  # a fresh allocation: vector loads need 16 bytes
         self.ptrs.logp, self.ptrs.grad = logp.data_ptr(), grad.data_ptr()
-        self._launch("finish", states)
-        return states
+        self._launch("advance", states)
+        return states, self.z_new, None
+
+
+class StepGraph:
+    """Machine steps of one chunk captured once in a CUDA graph and replayed.
+
+    ``capture(fn)`` runs ``fn`` (log densities and ``advance`` launches on
+    one chunk's ``KernelSteps``) under capture on a side stream, into the
+    memory pool ``pool`` (one the caller's earlier graphs used, or a new
+    one); ``replay()`` runs it on the current stream and adds its step
+    kernel launches to ``launches``.  The work is queued, not run, by the
+    capture.
+    """
+
+    def __init__(self, owner: "StepKernel", device):
+        self.owner = owner
+        self.device = torch.device(device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches = 0
+
+    def capture(self, fn, pool=None) -> None:
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        before = self.owner.captured
+        with torch.cuda.device(self.device), torch.cuda.stream(side):
+            self.graph.capture_begin(pool=pool)
+            try:
+                fn()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.launches = self.owner.captured - before
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.owner.launches += self.launches
+        self.owner.replays += 1
 
 
 class StepKernel:
     """Wrapper of the CUDA step kernel, with its launch count.
 
     ``launches`` is a plain integer, raised by one at each kernel launch
-    (``begin`` and ``finish`` alike) and nowhere else; the plain version
-    on CPU tensors leaves it alone.
+    the card executes (``begin`` and ``advance`` alike; a graph's replay
+    adds the launches it captured) and nowhere else; the plain version on
+    CPU tensors leaves it alone.  ``replays`` counts graph replays,
+    ``capture_s`` the host seconds the step runner spent capturing them,
+    and ``captured`` the launches recorded under capture.
     """
 
     name = "step_kernel"
@@ -380,6 +503,9 @@ class StepKernel:
 
     def __init__(self):
         self.launches = 0
+        self.replays = 0
+        self.capture_s = 0.0
+        self.captured = 0
         self._devices: dict = {}
 
     def library(self):
@@ -405,11 +531,16 @@ class StepKernel:
                              d["smem_per_block"], d["sm_count"], d["smem_per_sm"],
                              d["reserved_per_block"], aligned=aligned)
 
+    def diag_plan(self, n_chains: int, dim: int, dtype, device) -> DiagPlan:
+        """``diag_plan`` on ``device``'s SMs."""
+        return diag_plan(n_chains, dim, torch.empty((), dtype=dtype).element_size(),
+                         self.device_limits(device)["sm_count"])
+
     def geometry(self, dtype, n_chains: int = 1, dim: int = 1, rank: int = 0,
                  device="cuda") -> dict:
-        """Registers and spill bytes of the kernels as compiled, and for a
-        low-rank metric of ``rank`` at these shapes, its plan's shared
-        memory and the blocks of each half an SM holds (0 at rank 0)."""
+        """Registers, spill bytes and resident blocks of the kernels as
+        compiled, and for a low-rank metric of ``rank`` at these shapes, its
+        plan's shared memory and the blocks an SM holds (0 at rank 0)."""
         lib = self.library()
         plan = self.plan(n_chains, dim, rank, dtype, device) if rank else None
         mk = MkConfig(n_chains=n_chains, dim=dim, depth_slots=2, lr_rank=rank,
@@ -424,8 +555,9 @@ class StepKernel:
               states: NutsMachineState, mom: torch.Tensor, jit: torch.Tensor,
               bufs: ChunkBuffers, adapt_frozen: bool):
         """The steps of one chunk: ``begin(states) -> (z_new, carry)`` and
-        ``finish(states, z_new, carry, logp, grad) -> states``.  On CUDA
-        tensors ``states`` and ``bufs`` are updated in place."""
+        ``advance(states, z_new, carry, logp, grad) -> (states, z_new,
+        carry)``.  On CUDA tensors ``states`` and ``bufs`` are updated in
+        place."""
         args = (cfg, sched, int(chunk_start), int(limit), states, mom, jit, bufs,
                 adapt_frozen)
         if states.vecs.is_cuda:

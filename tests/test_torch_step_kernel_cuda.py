@@ -6,9 +6,14 @@ them on the card with ``python -m pytest tests/test_torch_step_kernel_cuda.py``
 same torch log density; in float64 the integer decisions must be exact,
 positions to rtol 1e-3 on a warmup chunk (adaptation feeds rounding
 differences back through the step size) and floats to rtol 1e-6 / atol
-1e-8 on the frozen chunk that follows.  Models: a small logistic GLM and
-the 1000-d Gaussian (lanes stride over 1000 coordinates), at 4 and 37
-chains (37 leaves part of the last block's warps without a chain).  The
+1e-8 on the frozen chunk that follows.  Models, for each diagonal form of
+``step_kernel.diag_plan``: logistic GLMs of dim 16 and 64 (the held form:
+16 lanes a chain, double2 chunks, one and two a lane), the 1000-d and the
+33-d Gaussian (the strided form: 32 lanes), at 4 and 37 chains (37 leaves
+part of the last block's groups without a chain).  Eight schools, 16 chains, runs each of
+four settings with their own branches (step size jitter, ``mindepth``,
+no U-turn check, the draw-based mass matrix estimate).  The runner's
+CUDA-graph replays give the bits of the same launches made eagerly.  The
 low-rank branch: the 40-d Gaussian with a metric of rank 8 whose last
 three slots are padded, at 4 and 37 chains, with the stored gradients,
 inverse masses and eigenvalues held too; then, at 16 chains, a shape for
@@ -22,17 +27,30 @@ import numpy as np
 import pytest
 import torch
 
-from nutpie_tpu_torch.models import ill_conditioned_gaussian, logistic_glm
+from nutpie_tpu_torch.models import eight_schools, ill_conditioned_gaussian, logistic_glm
 from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
-from nutpie_tpu_torch.sampler.nuts import LowRankConfig, NutsConfig, init_buffers
-from nutpie_tpu_torch.sampler.run import draw_randoms, init_chains, make_chunk_runner
+from nutpie_tpu_torch.sampler.nuts import (
+    LowRankConfig,
+    NutsConfig,
+    init_buffers,
+    start_draw,
+)
+from nutpie_tpu_torch.sampler.run import (
+    CUDA_UNROLL,
+    draw_randoms,
+    init_chains,
+    make_chunk_runner,
+)
+from nutpie_tpu_torch.sampler.state import state_with
 from nutpie_tpu_torch.sampler.step_kernel import step_kernel
 
 pytestmark = pytest.mark.cuda
 
 MODELS = {
     "glm": lambda: logistic_glm(n_data=256, dim=16),
+    "glm64": lambda: logistic_glm(n_data=256, dim=64),
     "gaussian1000": lambda: ill_conditioned_gaussian(dim=1000),
+    "gaussian33": lambda: ill_conditioned_gaussian(dim=33),
 }
 
 
@@ -55,7 +73,8 @@ def _both(model, cfg, sched, states, start, frozen, chunk=8):
     k = make_chunk_runner(model, cfg, chunk, torch.float64, adapt_frozen=frozen)(
         states, start, chunk, sched)
     launches = step_kernel.launches - before
-    assert launches > 0 and launches % 2 == 0
+    # one begin, then replays of CUDA_UNROLL advance launches each
+    assert launches > 1 and (launches - 1) % CUDA_UNROLL == 0
     p = make_chunk_runner(model, cfg, chunk, torch.float64, adapt_frozen=frozen,
                           plain=True)(states, start, chunk, sched)
     torch.cuda.synchronize()
@@ -87,11 +106,73 @@ def test_done_chains_hand_their_committed_position(card):
     z_new, carry = steps.begin(state)
     assert torch.equal(z_new, sk.position)
     logp, grad = model.logp_and_grad(z_new)
-    steps.finish(state, z_new, carry, logp, grad)
+    steps.advance(state, z_new, carry, logp, grad)
     torch.cuda.synchronize()
     for name, t in sk.tensors().items():
         assert torch.equal(t, state.tensors()[name]), name
     assert bool(torch.isnan(bufs.position).all())
+
+
+def _eager(model, cfg, sched, states, start, frozen, chunk=8):
+    """The runner's chunk with its launches made one by one, no graph."""
+    n_chains, _, dim = states.vecs.shape
+    mom, jit = draw_randoms(states.key, start, chunk, dim, torch.float64)
+    bufs = init_buffers(chunk, dim, torch.float64, n_chains, device="cuda", cfg=cfg)
+    st = start_draw(cfg, sched, state_with(states, done=False), mom[:, 0], jit[:, 0]).clone()
+    steps = step_kernel.chunk(cfg, sched, start, chunk, st, mom, jit, bufs, frozen)
+    z_new, carry = steps.begin(st)
+    while not bool(st.done.all()):
+        logp, grad = model.logp_and_grad(z_new)
+        st, z_new, carry = steps.advance(st, z_new, carry, logp, grad)
+    return st, bufs
+
+
+def test_graph_replay_is_eager_launch(card):
+    """A frozen chunk replayed from CUDA graphs has the bits of the same
+    chunk launched eagerly."""
+    model, cfg, sched, states = card
+    (sk, _), _ = _both(model, cfg, sched, states, 0, False)
+    replays = step_kernel.replays
+    gk, gb = make_chunk_runner(model, cfg, 8, torch.float64, adapt_frozen=True)(
+        sk, 8, 8, sched)
+    assert step_kernel.replays > replays
+    ek, eb = _eager(model, cfg, sched, sk, 8, True)
+    torch.cuda.synchronize()
+    for name, t in gk.tensors().items():
+        assert torch.equal(t.view(torch.int64) if t.is_floating_point() else t,
+                           ek.tensors()[name].view(torch.int64)
+                           if t.is_floating_point() else ek.tensors()[name]), name
+    assert torch.equal(gb.position.view(torch.int64), eb.position.view(torch.int64))
+
+
+# (NutsConfig fields, AdaptConfig fields) of each setting with a branch of
+# its own (tests/test_torch_step_settings.py holds the plain version to JAX)
+SETTINGS = {
+    "step_size_jitter": ({}, {"step_size_jitter": 0.3}),
+    "mindepth": ({"mindepth": 3}, {}),
+    "no_turning_check": ({"check_turning": False, "maxdepth": 4}, {}),
+    "draw_diag": ({}, {"use_grad_based_estimate": False}),
+}
+
+
+@pytest.mark.parametrize("setting", list(SETTINGS))
+def test_settings_match_plain_version(setting):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    nuts, adapt = SETTINGS[setting]
+    model = eight_schools()
+    cfg = NutsConfig(**{"maxdepth": 6, **nuts}, adapt=AdaptConfig(num_tune=100, **adapt))
+    sched = make_schedule(cfg.adapt, 100)
+    states, _ = init_chains(model, cfg, 6, 16, np.zeros(model.ndim), torch.float64,
+                            device="cuda")
+    (sk, bk), (sp, bp) = _both(model, cfg, sched, states, 0, False)
+    assert torch.equal(sk.ints, sp.ints)
+    torch.testing.assert_close(bk.position, bp.position, rtol=1e-3, atol=1e-3, equal_nan=True)
+    (fk, fbk), (fp, fbp) = _both(model, cfg, sched, sk, 8, True)
+    assert torch.equal(fk.ints, fp.ints)
+    for a, b in ((fbk.position, fbp.position), (fbk.scalars, fbp.scalars),
+                 (fk.vecs, fp.vecs), (fk.flts, fp.flts)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-8, equal_nan=True)
 
 
 # (chains, dim, rank, padded slots) and the plan's form on an H100

@@ -1,4 +1,10 @@
-"""The step kernel's low-rank launch plan and its C mirrors, on the CPU.
+"""The step kernel's launch plans and their C mirrors, on the CPU.
+
+``diag_plan`` picks the diagonal instantiation before anything runs: the
+lanes a chain, the coordinates a chunk (16-byte vector loads where ``dim``
+allows) and whether a thread's chunks stay in registers; the kernel
+refuses a launch that matches none of its forms (``DiagForms`` in
+``csrc/step_kernel.cu``, held equal to ``diag_forms`` here).
 
 ``low_rank_plan`` decides before anything runs how K2's low-rank
 instantiations hold a chain's basis: staged whole in shared memory where it
@@ -18,12 +24,17 @@ import pytest
 
 from nutpie_tpu_torch.sampler.abi import MkConfig
 from nutpie_tpu_torch.sampler.step_kernel import (
+    BLOCK_THREADS,
     DEVICE_FIELDS,
     GEOMETRY_FIELDS,
+    HELD,
     LR_WARPS,
     StepPtrs,
+    diag_forms,
+    diag_plan,
     low_rank_plan,
     lr_smem_bytes,
+    plan_fields,
 )
 
 CSRC = Path(__file__).resolve().parent.parent / "nutpie_tpu_torch" / "csrc"
@@ -103,3 +114,61 @@ def test_ctypes_mirrors_match_the_c_structs():
     assert slots == set(range(len(GEOMETRY_FIELDS)))
     device = step[step.index("int nutpie_step_device"):]
     assert int(re.search(r"attrs\[(\d+)\]", device).group(1)) == len(DEVICE_FIELDS)
+
+
+@pytest.mark.parametrize("n_chains, dim, itemsize, form, lanes, coords, grid, wave", [
+    # the GLM's shapes: 16 float4 chunks, two a lane of 8; 640 blocks of 16
+    # chains need 5 resident blocks an SM for one wave
+    (10240, 64, 4, "held", 8, 8, 640, 5),
+    # float64 at the same dim: 32 double2 chunks, two a lane of 16
+    (64, 64, 8, "held", 16, 4, 8, 1),
+    (100, 40, 4, "held", 8, 8, 7, 1),
+    # eight schools in float64: five double2 chunks, one a lane of 16
+    (8, 10, 8, "held", 16, 2, 1, 1),
+    # past two chunks a lane: 32 lanes striding, one coordinate at a time
+    (1024, 68, 4, "strided", 32, 3, 256, 2),
+    (16, 1000, 4, "strided", 32, 32, 4, 1),
+    (16, 1000, 8, "strided", 32, 32, 4, 1),
+    # dim not a multiple of the chunk: strided
+    (8, 10, 4, "strided", 32, 1, 2, 1),
+    (37, 33, 8, "strided", 32, 2, 10, 1),
+])
+def test_diag_plan(n_chains, dim, itemsize, form, lanes, coords, grid, wave):
+    plan = diag_plan(n_chains, dim, itemsize, H100["sm_count"])
+    assert (plan.form, plan.lanes, plan.coords_per_lane, plan.grid,
+            plan.one_wave_blocks_per_sm) == (form, lanes, coords, grid, wave)
+    held_form, strided_form = diag_forms(itemsize)
+    assert (plan.lanes, plan.vec, plan.held) == (held_form if form == "held" else strided_form)
+    # the held form's chunks tile a warp's 32 lanes: its sums keep their order
+    assert held_form[0] * held_form[1] == 32 and held_form[1] * itemsize == 16
+    assert plan.chains_per_block == BLOCK_THREADS // lanes
+    # every chain has a group; a held thread owns at most HELD chunks
+    assert plan.grid * plan.chains_per_block >= n_chains > (plan.grid - 1) * plan.chains_per_block
+    assert dim % plan.vec == 0 and (plan.held == 0 or dim // plan.vec <= plan.held * lanes)
+    assert plan_fields(plan) == {"step_lanes": lanes, "step_vec": plan.vec,
+                                 "step_held": plan.held, "step_grid": grid}
+
+
+def test_diag_plan_refuses_what_no_form_takes():
+    for args in ((0, 64, 4), (8, 0, 4), (8, 64, 2)):
+        with pytest.raises(ValueError):
+            diag_plan(*args, H100["sm_count"])
+    with pytest.raises(ValueError):
+        diag_plan(8, 64, 4, 0)
+
+
+def test_diag_forms_mirror_the_kernel():
+    step = (CSRC / "step_kernel.cu").read_text()
+    forms = step[step.index("struct DiagForms"):]
+    forms = forms[:forms.index("\n};")]
+    table = {name: re.search(name + r"\[kCount\] = \{([^}]*)\}", forms).group(1)
+             for name in ("lanes", "vec", "held")}
+    for itemsize in (4, 8):
+        subst = {"kVec<T>": str(16 // itemsize), "kHeld": str(HELD), "kLanes": "32",
+                 "kLanes / kVec<T>": str(32 // (16 // itemsize))}
+        cols = [[int(subst.get(x.strip(), x.strip())) for x in table[name].split(",")]
+                for name in ("lanes", "vec", "held")]
+        assert tuple(zip(*cols)) == diag_forms(itemsize)
+    assert f"constexpr int kHeld = {HELD};" in step
+    group = (CSRC / "group.cuh").read_text()
+    assert f"constexpr int kLaneBlockThreads = {BLOCK_THREADS};" in group

@@ -9,7 +9,10 @@ has ints exact and floats to rtol 1e-6 / atol 1e-8; a warmup chunk from
 a fresh fleet has ints, step counts and Welford counts exact, positions
 to 1e-3, and metric and step size to 1e-4 (adaptation feeds rounding
 differences back through the step size every draw).  The port's
-``unroll=4`` is bitwise equal to its ``unroll=1``.
+``unroll=4`` is bitwise equal to its ``unroll=1``, and the runner's loop
+(the first half of a chunk's first step, then one log density and one
+``advance`` per machine step) gives the bits of an explicit loop of the
+machine step's halves, ``leapfrog_begin`` / logp / ``leapfrog_finish``.
 """
 
 import jax
@@ -27,8 +30,16 @@ from nutpie_tpu.sampler.run import init_chains as jinit_chains
 from nutpie_tpu.sampler.run import make_chunk_runner as jmake_chunk_runner
 from nutpie_tpu_torch.convert import state_from_arrays, state_to_arrays
 from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
-from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS, NutsConfig
-from nutpie_tpu_torch.sampler.run import make_chunk_runner
+from nutpie_tpu_torch.sampler.nuts import (
+    SCALAR_SLOTS,
+    NutsConfig,
+    init_buffers,
+    leapfrog_begin,
+    leapfrog_finish,
+    start_draw,
+)
+from nutpie_tpu_torch.sampler.run import draw_randoms, make_chunk_runner, rescue_trapped
+from nutpie_tpu_torch.sampler.state import state_with
 from nutpie_tpu_torch.sampler.step_kernel import step_kernel
 from torch_parity import assert_state_close, jax_state_arrays
 
@@ -110,4 +121,29 @@ def test_unroll_is_bitwise_neutral(fleet, start, frozen):
     for name, t in s1.tensors().items():
         assert torch.equal(_bits(t), _bits(s4.tensors()[name])), name
     for a, b in ((b1.position, b4.position), (b1.scalars, b4.scalars)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("start,frozen", [(0, False), (TUNE, True)])
+def test_advance_loop_matches_begin_finish_loop(fleet, start, frozen):
+    """The runner's begin-once / advance loop gives the bits of the explicit
+    begin / logp / finish loop over the same chunk."""
+    state = fleet["fresh"] if start == 0 else fleet["warm"]
+    s_run, b_run = _port_run(fleet, state, start, frozen)
+    cfg, sched, model = fleet["cfg"], fleet["sched"], fleet["model"]
+    st = state_from_arrays(jax_state_arrays(state))
+    n_chains, _, dim = st.vecs.shape
+    mom, jit = draw_randoms(st.key, start, CHUNK, dim, torch.float64)
+    bufs = init_buffers(CHUNK, dim, torch.float64, n_chains, cfg=cfg)
+    st = start_draw(cfg, fleet["sched"], state_with(st, done=False), mom[:, 0], jit[:, 0])
+    while not bool(st.done.all()):
+        z_new, carry = leapfrog_begin(cfg, st)
+        logp, grad = model.logp_and_grad(z_new)
+        st, _ = leapfrog_finish(cfg, sched, mom, jit, start, CHUNK, st, z_new, carry,
+                                logp, grad, bufs, frozen)
+    if not frozen:
+        st = rescue_trapped(st, start, CHUNK, sched)
+    for name, t in st.tensors().items():
+        assert torch.equal(_bits(t), _bits(s_run.tensors()[name])), name
+    for a, b in ((bufs.position, b_run.position), (bufs.scalars, b_run.scalars)):
         assert torch.equal(_bits(a), _bits(b))
