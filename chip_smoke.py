@@ -153,6 +153,41 @@ BASELINE's 1000-d target) at 1024 chains, max_rank 32, chunk 80:
     (boundary updates at draws 2, 4 and 6): K2, the matrix products,
     the boundary's QR and eigendecompositions, copies and idle.
 
+The options path (every NUTS step-size and depth option and the
+divergence rows on the card):
+
+12. ``options_parity``: each kernel against its plain version with the
+    options on, float64, 16 chains, maxdepth 6, an 8-draw warmup window then an 8-draw
+    frozen chunk at the parity bars: K1 on radon under Adam, a fixed step,
+    a target integration time with an extra doubling, and the four
+    settings of ``SETTINGS``; K2 on the GLM under Adam, a fixed step and a
+    target time, on the centered eight schools with the divergence rows
+    (their four buffers held too, and finite exactly where a draw
+    diverged) under the diagonal and the low-rank metric, and under the
+    low-rank metric with Adam.  Float32 at the
+    GLM's main shapes with the divergence rows: one frozen 32-draw chunk
+    at the float32 share bars.  K2's advance a step on that chunk with and
+    without the rows, and K1's posterior chunk under Adam's configuration
+    beside the default's, by CUDA events.
+13. ``options``: ``sample()`` at full width: radon with Adam through K1
+    (2048 chains x (300 + 300), the main phase's configuration; K1
+    launched once a chunk; its readings beside the main phase's; as in
+    the JAX package, Adam's step collapses on radon in warmup, to below a
+    tenth of dual averaging's, which is held, and the posterior's R-hat
+    is read); radon with the fixed step ``RADON_FIXED_EPS``, a target
+    integration time of ``RADON_TARGET_STEPS`` steps, one extra doubling
+    and no U-turn check, through K1: every posterior draw that did not
+    diverge has depth 4 and 15 leapfrogs (1 + 2 + 4 + 8; the divergent
+    ones are counted); the GLM at ``bench_glm.py``'s width with the divergence
+    rows through K2 (10,240 chains x (300 + ``GLM_DIV_DRAWS``)): K2
+    launched once a chunk and once a machine step, the four statistics of
+    shape [chains, draws, 64], finite exactly where a draw diverged (warmup
+    included), and the glm phase's posterior bars.
+
+Every phase that reads split R-hat and bulk ESS (``column_diagnostics``)
+also computes them on the card with ``diagnostics_device`` and holds
+them to the host's to rtol ``DIAG_RTOL``.
+
 Then the script's seconds, the kernels line (K1, and K2 with its
 low-rank branch), the card line, and the last line
 
@@ -252,6 +287,8 @@ LAPLACE_SD_TOL = 0.25
 # posterior differ by up to 0.24 sd, its skew
 IMPORTANCE_SD_TOL = 0.05
 UNROLLS = (1, 4, 8, 16)
+# the card's diagnostics (diagnostics_device) against the host's, float64
+DIAG_RTOL = 1e-6
 # where the GLM path runs
 DEVICE = "cuda"
 # the low-rank path: the 1000-d ill-conditioned Gaussian
@@ -422,11 +459,15 @@ def phase_build(ctx):
     seconds = time.perf_counter() - t0
     ctx["card"] = card_line()
     # what was compiled, at the main path's configuration
+    # (K1's Adam instantiations too: adapt.cuh, step_size_update)
     geometry = {}
     for dtype in (torch.float32, torch.float64):
         model, cfg, _, _ = _setup(0, dtype, 0)
-        geometry[str(dtype).removeprefix("torch.")] = chunk_kernel.geometry(
-            _main_kernel_config(model, cfg), dtype, torch.device("cuda"))
+        adam = dataclasses.replace(cfg, adapt=dataclasses.replace(cfg.adapt, method="adam"))
+        name = str(dtype).removeprefix("torch.")
+        for tag, c in ((name, cfg), (f"{name}_adam", adam)):
+            geometry[tag] = chunk_kernel.geometry(_main_kernel_config(model, c), dtype,
+                                                  torch.device("cuda"))
     ctx["geometry"] = geometry
     # K2's instantiations in both dtypes, with the low-rank plan of the
     # low-rank path's shapes (float32 stages the basis, float64 streams it)
@@ -452,8 +493,9 @@ def phase_build(ctx):
             "glm_diag_plan": diag,
         },
     })
-    g32 = geometry["float32"]
-    assert g32["resident_chains_per_sm"] >= 10 and g32["local_bytes_per_thread"] == 0, g32
+    for tag in ("float32", "float32_adam"):
+        g32 = geometry[tag]
+        assert g32["resident_chains_per_sm"] >= 10 and g32["local_bytes_per_thread"] == 0, g32
     for dt, geo in k2.items():
         assert all(v == 0 for k, v in geo.items() if k.endswith("local_bytes")), \
             f"the step kernel spills in {dt}: {geo}"
@@ -645,11 +687,15 @@ def _assert_f32_warm(r: dict) -> None:
 
 def column_diagnostics(post, columns):
     """Bulk ESS and split R-hat of each monitored column of ``post [C, N,
-    dim]``, the columns in threads (numpy's sorts and FFTs release the GIL)."""
+    dim]``, the columns in threads (numpy's sorts and FFTs release the GIL),
+    each held against ``diagnostics_device`` on the card on a float64 copy
+    of the column (rtol ``DIAG_RTOL``)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
+    import torch
 
+    from nutpie_tpu_torch import diagnostics_device
     from nutpie_tpu_torch.diagnostics import ess_from_samples, rhat_from_samples
 
     def one(c):
@@ -658,7 +704,17 @@ def column_diagnostics(post, columns):
 
     with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
         pairs = list(pool.map(one, columns))
-    return [e for e, _ in pairs], [r for _, r in pairs]
+    ess, rhat = [e for e, _ in pairs], [r for _, r in pairs]
+    for c, e, r in zip(columns, ess, rhat):
+        x = torch.as_tensor(np.ascontiguousarray(post[:, :, c]), device=DEVICE,
+                            dtype=torch.float64)
+        for name, host, dev in (("bulk ESS", e, diagnostics_device.ess_bulk(x)),
+                                ("split R-hat", r, diagnostics_device.rhat(x))):
+            dev = float(dev)
+            assert math.isclose(dev, host, rel_tol=DIAG_RTOL) or (
+                math.isnan(dev) and math.isnan(host)), \
+                f"column {c}: {name} on the card {dev}, on the host {host}"
+    return ess, rhat
 
 
 def phase_main(ctx):
@@ -704,13 +760,18 @@ def phase_main(ctx):
     assert max(rhat) < 1.05, f"split R-hat {max(rhat)} on a monitored column"
     div_post = int(raw["stats"]["diverging"][:, TUNE:].sum())
     ctx["launches"] = launches
+    readings = {"wall_s": wall, "gradients": grads, "grads_per_s": grads / wall,
+                "min_bulk_ess": min_ess, "min_ess_per_s": min_ess / wall,
+                "min_ess_per_grad": min_ess / grads, "max_rhat": float(max(rhat)),
+                "posterior_divergences": div_post}
+    eps = raw["stats"]["step_size"][:, TUNE:]
+    ctx["main_readings"] = dict(readings, step_size=float(np.median(eps)))
     emit({
         "phase": "main", "chains": CHAINS, "tune": TUNE, "draws": DRAWS,
         "chunk_len": chunk_len, "chunks": n_chunks, "kernel_launches": launches,
-        "dtype": "float32", "wall_s": wall, "gradients": grads,
-        "grads_per_s": grads / wall, "min_bulk_ess": min_ess,
-        "min_ess_per_s": min_ess / wall, "min_ess_per_grad": min_ess / grads,
-        "max_rhat": float(max(rhat)), "posterior_divergences": div_post,
+        "dtype": "float32", **readings,
+        "posterior_step_size": {"min": float(eps.min()), "median": float(np.median(eps)),
+                                "max": float(eps.max())},
         "card": ctx["card"],
     })
 
@@ -1053,18 +1114,12 @@ def _glm_model():
 
 def _fleet(model, tune, n_chains, dtype, seed):
     """A fresh fleet on the card, with the schedule's static depth cap."""
-    import numpy as np
-
     from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
     from nutpie_tpu_torch.sampler.nuts import NutsConfig
-    from nutpie_tpu_torch.sampler.run import init_chains
 
     cfg = NutsConfig(adapt=AdaptConfig(num_tune=tune))
     sched = make_schedule(cfg.adapt, tune, cfg.initial_depth_cap)
-    states, ok = init_chains(model, cfg, seed, n_chains, np.zeros(model.ndim),
-                             dtype, device=DEVICE)
-    assert bool(ok.all()), "chain initialization failed"
-    return cfg, sched, states
+    return cfg, sched, _init(model, cfg, n_chains, dtype, seed)
 
 
 def _steps_both(model, cfg, sched, states, start, chunk_len, limit, frozen):
@@ -1432,7 +1487,7 @@ def phase_glm(ctx):
 
 def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
                depth_slots: int, itemsize: int, rank: int = 0,
-               streamed: bool = False) -> dict:
+               streamed: bool = False, div_rows: bool = False) -> dict:
     """Bytes the step kernel must move over one frozen chunk (its ``begin``
     launch and ``steps`` advance launches), counted from
     csrc/step_kernel.cu for this chunk's trees: each row a launch touches
@@ -1450,7 +1505,12 @@ def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
     reads it: staged, once per launch of an active chain; ``streamed``, once
     per pass: two for the new point's velocity and two for the next drift,
     three for a draw's start (its middle pass expands and projects the same
-    tiles).  The checks and merges use the velocities the kernel keeps."""
+    tiles).  The checks and merges use the velocities the kernel keeps.
+
+    With the divergence rows (``div_rows``) each draw also reads its four
+    rows and writes them to the four buffers, each next draw's start
+    writes them (NaN), and each divergent draw's leaf reads the edge's old
+    position and writes the four rows."""
     import numpy as np
 
     from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
@@ -1489,6 +1549,10 @@ def step_bytes(scalars, limit: int, n_chains: int, steps: int, dim: int,
                + subtrees * row + done_steps * ints)
     out = {"leapfrogs": leapfrogs, "subtree_checks": checks, "merges": merges,
            "pushes": pushes, "draws": draws, "done_chain_steps": done_steps}
+    if div_rows:
+        divergent = int((s[..., SCALAR_SLOTS["diverging"]] > 0.5).sum())
+        advance += (draws * 8 + (draws - n_chains) * 4 + divergent * 5) * row
+        out["divergent_draws"] = divergent
     if rank:
         metric = (rank * dim + rank) * T
         begin += n_chains * metric
@@ -1916,17 +1980,17 @@ def phase_lowrank(ctx):
     assert all(lo <= r <= hi for r in proj_ratio), proj_ratio
 
 
-def _timed_steps(model, cfg, sched, states, chunk: int):
+def _timed_steps(model, cfg, sched, states, chunk: int, start: int = 0):
     """K2's advance and the logp+grad call per machine step over one frozen
-    chunk from ``states`` (chunk start 0), launched one by one, by CUDA
-    events around each call: a first run counts the steps, the timed run
-    takes exactly that many with no host read between them.  Returns (ms
-    per step by part, steps, the chunk's buffers)."""
+    chunk from ``states`` (chunk start ``start``), launched one by one, by
+    CUDA events around each call: a first run counts the steps, the timed
+    run takes exactly that many with no host read between them.  Returns
+    (ms per step by part, steps, the chunk's buffers)."""
     import torch
 
     from nutpie_tpu_torch.sampler.run import CUDA_UNROLL
 
-    st, bufs, steps = _prepared(cfg, sched, states, 0, chunk, True)
+    st, bufs, steps = _prepared(cfg, sched, states, start, chunk, True)
     z_new, carry = steps.begin(st)
     n_steps = 0
     while True:
@@ -1935,7 +1999,7 @@ def _timed_steps(model, cfg, sched, states, chunk: int):
         n_steps += 1
         if n_steps % CUDA_UNROLL == 0 and bool(st.done.all()):
             break
-    est, ebufs, esteps = _prepared(cfg, sched, states, 0, chunk, True)
+    est, ebufs, esteps = _prepared(cfg, sched, states, start, chunk, True)
     marks = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(n_steps)]
     z_new, carry = esteps.begin(est)
     torch.cuda.synchronize()
@@ -2076,6 +2140,396 @@ def lowrank_step_timing(ctx):
           "chunk": chunk, "dtype": "float32", **out, "card": ctx["card"]})
 
 
+# ---------------------------------------------------------------- options path
+
+
+# K1's float64 cases on radon (NutsConfig fields, AdaptConfig fields): the
+# step-size methods and the target integration time, and the four settings
+# with branches of their own (SETTINGS)
+K1_OPTIONS = {
+    "adam": ({}, {"method": "adam"}),
+    "fixed_step": ({}, {"method": 0.05}),
+    "target_time": ({"target_time": 0.3, "extra_doublings": 1}, {}),
+    **SETTINGS,
+}
+# K2's float64 cases on the GLM at full width; on the centered eight
+# schools with the divergence rows (a divergence at an energy error above
+# 10, so that 8 draws of 16 chains have some), under the diagonal and the
+# low-rank metric; Adam under the low-rank metric on the 40-d Gaussian
+K2_GLM_OPTIONS = {
+    "adam": ({}, {"method": "adam"}),
+    "fixed_step": ({}, {"method": 0.05}),
+    "target_time": ({"target_time": 0.5, "extra_doublings": 1}, {}),
+}
+OPTIONS_CHAINS, OPTIONS_DRAWS = 16, 8
+DIV_STATS = ("divergence_start", "divergence_end", "divergence_momentum",
+             "divergence_start_gradient")
+# the options phase's fixed step size for radon: the main phase's final
+# posterior step size, pooled over the chains at each chunk's start, read
+# as its "posterior_step_size" median 0.3294 (min 0.2321, max 0.4210 over
+# the draws before the first posterior pooling) on an H100 80GB HBM3 at
+# 700 W
+RADON_FIXED_EPS = 0.33
+# its target integration time, 6 steps: the ratio sits away from a power of
+# two, where float32's exp(log(eps)) could tip the ceil either way, so
+# every posterior draw runs ceil(log2 6) + 1 = 4 doublings, 15 leapfrogs
+RADON_TARGET_STEPS, RADON_EXTRA_DOUBLINGS = 6, 1
+# the GLM run with the divergence rows: bench_glm.py's width, draws cut
+# from 300 to 100 to keep its host copies near 5 GB (five [10,240, 400, 64]
+# float32 arrays)
+GLM_DIV_DRAWS = 100
+
+
+def _assert_rows_where_diverged(tag, bufs) -> None:
+    """Each written draw's divergence rows finite exactly where it diverged."""
+    import torch
+
+    written = ~torch.isnan(bufs.scalars[..., 0])
+    for name in DIV_STATS:
+        finite = torch.isfinite(getattr(bufs, name)).all(-1)
+        assert torch.equal(finite[written], bufs.diverging[written]), \
+            f"{tag} {name}: finite rows differ from the divergent draws"
+
+
+def _check_div_rows(tag, b_k, b_p, rtol, atol) -> None:
+    """The divergence buffers of the kernel against the plain version's,
+    and finite exactly where the kernel's draw diverged."""
+    for name in DIV_STATS:
+        assert_close(f"{tag} {name}", getattr(b_k, name), getattr(b_p, name), rtol, atol)
+    _assert_rows_where_diverged(tag, b_k)
+
+
+def _option_case(failed, tag, both, model, cfg, sched, states, n, div=False) -> dict:
+    """One option through a kernel and its plain version (``both``): an
+    ``n``-draw warmup window from ``states``, then an ``n``-draw frozen
+    chunk from the kernel's state; float64 bars of the parity phases."""
+    (s_k, b_k), (s_p, b_p) = both(model, cfg, sched, states, 0, n, n, False)
+    warm = _held(failed, _check_warmup_f64, f"{tag} warmup window", n, s_k, b_k, s_p, b_p)
+    (f_k, fb_k), (f_p, fb_p) = both(model, cfg, sched, s_k, n, n, n, True)
+    frozen = _held(failed, _check_frozen_f64, f"{tag} frozen chunk", f_k, fb_k, f_p, fb_p)
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+
+    scal = fb_k.scalars
+    out = {"warmup_held": warm is not None, "frozen_held": frozen is not None,
+           "max_abs_err_position": max_abs(fb_k.position, fb_p.position),
+           "max_depth": int(scal[..., SCALAR_SLOTS["depth"]].nan_to_num(0).max()),
+           "step_size_bar": float(scal[..., SCALAR_SLOTS["step_size_bar"]].nanmean())}
+    if div:
+        before = len(failed)
+        _held(failed, _check_div_rows, f"{tag} warmup window", b_k, b_p, 1e-3, 1e-3)
+        _held(failed, _check_div_rows, f"{tag} frozen chunk", fb_k, fb_p, 1e-6, 1e-8)
+        out.update(div_rows_held=len(failed) == before,
+                   divergent_draws=int(b_k.diverging.sum() + fb_k.diverging.sum()))
+    return out
+
+
+def _with_div_rows(states):
+    """A state with the four divergence rows appended (NaN, as at a draw's
+    start)."""
+    import torch
+
+    C, _, dim = states.vecs.shape
+    nan = torch.full((C, 4, dim), math.nan, dtype=states.vecs.dtype, device=states.vecs.device)
+    return states.replace(vecs=torch.cat([states.vecs, nan], dim=1).contiguous())
+
+
+def _init(model, cfg, n_chains, dtype, seed):
+    import numpy as np
+
+    from nutpie_tpu_torch.sampler.run import init_chains
+
+    states, ok = init_chains(model, cfg, seed, n_chains, np.zeros(model.ndim), dtype,
+                             device=DEVICE)
+    assert bool(ok.all()), "chain initialization failed"
+    return states
+
+
+def phase_options_parity(ctx):
+    """Each kernel against its plain version with the options on (float64,
+    16 chains, maxdepth 6, an 8-draw warmup window then an 8-draw frozen
+    chunk): K1 on
+    radon in ``K1_OPTIONS``; K2 on the GLM in ``K2_GLM_OPTIONS``, on the
+    centered eight schools with the divergence rows (their buffers too)
+    under the diagonal and the low-rank metric, and under the low-rank
+    metric with Adam.  Then, at the GLM's main
+    shapes in float32 from the warmed fleet, one frozen 32-draw chunk with
+    the divergence rows against the plain version (the float32 shares), and
+    K2's advance a step with and without them; and K1's posterior chunk
+    (the timing phase's) under Adam's configuration beside the default's."""
+    import dataclasses as dc
+
+    import torch
+
+    from nutpie_tpu_torch.models import eight_schools, ill_conditioned_gaussian
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.nuts import LowRankConfig, NutsConfig
+    from nutpie_tpu_torch.sampler.run import draw_randoms
+
+    failed, n = [], OPTIONS_DRAWS
+    f64 = torch.float64
+
+    # maxdepth 6 bounds the plain version's machine steps in a fresh
+    # fleet's warmup (the target time's limit still binds below it)
+    def config(nuts, adapt, tune=TUNE, **extra):
+        cfg = NutsConfig(**{"maxdepth": 6, **nuts}, adapt=AdaptConfig(num_tune=tune, **adapt),
+                         **extra)
+        return cfg, make_schedule(cfg.adapt, tune, cfg.initial_depth_cap)
+
+    radon_model = _setup(0, f64, 0)[0]
+    k1 = {}
+    for tag, (nuts, adapt) in K1_OPTIONS.items():
+        cfg, sched = config(nuts, adapt)
+        states = _init(radon_model, cfg, OPTIONS_CHAINS, f64, 31)
+        k1[tag] = _option_case(failed, f"K1 {tag}", _run_both, radon_model, cfg, sched,
+                               states, n)
+    glm = _glm_model()
+    k2 = {}
+    for tag, (nuts, adapt) in K2_GLM_OPTIONS.items():
+        cfg, sched = config(nuts, adapt, GLM_TUNE)
+        states = _init(glm, cfg, OPTIONS_CHAINS, f64, 33)
+        k2[f"glm_{tag}"] = _option_case(failed, f"K2 GLM {tag}", _steps_both, glm, cfg,
+                                        sched, states, n)
+    eight = eight_schools(centered=True)
+    cfg, sched = config({"store_divergences": True, "max_energy_error": 10.0}, {}, GLM_TUNE)
+    k2["eight_schools_store_divergences"] = _option_case(
+        failed, "K2 eight schools divergence rows", _steps_both, eight, cfg, sched,
+        _init(eight, cfg, OPTIONS_CHAINS, f64, 35), n, div=True)
+    gauss = ill_conditioned_gaussian(dim=40)
+    cfg, sched = config({}, {"method": "adam"}, GLM_TUNE, low_rank=LowRankConfig())
+    k2["low_rank_adam"] = _option_case(failed, "K2 low-rank Adam", _steps_both, gauss, cfg,
+                                       sched, _init(gauss, cfg, OPTIONS_CHAINS, f64, 37), n)
+    cfg, sched = config({"store_divergences": True, "max_energy_error": 10.0}, {}, GLM_TUNE,
+                        low_rank=LowRankConfig())
+    k2["low_rank_store_divergences"] = _option_case(
+        failed, "K2 low-rank divergence rows", _steps_both, eight, cfg, sched,
+        _init(eight, cfg, OPTIONS_CHAINS, f64, 39), n, div=True)
+
+    # float32 at the GLM's main shapes with the divergence rows
+    model32, cfg32, sched32, warm32 = ctx["glm_warm"]
+    div32 = dc.replace(cfg32, store_divergences=True)
+    warm_div = _with_div_rows(warm32)
+    (d_k, db_k), (_, db_p) = _steps_both(model32, div32, sched32, warm_div, GLM_TUNE,
+                                         GLM_CHUNK, GLM_CHUNK, True)
+    f32 = _f32_shares(GLM_CHUNK, d_k, db_k, db_p)
+    f32["divergent_draws"] = int(db_k.diverging.sum())
+    _held(failed, _assert_rows_where_diverged, "float32 GLM", db_k)
+    del d_k, db_k, db_p
+    timed = [_timed_steps(model32, c, sched32, st, GLM_CHUNK, GLM_TUNE)
+             for c, st in ((cfg32, warm32), (div32, warm_div), (cfg32, warm32))]
+    (base_ms, base_steps, _), (div_ms, div_steps, div_bufs), (base2_ms, _, _) = [
+        (ms["advance"], n, b) for ms, n, b in timed]
+    div_work = step_bytes(div_bufs.scalars, GLM_CHUNK, GLM_CHAINS, div_steps, GLM_DIM,
+                          warm32.ckpt_p.shape[1], 4, div_rows=True)
+    div_bound = 1e3 * div_work["advance_bytes"] / PEAK_BYTES / div_steps
+
+    # K1's posterior chunk under Adam's configuration (the same work: the
+    # branch acts in tuning draws only) beside the default's
+    rmodel, rcfg, rsched, rstates = ctx["warm32"]
+    mom, jit = draw_randoms(rstates.key, TUNE, CHUNK, rmodel.ndim, torch.float32)
+    adam_cfg = dc.replace(rcfg, adapt=dc.replace(rcfg.adapt, method="adam"))
+
+    def k1_once(c):
+        return lambda: chunk_kernel(c, rmodel, rsched, TUNE, CHUNK, rstates, mom, jit, True)
+
+    k1_once(rcfg)()
+    k1_default_ms, outs = _event_ms(k1_once(rcfg), 3)
+    k1_adam_ms, outs_adam = _event_ms(k1_once(adam_cfg), 3)
+    _assert_repeatable(outs + outs_adam)
+    del outs, outs_adam
+
+    geo = ctx["k2_geometry"]
+    ctx["options_timing"] = {
+        "k2_glm_advance_ms_per_step": {"default": [base_ms, base2_ms],
+                                       "store_divergences": div_ms,
+                                       "machine_steps": [base_steps, div_steps],
+                                       "store_divergences_bound_ms": div_bound,
+                                       "store_divergences_bound_by": "bytes",
+                                       "divergent_draws": div_work["divergent_draws"]},
+        "k1_posterior_chunk_ms": {"default": k1_default_ms, "adam_config": k1_adam_ms},
+        "k2_div_instantiation": {dt: {f"{form}_{k}": geo[dt][f"div_{form}_{k}"]
+                                      for form in ("held", "strided")
+                                      for k in ("registers", "local_bytes")}
+                                 for dt in geo},
+    }
+    emit({"phase": "options_parity", "chains": OPTIONS_CHAINS, "draws": n, "dtype": "float64",
+          "k1_radon": k1, "k2": k2,
+          "glm_f32_store_divergences": {"chains": GLM_CHAINS, "draws": GLM_CHUNK,
+                                        "tol": F32_TOL, **f32},
+          **ctx["options_timing"], "failed": failed, "card": ctx["card"]})
+    assert not failed, failed
+    assert f32["share_equal_n_steps"] >= F32_MIN_SHARE_STEPS, f32
+    assert f32["share_draws_within_tol"] >= F32_MIN_SHARE_DRAWS, f32
+
+
+def _radon_run(**kwargs):
+    """``sample()`` on radon at the main phase's configuration with
+    ``kwargs`` on top, K1's launch count set to 0 just before: (raw trace,
+    wall s, K1 launches, K2 launches)."""
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    compiled = compile_model_def(nt.models.radon())
+    torch.cuda.synchronize()
+    _zero_counts(step_kernel, chunk_kernel)
+    t0 = time.perf_counter()
+    raw = nt.sample(compiled, chains=CHAINS, tune=TUNE, draws=DRAWS, seed=42,
+                    pool_mass_matrix=True, pool_step_size=True, device=DEVICE,
+                    return_raw_trace=True, **kwargs)
+    torch.cuda.synchronize()
+    return raw, time.perf_counter() - t0, chunk_kernel.launches, step_kernel.launches
+
+
+def _readings(raw, wall, tune, columns) -> dict:
+    """Wall, gradients/s, min bulk ESS (and per s and per gradient), max
+    split R-hat over ``columns`` and the posterior divergences of a run."""
+    import numpy as np
+
+    grads = int(raw["stats"]["n_steps"].astype(np.int64).sum())
+    ess, rhat = column_diagnostics(raw["position"][:, tune:, :], columns)
+    min_ess = float(np.min(ess))
+    return {"wall_s": wall, "gradients": grads, "grads_per_s": grads / wall,
+            "min_bulk_ess": min_ess, "min_ess_per_s": min_ess / wall,
+            "min_ess_per_grad": min_ess / grads, "max_rhat": float(max(rhat)),
+            "posterior_divergences": int(raw["stats"]["diverging"][:, tune:].sum())}
+
+
+def phase_options(ctx):
+    """The options through ``sample()`` on the card at full width: radon
+    with Adam through K1; radon with a fixed step and a target integration
+    time (the U-turn check off) through K1; the GLM with the divergence
+    rows through K2."""
+    import numpy as np
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.models.analytic import glm_data
+    from nutpie_tpu_torch.sample import nuts_config_from_settings, route
+    from nutpie_tpu_torch.sampler.run import CUDA_UNROLL
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+    from nutpie_tpu_torch.settings import NutsSettings
+
+    def routed(model, **kwargs):
+        settings = NutsSettings.Diag(42)
+        settings.update(kwargs)
+        return route(nuts_config_from_settings(settings), model)
+
+    n_chunks = math.ceil((TUNE + DRAWS) / CHUNK)
+    radon_model = nt.models.radon()
+
+    # 1. Adam through K1.  The JAX package's Adam collapses radon's step
+    # size in warmup (scripts/adam_radon_reference.py: the matched shift
+    # after each growth of the mass matrix outpaces Adam's capped rise), so
+    # the posterior does not mix in 300 draws and its R-hat is read, not
+    # held to 1.05; the step's collapse is held (below a tenth of dual
+    # averaging's), as the reference takes it
+    adam = dict(step_size_adapt_method="adam")
+    assert routed(radon_model, **adam) == "megakernel"
+    raw, wall, k1, k2 = _radon_run(**adam)
+    assert (k1, k2) == (n_chunks, 0), f"K1 {k1}, K2 {k2} launches for {n_chunks} chunks"
+    assert np.isfinite(raw["position"]).all(), "non-finite draws"
+    adam_readings = _readings(raw, wall, TUNE, MONITORED)
+    adam_readings["posterior_step_size"] = float(np.median(raw["stats"]["step_size"][:, TUNE:]))
+    del raw
+    emit({"phase": "options", "run": "radon_adam", "chains": CHAINS, "tune": TUNE,
+          "draws": DRAWS, "dtype": "float32", "route": "megakernel", "k1_launches": k1,
+          **adam_readings, "dual_averaging": ctx["main_readings"], "card": ctx["card"]})
+    assert adam_readings["posterior_step_size"] < 0.1 * ctx["main_readings"]["step_size"], \
+        adam_readings
+
+    # 2. a fixed step and a target integration time through K1
+    fixed = dict(step_size_adapt_method=RADON_FIXED_EPS, check_turning=False,
+                 target_integration_time=RADON_TARGET_STEPS * RADON_FIXED_EPS,
+                 extra_doublings=RADON_EXTRA_DOUBLINGS)
+    assert routed(radon_model, **fixed) == "megakernel"
+    raw, wall, k1, k2 = _radon_run(**fixed)
+    assert (k1, k2) == (n_chunks, 0), f"K1 {k1}, K2 {k2} launches for {n_chunks} chunks"
+    depth = raw["stats"]["depth"][:, TUNE:]
+    steps = raw["stats"]["n_steps"][:, TUNE:]
+    diverging = raw["stats"]["diverging"][:, TUNE:]
+    eps = raw["stats"]["step_size"][:, TUNE:]
+    fixed_readings = _readings(raw, wall, TUNE, MONITORED)
+    del raw
+    emit({"phase": "options", "run": "radon_fixed_target_time", "chains": CHAINS,
+          "tune": TUNE, "draws": DRAWS, "dtype": "float32", "route": "megakernel",
+          "k1_launches": k1, "fixed_step": RADON_FIXED_EPS,
+          "posterior_step_size": [float(eps.min()), float(eps.max())],
+          "target_integration_time": fixed["target_integration_time"],
+          "extra_doublings": RADON_EXTRA_DOUBLINGS,
+          "posterior_depths": sorted(int(d) for d in np.unique(depth)),
+          "posterior_n_steps": sorted(int(d) for d in np.unique(steps)),
+          "posterior_divergent_draws": int(diverging.sum()), **fixed_readings,
+          "card": ctx["card"]})
+    # a divergent draw ends its tree early; every other runs the full limit:
+    # 4 doublings of 1, 2, 4 and 8 leapfrogs
+    kept = ~diverging
+    assert (depth[kept] == 4).all() and (steps[kept] == 15).all(), \
+        f"posterior depths {np.unique(depth[kept])}, step counts {np.unique(steps[kept])}"
+
+    # 3. the GLM with the divergence rows through K2
+    compiled = compile_model_def(_glm_model())
+    div = dict(store_divergences=True)
+    assert routed(compiled._make_model(0), **div) == "step"
+    import torch
+
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+
+    torch.cuda.synchronize()
+    _zero_counts(step_kernel, chunk_kernel)
+    t0 = time.perf_counter()
+    raw = nt.sample(compiled, chains=GLM_CHAINS, tune=GLM_TUNE, draws=GLM_DIV_DRAWS,
+                    seed=42, chunk_size=GLM_CHUNK, precision="float32", device=DEVICE,
+                    return_raw_trace=True, **div)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, k1 = step_kernel.launches, chunk_kernel.launches
+    n_steps = raw["stats"]["n_steps"]
+    msteps = machine_steps(n_steps, GLM_CHUNK, CUDA_UNROLL)
+    chunks = math.ceil((GLM_TUNE + GLM_DIV_DRAWS) / GLM_CHUNK)
+    assert k1 == 0, f"the chunk kernel launched {k1} times on the GLM path"
+    _assert_step_launches(step_kernel, chunks, msteps, CUDA_UNROLL)
+    stats = raw["stats"]
+    diverging = stats["diverging"]
+    shape = (GLM_CHAINS, GLM_TUNE + GLM_DIV_DRAWS, GLM_DIM)
+    for name in DIV_STATS:
+        assert stats[name].shape == shape, (name, stats[name].shape)
+        assert np.array_equal(np.isfinite(stats[name]).all(-1), diverging), name
+        assert np.array_equal(np.isnan(stats[name]).all(-1), ~diverging), name
+    assert (stats["divergence_message"][diverging] != "").all()
+    pos = raw["position"]
+    assert np.isfinite(pos).all(), "non-finite draws"
+    glm_readings = _readings(raw, wall, GLM_TUNE, GLM_MONITORED)
+    post = pos[:, GLM_TUNE:, :]
+    X, y = glm_data(GLM_N_DATA, GLM_DIM)
+    mode, cov = laplace(X, y)
+    sd = np.sqrt(np.diag(cov))
+    mean = post.reshape(-1, GLM_DIM).mean(axis=0, dtype=np.float64)
+    dev = np.abs(mean - mode) / sd
+    is_mean, _ = importance_mean(X, y, mode, cov)
+    is_dev = np.abs(mean - is_mean) / sd
+    divergent = int(diverging.sum())
+    del raw, stats, pos, post
+    emit({"phase": "options", "run": "glm_store_divergences", "chains": GLM_CHAINS,
+          "tune": GLM_TUNE, "draws": GLM_DIV_DRAWS, "dim": GLM_DIM, "chunk_len": GLM_CHUNK,
+          "dtype": "float32", "route": "step", "step_kernel_launches": k2,
+          "chunk_kernel_launches": k1, "machine_steps": msteps, "chunks": chunks,
+          "graph_replays": step_kernel.replays, "capture_s": step_kernel.capture_s,
+          "host_wall_ms_per_machine_step": 1e3 * wall / msteps,
+          "divergent_draws": divergent, **glm_readings,
+          "laplace_max_dev_sd": float(dev.max()),
+          "importance_mean_max_dev_sd": float(is_dev.max()),
+          "k2_div_instantiation": ctx["options_timing"]["k2_div_instantiation"],
+          "card": ctx["card"]})
+    assert glm_readings["max_rhat"] < 1.05, glm_readings
+    assert is_dev.max() <= IMPORTANCE_SD_TOL, \
+        f"posterior mean {is_dev.max()} sd from the importance-sampled mean"
+    assert dev.max() <= LAPLACE_SD_TOL, f"posterior mean {dev.max()} sd from the Laplace mode"
+
+
 PHASES = {
     "build": phase_build,
     "parity": phase_parity,
@@ -2087,10 +2541,13 @@ PHASES = {
     "warmup": phase_warmup,
     "timing": phase_timing,
     "step_timing": phase_step_timing,
+    "options_parity": phase_options_parity,
+    "options": phase_options,
     "profile": phase_profile,
 }
 # phases whose results a later phase reads
-NEEDS = {"timing": ("warmup",), "step_timing": ("step_parity", "lowrank_parity")}
+NEEDS = {"timing": ("warmup",), "step_timing": ("step_parity", "lowrank_parity"),
+         "options_parity": ("warmup", "step_parity"), "options": ("main", "options_parity", "warmup", "step_parity")}
 
 
 def main() -> int:
@@ -2158,6 +2615,7 @@ def main() -> int:
             "resident_chains_per_sm": ctx["geometry"]["float32"]["resident_chains_per_sm"],
             "ms_per_chunk": ctx["ms"],
             "plain_ms_per_chunk": ctx["plain_ms"],
+            "options_ms_per_chunk": ctx["options_timing"]["k1_posterior_chunk_ms"],
             "parity": "ok",
         }, {
             "name": step_kernel.name,
@@ -2176,6 +2634,8 @@ def main() -> int:
             **ctx["glm_graphs"],
             "plan": ctx["glm_plan"]["float32"],
             "parity": "ok",
+            "options_ms_per_machine_step": ctx["options_timing"]["k2_glm_advance_ms_per_step"],
+            "divergence_rows_instantiation": ctx["options_timing"]["k2_div_instantiation"],
             "low_rank_branch": {
                 "shapes": f"{LR_CHAINS} chains, dim {LR_DIM}, rank {LR_RANK}, float32",
                 "plan": ctx["lr_plan"],

@@ -8,7 +8,9 @@ leaves ``adapt.da.*``, ``adapt.adam.*``, ``adapt.inv_mass`` and
 chains axis.  Under low-rank adaptation the JAX ``LowRankAdaptState``
 adds ``adapt.metric.basis`` (``[C, dim, R]``, a ``LowRankMetric`` of
 ``basis [dim, R]`` per chain) and ``adapt.metric.log_eigs`` (``[C, R]``),
-which map to the port's ``lr_basis`` and ``lr_log_eigs``.
+which map to the port's ``lr_basis`` and ``lr_log_eigs``.  With
+``store_divergences`` the JAX ``vecs`` has 18 rows (the four divergence
+rows after the 14) and is carried as it is, both ways.
 ``state_from_arrays`` packs such a dict into :class:`NutsMachineState`;
 ``state_to_arrays`` unpacks it again, so both packages can step the same
 state and be compared array by array.

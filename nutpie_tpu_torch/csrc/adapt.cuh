@@ -1,7 +1,7 @@
-// Per-draw warmup adaptation inside the chunk kernel: dual averaging of the
-// step size and nutpie's gradient-based diagonal mass matrix from Welford
-// accumulators, with the window switch, the factor-2 rate limit and the
-// matched step-size shift.  Same arithmetic as diag_adapt_update in
+// Per-draw warmup adaptation inside the chunk kernel: the step size (dual
+// averaging, Adam or a fixed step, MkConfig.step_method) and nutpie's
+// gradient-based diagonal mass matrix from Welford accumulators, with the
+// window switch, the factor-2 rate limit and the matched step-size shift.  Same arithmetic as diag_adapt_update in
 // nutpie_tpu_torch/sampler/adapt.py (and nutpie_tpu/sampler/adapt.py).
 //
 // Run by the chain's warp: the scalars (af) are lane-uniform registers,
@@ -37,6 +37,52 @@ __device__ __forceinline__ void dual_avg_update(const MkConfig& cfg, T* af,
   af[AF_LOG_STEP_BAR] = log_step_bar;
   af[AF_HBAR] = hbar;
   af[AF_DA_COUNT] = count;
+}
+
+// Adam on the log step size with gradient (target - accept) (lane-uniform;
+// adam_update in sampler/adapt.py, each value by the same operations in
+// the same order).  Unlike dual averaging, the per-draw increase is capped
+// at x2 with no escape hatch, and the average's weight follows the Adam
+// count.  The three powers come first and each value is stored as soon as
+// it is known: in the float32 forms that keeps the update within the
+// registers the rest of the step leaves.
+template <typename T>
+__device__ __forceinline__ void adam_update(const MkConfig& cfg, T* af, T accept) {
+  const T count = af[AF_ADAM_COUNT] + T(1);
+  af[AF_ADAM_COUNT] = count;
+  const T c1 = T(1) - pow(T(cfg.adam_beta1), count);
+  const T c2 = T(1) - pow(T(cfg.adam_beta2), count);
+  const T eta = pow(count, T(-cfg.kappa));
+  const T g = T(cfg.target_accept) - accept;
+  const T m = T(cfg.adam_beta1) * af[AF_ADAM_M] + T(1.0 - cfg.adam_beta1) * g;
+  af[AF_ADAM_M] = m;
+  const T v = T(cfg.adam_beta2) * af[AF_ADAM_V] + T(1.0 - cfg.adam_beta2) * g * g;
+  af[AF_ADAM_V] = v;
+  const T old = af[AF_LOG_STEP];
+  T log_step = old - T(cfg.adam_lr) * (m / c1) / (sqrt(v / c2) + T(1e-8));
+  log_step = jmin(log_step, old + T(log(2.0)));
+  log_step = jmin(log_step, T(log(cfg.max_step_size)));
+  af[AF_LOG_STEP_BAR] = eta * log_step + (T(1) - eta) * af[AF_LOG_STEP_BAR];
+  af[AF_LOG_STEP] = log_step;
+  af[AF_DA_COUNT] = af[AF_DA_COUNT] + T(1);
+}
+
+// The step-size update of one tuning draw by the configured method: Adam
+// in the kernels' instantiations for it (ADAM; its arithmetic beside dual
+// averaging's in one function spilled registers of the float32 forms),
+// else dual averaging or a fixed step.  A fixed step sets the step and its
+// average to it; the matched shift after the metric update still moves the
+// step (and mu), as in the plain version.
+template <typename T, bool ADAM>
+__device__ __forceinline__ void step_size_update(const MkConfig& cfg, T* af, T accept) {
+  if constexpr (ADAM) {
+    adam_update(cfg, af, accept);
+  } else if (cfg.step_method == STEP_FIXED) {
+    af[AF_LOG_STEP] = T(cfg.log_fixed_step);
+    af[AF_LOG_STEP_BAR] = T(cfg.log_fixed_step);
+  } else {
+    dual_avg_update(cfg, af, accept);
+  }
 }
 
 template <typename T>
@@ -136,14 +182,13 @@ __device__ __forceinline__ T mass_update(const MkConfig& cfg,
   return m;
 }
 
-// The step-size scalars after the metric update: dual averaging, the
-// matched shift for the largest metric ratio, the restart at a switch and
-// the Welford counts.
+// The step-size scalars after the metric update and the step-size
+// method's update (step_size_update, which reads and writes none of the
+// metric's values, so its callers place it where their registers allow):
+// the matched shift for the largest metric ratio, the restart at a switch
+// (under every method) and the Welford counts.
 template <typename T>
-__device__ __forceinline__ void adapt_scalars(const MkConfig& cfg,
-                                              const AdaptWindow<T>& w, T* af,
-                                              T ratio, T accept) {
-  dual_avg_update(cfg, af, accept);
+__device__ __forceinline__ void adapt_scalars(const AdaptWindow<T>& w, T* af, T ratio) {
   const T shift = T(-0.5) * log(jclip(ratio, T(1), T(2)));
   af[AF_LOG_STEP] = af[AF_LOG_STEP] + shift;
   af[AF_MU] = af[AF_MU] + shift;
@@ -163,11 +208,13 @@ __device__ __forceinline__ void adapt_scalars(const MkConfig& cfg,
 // [N_ADAPT_VEC, dim] rows in global memory; `im` the inverse mass row in
 // shared memory, kept in step with its A_INV_MASS row.  Each lane touches
 // the coordinates it owns.
-template <typename T, int NPL>
+template <typename T, int NPL, bool ADAM>
 __device__ __forceinline__ void diag_adapt_update(
     const MkConfig& cfg, const Sched& s, int lane, T* av, T* im, T* af,
     const T* x, const T* gr, int draw_idx, bool diverging, T accept) {
   const int dim = cfg.dim;
+  // the step size first: at the end the float32 Adam forms spilled
+  step_size_update<T, ADAM>(cfg, af, accept);
 
   bool fin = true;
 #pragma unroll
@@ -204,7 +251,7 @@ __device__ __forceinline__ void diag_adapt_update(
     av[A_INV_MASS * dim + i] = m;
   }
   ratio = warp_max(ratio);
-  adapt_scalars(cfg, w, af, ratio, accept);
+  adapt_scalars(w, af, ratio);
 }
 
 // The same update for a chain whose rows all stay in global memory and
@@ -213,7 +260,7 @@ __device__ __forceinline__ void diag_adapt_update(
 // other loop of the step kernel: the inverse mass is the A_INV_MASS row of
 // `av`, and the estimate is recomputed from the written m2 rows instead of
 // held in registers.
-template <typename T, int N, int KC, typename G>
+template <typename T, int N, int KC, bool ADAM, typename G>
 __device__ __forceinline__ void diag_adapt_update_strided(
     const G& g, const MkConfig& cfg, const Sched& s, T* av, T* af,
     const T* x, const T* gr, int draw_idx, bool diverging, T accept) {
@@ -254,7 +301,8 @@ __device__ __forceinline__ void diag_adapt_update_strided(
     }
   });
   ratio = g.max(ratio);
-  adapt_scalars(cfg, w, af, ratio, accept);
+  step_size_update<T, ADAM>(cfg, af, accept);
+  adapt_scalars(w, af, ratio);
 }
 
 }  // namespace nutpie

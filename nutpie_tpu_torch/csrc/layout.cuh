@@ -29,6 +29,12 @@ enum VecSlot {
   V_POSITION, V_GRADIENT, N_VEC
 };
 
+// The divergence-location rows after them, with store_divergences
+// (StepConfig: the step kernel's instantiation that carries them).
+enum DivSlot {
+  V_DIV_START = N_VEC, V_DIV_START_GRAD, V_DIV_END, V_DIV_MOM, N_VEC_DIV
+};
+
 enum FltSlot {
   F_LOGP = 0, F_EPS, F_H0, F_LOGW_TRAJ, F_PROP_LOGP, F_PROP_ENERGY,
   F_LOGW_SUB, F_SPROP_LOGP, F_SPROP_ENERGY, F_SUM_ACC, F_KE_MINUS,
@@ -59,6 +65,9 @@ enum ScalarSlot {
   S_INDEX_IN_TRAJECTORY, S_FISHER_DISTANCE, N_SCALAR = 12
 };
 
+// The step-size method of AdaptConfig.method.
+enum StepMethod { STEP_DUAL_AVERAGE = 0, STEP_ADAM = 1, STEP_FIXED = 2 };
+
 // Static configuration: NutsConfig, AdaptConfig and the radon data sizes.
 struct MkConfig {
   double max_energy_error;
@@ -70,6 +79,11 @@ struct MkConfig {
   double max_step_size;
   double min_variance;
   double max_variance;
+  double adam_lr;
+  double adam_beta1;
+  double adam_beta2;
+  double log_fixed_step;  // log of the fixed step size (STEP_FIXED)
+  double target_time;     // target_integration_time (if has_target_time)
   int32_t n_chains;
   int32_t dim;
   int32_t depth_slots;  // D = max(maxdepth, 2)
@@ -82,6 +96,10 @@ struct MkConfig {
   int32_t has_jitter;
   int32_t switch_freq;
   int32_t early_switch_freq;
+  int32_t step_method;        // StepMethod
+  int32_t has_target_time;
+  int32_t extra_doublings;    // with target_time
+  int32_t store_divergences;  // 1: vecs has N_VEC_DIV rows (step kernel only)
   int32_t n_counties;
   int32_t n_obs;
   int32_t n_seg;     // segments of the lane partition

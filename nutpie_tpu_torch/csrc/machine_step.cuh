@@ -114,7 +114,7 @@ __device__ __forceinline__ void start_draw(Chain<T>& c,
 // Advance the chain by one leapfrog step.  The chain is active (the loop
 // in run_chain stops at its last draw).  `cp`/`cs` are the chain's
 // checkpoint rows in global memory, `av` its adaptation rows.
-template <typename T, int NPL>
+template <typename T, int NPL, bool ADAM>
 __device__ __forceinline__ void machine_step(Chain<T>& c,
                                              StepUniforms& rng,
                                              const WarpCtx<T>& x, int chain,
@@ -310,10 +310,8 @@ __device__ __forceinline__ void machine_step(Chain<T>& c,
   // ---------------------------------------------- draw completion
   const int in_depth = in[I_DEPTH];
   turning_traj = turning_traj && (in_depth + 1) >= cfg.mindepth;
-  int depth_limit = cfg.maxdepth < s.depth_cap ? cfg.maxdepth : s.depth_cap;
-  const int floor_depth = cfg.mindepth > 1 ? cfg.mindepth : 1;
-  depth_limit = depth_limit > floor_depth ? depth_limit : floor_depth;
-  const bool ended_by_depth = merge_ok && (in_depth + 1) >= depth_limit;
+  const bool ended_by_depth =
+      merge_ok && (in_depth + 1) >= depth_limit(cfg, s, fl[F_EPS]);
   const bool draw_done = sub_done && (sub_invalid || turning_traj || ended_by_depth);
   const bool next_doubling = merge_ok && !draw_done;
   if (next_doubling) in[I_DEPTH] = in_depth + 1;
@@ -370,7 +368,7 @@ __device__ __forceinline__ void machine_step(Chain<T>& c,
     T af[N_ADAPT_FLT];
 #pragma unroll
     for (int q = 0; q < N_ADAPT_FLT; ++q) af[q] = w.af[q];
-    diag_adapt_update<T, NPL>(cfg, s, lane, av, w.row(kRowInvMass, dim), af,
+    diag_adapt_update<T, NPL, ADAM>(cfg, s, lane, av, w.row(kRowInvMass, dim), af,
                               pz, w.row(V_PROP_G, dim), in_draw_idx,
                               diverging, accept_mean);
     // at the end of tuning, freeze the step size at its averaged value
@@ -398,7 +396,7 @@ __device__ __forceinline__ void machine_step(Chain<T>& c,
 // One chunk of draws for one chain, run by its warp: load the chain's
 // state, step until its last draw of the chunk, write the state back.  The
 // checkpoint rows stay in global memory and are used in place.
-template <typename T, int NPL>
+template <typename T, int NPL, bool ADAM>
 __device__ __forceinline__ void run_chain(const WarpCtx<T>& x, int chain) {
   const MkArgs<T>& a = *x.a;
   const MkConfig& cfg = a.cfg;
@@ -439,7 +437,7 @@ __device__ __forceinline__ void run_chain(const WarpCtx<T>& x, int chain) {
   const size_t r0 = size_t(chain) * L;
   start_draw<T, NPL>(c, cfg, x.s, lane, w, a.mom + r0 * dim, a.jit[r0]);
   do {
-    machine_step<T, NPL>(c, rng, x, chain, cp, cs, av);
+    machine_step<T, NPL, ADAM>(c, rng, x, chain, cp, cs, av);
   } while (!c.in[I_DONE]);
 
   for (int k = 0; k < N_VEC; ++k) {
@@ -468,7 +466,7 @@ __device__ __forceinline__ void run_chain(const WarpCtx<T>& x, int chain) {
 // chains until none is left.  Warp w of block b first takes chain
 // b + gridDim.x * w, which spreads the first chains evenly over the SMs;
 // after that each warp takes the next chain from the queue.
-template <typename T, int NPL>
+template <typename T, int NPL, bool ADAM>
 __device__ __forceinline__ void megakernel_chunk_body(const MkArgs<T>& a,
                                                       unsigned char* smem) {
   const MkConfig& cfg = a.cfg;
@@ -508,7 +506,7 @@ __device__ __forceinline__ void megakernel_chunk_body(const MkArgs<T>& a,
 
   int chain = blockIdx.x + gridDim.x * warp;
   while (chain < cfg.n_chains) {
-    run_chain<T, NPL>(x, chain);
+    run_chain<T, NPL, ADAM>(x, chain);
     int next = 0;
     if (lane == 0) next = atomicAdd(a.queue, 1);
     chain = gridDim.x * warps + __shfl_sync(kFullMask, next, 0);

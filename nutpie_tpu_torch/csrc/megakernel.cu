@@ -66,23 +66,31 @@
 
 namespace nutpie {
 
-template <typename T, int NPL>
+template <typename T, int NPL, bool ADAM>
 __global__ void __launch_bounds__(MaxWarps<T>::value * kLanes, 1)
     megakernel_chunk(MkArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  megakernel_chunk_body<T, NPL>(a, smem);
+  megakernel_chunk_body<T, NPL, ADAM>(a, smem);
 }
 
 // The kernel compiled for the smallest coordinates-per-lane count (NPL in
 // 2, 4, 6, 8) that covers dim, or null above 256 coordinates.
-template <typename T>
-const void* pick_kernel(int dim, int* npl) {
-  if (dim <= 2 * kLanes) { *npl = 2; return reinterpret_cast<const void*>(megakernel_chunk<T, 2>); }
-  if (dim <= 4 * kLanes) { *npl = 4; return reinterpret_cast<const void*>(megakernel_chunk<T, 4>); }
-  if (dim <= 6 * kLanes) { *npl = 6; return reinterpret_cast<const void*>(megakernel_chunk<T, 6>); }
-  if (dim <= 8 * kLanes) { *npl = 8; return reinterpret_cast<const void*>(megakernel_chunk<T, 8>); }
+template <typename T, bool ADAM>
+const void* pick_npl(int dim, int* npl) {
+  if (dim <= 2 * kLanes) { *npl = 2; return reinterpret_cast<const void*>(megakernel_chunk<T, 2, ADAM>); }
+  if (dim <= 4 * kLanes) { *npl = 4; return reinterpret_cast<const void*>(megakernel_chunk<T, 4, ADAM>); }
+  if (dim <= 6 * kLanes) { *npl = 6; return reinterpret_cast<const void*>(megakernel_chunk<T, 6, ADAM>); }
+  if (dim <= 8 * kLanes) { *npl = 8; return reinterpret_cast<const void*>(megakernel_chunk<T, 8, ADAM>); }
   *npl = 0;
   return nullptr;
+}
+
+// ... and for the step-size method: Adam has instantiations of its own
+// (adapt.cuh: step_size_update).
+template <typename T>
+const void* pick_kernel(const MkConfig& cfg, int* npl) {
+  return cfg.step_method == STEP_ADAM ? pick_npl<T, true>(cfg.dim, npl)
+                                      : pick_npl<T, false>(cfg.dim, npl);
 }
 
 struct LaunchPlan {
@@ -97,7 +105,7 @@ struct LaunchPlan {
 // card cannot hold that many slices beside the model data.
 template <typename T>
 int plan_launch(const MkConfig& cfg, LaunchPlan* p) {
-  p->fn = pick_kernel<T>(cfg.dim, &p->npl);
+  p->fn = pick_kernel<T>(cfg, &p->npl);
   if (p->fn == nullptr || cfg.dim != 2 * cfg.n_counties + 3) {
     return int(cudaErrorInvalidValue);
   }

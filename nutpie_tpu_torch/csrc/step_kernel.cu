@@ -44,6 +44,16 @@
 //     dim one coordinate at a time.  128 threads a block.  Both sum in the
 //     order of a 32-lane warp (group.cuh), so every form's sums have the
 //     bits of the one-warp-per-chain kernel this one replaced;
+//   - the divergence-location rows of store_divergences (DIV): each form
+//     and the low-rank branch below over 18 state rows instead of 14.  A
+//     divergent leaf writes its edge's position, gradient and momentum and
+//     the new point into them, so the second half-kick defers its edge
+//     stores until the leaf is judged; a new draw resets them to NaN and a
+//     finished draw commits them.  Instantiations of their own, so the
+//     forms without the rows keep their code and registers;
+//   - each of the above once more for the Adam step-size method (ADAM;
+//     adapt.cuh: step_size_update), whose update beside dual averaging's
+//     spilled the float32 held form;
 //   - the low-rank metric (taken when the wrapper passes a metric of rank R
 //     > 0): a block of kLrWarps warps per chain (BlockGroup), the blocks
 //     persistent, each running every gridDim.x-th chain in turn.  It
@@ -127,7 +137,7 @@ extern __shared__ __align__(128) unsigned char step_smem[];
 struct StepPtrs {
   const int32_t* scal;   // chunk_start, limit, num_tune, early_end, freeze_start, depth_cap
   const int64_t* key;    // [C, 2] raw Threefry key data
-  void* vecs;            // [C, N_VEC, dim]
+  void* vecs;            // [C, N_VEC, dim] ([C, N_VEC_DIV, dim] with store_divergences)
   void* ckpt_p;          // [C, D, dim]
   void* ckpt_s;          // [C, D, dim]
   void* flts;            // [C, N_FLT]
@@ -150,6 +160,11 @@ struct StepPtrs {
   void* grad_out;           // [C, L, dim] the draws' gradients, or null
   void* minv_out;           // [C, L, dim] the draws' inverse mass, or null
   void* eig_out;            // [C, L, R] the draws' metric eigenvalues, or null
+  // [C, L, dim] each, with store_divergences: the draws' divergence rows
+  void* div_start_out;
+  void* div_end_out;
+  void* div_mom_out;
+  void* div_grad_out;
 };
 
 template <typename T>
@@ -186,6 +201,10 @@ struct StepArgs {
   T* grad_out;
   T* minv_out;
   T* eig_out;
+  T* div_start_out;
+  T* div_end_out;
+  T* div_mom_out;
+  T* div_grad_out;
 
   StepArgs(const MkConfig& c, const StepPtrs& p, bool adv)
       : cfg(c), advance(adv ? 1 : 0), scal(p.scal), key(p.key),
@@ -201,7 +220,11 @@ struct StepArgs {
         lr_log_eigs(static_cast<const T*>(p.lr_log_eigs)),
         edge_v(static_cast<T*>(p.edge_v)), ckpt_v(static_cast<T*>(p.ckpt_v)),
         grad_out(static_cast<T*>(p.grad_out)), minv_out(static_cast<T*>(p.minv_out)),
-        eig_out(static_cast<T*>(p.eig_out)) {}
+        eig_out(static_cast<T*>(p.eig_out)),
+        div_start_out(static_cast<T*>(p.div_start_out)),
+        div_end_out(static_cast<T*>(p.div_end_out)),
+        div_mom_out(static_cast<T*>(p.div_mom_out)),
+        div_grad_out(static_cast<T*>(p.div_grad_out)) {}
 
   // The block's view of the low-rank metric (its barriers initialized).
   template <typename G>
@@ -210,6 +233,10 @@ struct StepArgs {
                       g.lane());
   }
 };
+
+// State rows a chain: with the divergence rows or without.
+template <bool DIV>
+constexpr int kNVec = DIV ? int(N_VEC_DIV) : int(N_VEC);
 
 // The first chain after `chain` in the block's order (every gridDim.x-th)
 // that is not done, among the next 32; -1 if none.  Every warp reads the
@@ -261,7 +288,7 @@ struct NextDrift {
 // basis), whose velocity coefficients the second pass gathers while it
 // writes the rows, and in a third the velocity v(p0), kept for both edges
 // (ev), and the kinetic energy p0 . v(p0).
-template <typename T, bool LR, int N, int KC, typename G>
+template <typename T, bool LR, int N, int KC, bool DIV, typename G>
 __device__ __forceinline__ void start_draw_strided(const G& g, T* fl, int* in,
                                                    const MkConfig& cfg, const Sched& s, T* v,
                                                    const T* im, const T* af, const T* gauss,
@@ -295,6 +322,9 @@ __device__ __forceinline__ void start_draw_strided(const G& g, T* fl, int* in,
         const T p0 = (gauss[i] + uc) / si;
         reset_rows<1>(v, dim, i, splat<1>(v[V_POSITION * dim + i]), splat<1>(p0),
                       splat<1>(v[V_GRADIENT * dim + i]));
+        if constexpr (DIV) {
+          for (int row = V_DIV_START; row < N_VEC_DIV; ++row) v[row * dim + i] = T(NAN);
+        }
         wi = si * p0;
       }
       m.project(u, t, wi, acc);
@@ -327,6 +357,9 @@ __device__ __forceinline__ void start_draw_strided(const G& g, T* fl, int* in,
         ke_part[0][k] += p0[k] * (mi[k] * p0[k]);
       }
       reset_rows<N>(v, dim, c, z, p0, gr);
+      if constexpr (DIV) {
+        for (int row = V_DIV_START; row < N_VEC_DIV; ++row) st<N>(v + row * dim, c, splat<N>(T(NAN)));
+      }
     });
   }
   T ke[1];
@@ -365,7 +398,7 @@ __device__ __forceinline__ void start_draw_strided(const G& g, T* fl, int* in,
 // The second half of a step (leapfrog_finish in nuts.py) of one chain,
 // whose scalars are in `fl` and `in`; a held form leaves in `drift` the
 // next step's drift along the edge it extended.
-template <typename T, bool LR, int N, int KC, typename G>
+template <typename T, bool LR, int N, int KC, bool DIV, bool ADAM, typename G>
 __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, const G& g,
                                             LowRank<T>& m, T* fl, int* in,
                                             NextDrift<T, N, KC>& drift) {
@@ -378,7 +411,7 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
   const int L = cfg.chunk_len;
   const Sched s{a.scal[0], a.scal[1], a.scal[2], a.scal[3], a.scal[4], a.scal[5]};
 
-  T* v = a.vecs + size_t(chain) * N_VEC * dim;
+  T* v = a.vecs + size_t(chain) * kNVec<DIV> * dim;
   T* av = a.adapt_vecs + size_t(chain) * N_ADAPT_VEC * dim;
   const T* im = av + A_INV_MASS * dim;
   T* cp = a.ckpt_p + size_t(chain) * D * dim;
@@ -425,9 +458,11 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
         const T p_half = pe[i] + half_eps * ge[i];
         const T gi = gn[i];
         const T p = p_half + half_eps * gi;
-        ze[i] = zn[i];
-        pe[i] = p;
-        ge[i] = gi;
+        if constexpr (!DIV) {
+          ze[i] = zn[i];
+          pe[i] = p;
+          ge[i] = gi;
+        }
         wi = sqrt(im[i]) * p;
       }
       m.project(m.tile(t), t, wi, acc);
@@ -442,7 +477,8 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
       m.release(t);
       if (i < dim) {
         const T si = sqrt(im[i]);
-        const T p = pe[i];
+        // the new momentum (its edge still holds the old one with the rows)
+        const T p = DIV ? (pe[i] + half_eps * ge[i]) + half_eps * gn[i] : pe[i];
         const T vn = si * (si * p + uc);
         ve[i] = vn;
         ke_part[0][0] += p * vn;
@@ -462,9 +498,13 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
         p[k] = p_half + half_eps * gi[k];
         ke_part[0][k] += p[k] * (mi[k] * p[k]);
       }
-      st<N>(ze, c, z);
-      st<N>(pe, c, p);
-      st<N>(ge, c, gi);
+      // with the divergence rows the edge keeps its old values until the
+      // leaf is judged (below)
+      if constexpr (!DIV) {
+        st<N>(ze, c, z);
+        st<N>(pe, c, p);
+        st<N>(ge, c, gi);
+      }
       if constexpr (KC > 0) {
         z_held[j] = z;
         p_held[j] = p;
@@ -494,6 +534,37 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
   const bool div_leaf = !finite || e_err > T(cfg.max_energy_error) || stagnant;
   const T lw = div_leaf ? -T(INFINITY) : -e_err;
   const T acc = finite ? exp(jmin(T(0), -e_err)) : T(0);
+  if constexpr (DIV) {
+    // a divergent leaf keeps the edge it left (position, gradient,
+    // momentum) and the point it reached; then the edge becomes the new
+    // point (a strided thread recomputes its momentum, bit for bit)
+    each_chunk<KC>(g, n_chunks, [&](int j, int c) {
+      V z, p, gi;
+      if constexpr (KC > 0) {
+        z = z_held[j];
+        p = p_held[j];
+        gi = g_held[j];
+      } else {
+        const V p_e = ld<N>(pe, c), g_e = ld<N>(ge, c);
+        z = ld<N>(zn, c);
+        gi = ld<N>(gn, c);
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const T p_half = p_e[k] + half_eps * g_e[k];
+          p[k] = p_half + half_eps * gi[k];
+        }
+      }
+      if (div_leaf) {
+        st<N>(v + V_DIV_START * dim, c, ld<N>(ze, c));
+        st<N>(v + V_DIV_START_GRAD * dim, c, ld<N>(ge, c));
+        st<N>(v + V_DIV_MOM * dim, c, ld<N>(pe, c));
+        st<N>(v + V_DIV_END * dim, c, z);
+      }
+      st<N>(ze, c, z);
+      st<N>(pe, c, p);
+      st<N>(ge, c, gi);
+    });
+  }
   fl[F_SUM_ACC] = fl[F_SUM_ACC] + acc;
   in[I_N_LEAVES] += 1;
   in[I_TOTAL_STEPS] += 1;
@@ -658,10 +729,8 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
   // ---------------------------------------------- draw completion
   const int in_depth = in[I_DEPTH];
   turning_traj = turning_traj && (in_depth + 1) >= cfg.mindepth;
-  int depth_limit = cfg.maxdepth < s.depth_cap ? cfg.maxdepth : s.depth_cap;
-  const int floor_depth = cfg.mindepth > 1 ? cfg.mindepth : 1;
-  depth_limit = depth_limit > floor_depth ? depth_limit : floor_depth;
-  const bool ended_by_depth = merge_ok && (in_depth + 1) >= depth_limit;
+  const bool ended_by_depth =
+      merge_ok && (in_depth + 1) >= depth_limit(cfg, s, fl[F_EPS]);
   const bool draw_done = sub_done && (sub_invalid || turning_traj || ended_by_depth);
   const bool next_doubling = merge_ok && !draw_done;
   if (next_doubling) {
@@ -716,6 +785,12 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
       if (grad_row) st<N>(grad_row, c, gi);
       if (minv_row) st<N>(minv_row, c, ld<N>(im, c));
       if (done) st<N>(zn, c, z);
+      if constexpr (DIV) {
+        st<N>(a.div_start_out + out_row * dim, c, ld<N>(v + V_DIV_START * dim, c));
+        st<N>(a.div_end_out + out_row * dim, c, ld<N>(v + V_DIV_END * dim, c));
+        st<N>(a.div_mom_out + out_row * dim, c, ld<N>(v + V_DIV_MOM * dim, c));
+        st<N>(a.div_grad_out + out_row * dim, c, ld<N>(v + V_DIV_START_GRAD * dim, c));
+      }
     });
     if constexpr (LR) {
       // thread r < R is lane r of the first warp
@@ -724,7 +799,7 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
     fl[F_LOGP] = fl[F_PROP_LOGP];
     // adaptation (tuning draws only; skipped when frozen)
     if (in_draw_idx < s.num_tune && !cfg.adapt_frozen) {
-      diag_adapt_update_strided<T, N, KC>(g, cfg, s, av, af, pz, pg, in_draw_idx, diverging,
+      diag_adapt_update_strided<T, N, KC, ADAM>(g, cfg, s, av, af, pz, pg, in_draw_idx, diverging,
                                           accept_mean);
       // at the end of tuning, freeze the step size at its averaged value
       if (in_draw_idx == s.num_tune - 1) af[AF_LOG_STEP] = af[AF_LOG_STEP_BAR];
@@ -742,7 +817,7 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
     if (!done) {
       const int nidx = idx + 1 > L - 1 ? L - 1 : (idx + 1 < 0 ? 0 : idx + 1);
       const size_t r = size_t(chain) * L + nidx;
-      start_draw_strided<T, LR, N, KC>(g, fl, in, cfg, s, v, im, af, a.mom + r * dim, a.jit[r],
+      start_draw_strided<T, LR, N, KC, DIV>(g, fl, in, cfg, s, v, im, af, a.mom + r * dim, a.jit[r],
                                        m, ev);
     }
   }
@@ -752,7 +827,7 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
 // whose scalars are in `fl` and `in`: its uniforms, direction, stash,
 // first half-kick and drift into z_new; where the step extends the edge
 // the last one did, the drift `drift` holds (held forms).
-template <typename T, bool LR, int N, int KC, typename G>
+template <typename T, bool LR, int N, int KC, bool DIV, typename G>
 __device__ __forceinline__ void begin_half(const StepArgs<T>& a, int chain, const G& g,
                                            LowRank<T>& m, const T* fl, int* in,
                                            const NextDrift<T, N, KC>& drift) {
@@ -760,7 +835,7 @@ __device__ __forceinline__ void begin_half(const StepArgs<T>& a, int chain, cons
   const MkConfig& cfg = a.cfg;
   const int dim = cfg.dim;
   const int D = cfg.depth_slots;
-  const T* v = a.vecs + size_t(chain) * N_VEC * dim;
+  const T* v = a.vecs + size_t(chain) * kNVec<DIV> * dim;
   T* zn = a.z_new + size_t(chain) * dim;
   const int total_steps = in[I_TOTAL_STEPS];
   const bool at_start = in[I_N_LEAF] == 0;
@@ -856,7 +931,7 @@ __device__ __forceinline__ void begin_half(const StepArgs<T>& a, int chain, cons
 // One launch of one chain: the second half of its step and the first half
 // of its next (advance), or a first half alone.  A chain done before the
 // launch is left alone (a first half hands its committed position).
-template <typename T, bool LR, int N, int KC, typename G>
+template <typename T, bool LR, int N, int KC, bool DIV, bool ADAM, typename G>
 __device__ __forceinline__ void step_chain(const StepArgs<T>& a, int chain, const G& g,
                                            LowRank<T>& m) {
   const MkConfig& cfg = a.cfg;
@@ -868,7 +943,7 @@ __device__ __forceinline__ void step_chain(const StepArgs<T>& a, int chain, cons
   if constexpr (LR) next = next_active(a.ints, chain, cfg.n_chains, g.lane());
   if (in[I_DONE]) {
     if (!a.advance) {
-      const T* pos = a.vecs + size_t(chain) * N_VEC * dim + V_POSITION * dim;
+      const T* pos = a.vecs + size_t(chain) * kNVec<DIV> * dim + V_POSITION * dim;
       T* zn = a.z_new + size_t(chain) * dim;
       each_chunk<KC>(g, dim / N, [&](int, int c) { st<N>(zn, c, ld<N>(pos, c)); });
     }
@@ -881,11 +956,11 @@ __device__ __forceinline__ void step_chain(const StepArgs<T>& a, int chain, cons
 #pragma unroll
   for (int k = 0; k < N_FLT; ++k) fl[k] = a.flts[size_t(chain) * N_FLT + k];
   NextDrift<T, N, KC> drift;
-  if (a.advance) finish_half<T, LR, N, KC>(a, chain, g, m, fl, in, drift);
+  if (a.advance) finish_half<T, LR, N, KC, DIV, ADAM>(a, chain, g, m, fl, in, drift);
   // every thread has read this step's uniforms and stagnant flag, which
   // the first half overwrites
   g.sync();
-  if (!in[I_DONE]) begin_half<T, LR, N, KC>(a, chain, g, m, fl, in, drift);
+  if (!in[I_DONE]) begin_half<T, LR, N, KC, DIV>(a, chain, g, m, fl, in, drift);
   // every thread has read the chain's scalars; one writes them back
   g.sync();
   if (g.leader()) {
@@ -902,7 +977,7 @@ __device__ __forceinline__ void step_chain(const StepArgs<T>& a, int chain, cons
 
 // The diagonal forms run one chain per group of W lanes; the low-rank one
 // runs persistent blocks, block b the chains b, b + gridDim.x, ... in turn.
-template <typename T, bool LR, int W, int N, int KC>
+template <typename T, bool LR, int W, int N, int KC, bool DIV, bool ADAM>
 __global__ void __launch_bounds__(GroupOf<LR, W>::type::kBlockThreads, min_blocks<T, LR>())
     step_advance(StepArgs<T> a) {
   using G = typename GroupOf<LR, W>::type;
@@ -910,21 +985,21 @@ __global__ void __launch_bounds__(GroupOf<LR, W>::type::kBlockThreads, min_block
     const G g(step_smem + lr_layout<T>(a.cfg).red);
     LowRank<T> m = a.metric(g);
     for (int chain = blockIdx.x; chain < a.cfg.n_chains; chain += gridDim.x) {
-      step_chain<T, true, 1, 0>(a, chain, g, m);
+      step_chain<T, true, 1, 0, DIV, ADAM>(a, chain, g, m);
     }
   } else {
     const G g;
     const int chain = G::chain();
     if (chain >= a.cfg.n_chains) return;  // the whole group
     LowRank<T> m;
-    step_chain<T, false, N, KC>(a, chain, g, m);
+    step_chain<T, false, N, KC, DIV, ADAM>(a, chain, g, m);
   }
 }
 
 // Raise the low-rank kernel's dynamic shared-memory cap to `bytes` before
 // the first launch that needs them (every launch of a run asks for the same
 // bytes, so once per instantiation and device).
-template <typename T>
+template <typename T, bool DIV, bool ADAM>
 cudaError_t allow_smem(size_t bytes) {
   constexpr int kMaxDevices = 64;
   static size_t cap[kMaxDevices] = {};
@@ -932,7 +1007,7 @@ cudaError_t allow_smem(size_t bytes) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && bytes <= cap[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(step_advance<T, true, 0, 1, 0>,
+  err = cudaFuncSetAttribute(step_advance<T, true, 0, 1, 0, DIV, ADAM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err == cudaSuccess && dev < kMaxDevices) cap[dev] = bytes;
   return err;
@@ -983,16 +1058,43 @@ int diag_form(const MkConfig& cfg, const StepPtrs& p) {
   if (cfg.step_grid != (cfg.n_chains + per_block - 1) / per_block) return -1;
   const uintptr_t align = uintptr_t(cfg.step_vec) * sizeof(T);
   const void* rows[] = {p.vecs, p.ckpt_p, p.ckpt_s, p.adapt_vecs, p.mom, p.pos_out,
-                        p.z_new, p.grad, p.grad_out, p.minv_out};
+                        p.z_new, p.grad, p.grad_out, p.minv_out, p.div_start_out,
+                        p.div_end_out, p.div_mom_out, p.div_grad_out};
   for (const void* r : rows) {
     if (reinterpret_cast<uintptr_t>(r) % align != 0) return -1;
   }
   return form;
 }
 
+template <typename T, int W, int N, int KC, bool ADAM>
+void launch_diag_rows(const StepArgs<T>& a, cudaStream_t s) {
+  if (a.cfg.store_divergences) {
+    step_advance<T, false, W, N, KC, true, ADAM><<<a.cfg.step_grid, kLaneBlockThreads, 0, s>>>(a);
+  } else {
+    step_advance<T, false, W, N, KC, false, ADAM><<<a.cfg.step_grid, kLaneBlockThreads, 0, s>>>(a);
+  }
+}
+
+// The diagonal form's instantiation with the divergence rows or without,
+// for Adam or the other step-size methods.
 template <typename T, int W, int N, int KC>
 cudaError_t launch_diag(const StepArgs<T>& a, cudaStream_t s) {
-  step_advance<T, false, W, N, KC><<<a.cfg.step_grid, kLaneBlockThreads, 0, s>>>(a);
+  if (a.cfg.step_method == STEP_ADAM) {
+    launch_diag_rows<T, W, N, KC, true>(a, s);
+  } else {
+    launch_diag_rows<T, W, N, KC, false>(a, s);
+  }
+  return cudaGetLastError();
+}
+
+// The low-rank instantiation with the divergence rows or without, for Adam
+// or the other step-size methods: persistent blocks, each running its
+// share of the chains.
+template <typename T, bool DIV, bool ADAM>
+cudaError_t launch_lr(const StepArgs<T>& a, size_t smem, cudaStream_t s) {
+  const cudaError_t err = allow_smem<T, DIV, ADAM>(smem);
+  if (err != cudaSuccess) return err;
+  step_advance<T, true, 0, 1, 0, DIV, ADAM><<<a.cfg.lr_grid, kLrThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -1001,7 +1103,9 @@ int launch(bool advance, const MkConfig* cfg, const StepPtrs* p, void* stream) {
   const int R = cfg->lr_rank;
   if (cfg->n_chains < 1 || cfg->dim < 1 || cfg->depth_slots < 2 || R < 0 ||
       R > kMaxRank || (advance && (!p->logp || !p->grad)) ||
-      (R > 0 && (!p->lr_basis || !p->lr_log_eigs || !p->edge_v || !p->ckpt_v))) {
+      (R > 0 && (!p->lr_basis || !p->lr_log_eigs || !p->edge_v || !p->ckpt_v)) ||
+      (cfg->store_divergences &&
+       (!p->div_start_out || !p->div_end_out || !p->div_mom_out || !p->div_grad_out))) {
     return int(cudaErrorInvalidValue);
   }
   const StepArgs<T> a(*cfg, *p, advance);
@@ -1017,10 +1121,13 @@ int launch(bool advance, const MkConfig* cfg, const StepPtrs* p, void* stream) {
   const int code = check_lr_plan<T>(*cfg, p->lr_basis);
   if (code != 0) return code;
   const size_t smem = lr_layout<T>(*cfg).bytes;
-  const cudaError_t err = allow_smem<T>(smem);
-  if (err != cudaSuccess) return int(err);
-  step_advance<T, true, 0, 1, 0><<<cfg->lr_grid, kLrThreads, smem, s>>>(a);
-  return int(cudaGetLastError());
+  const bool adam = cfg->step_method == STEP_ADAM;
+  const cudaError_t err = cfg->store_divergences
+                              ? (adam ? launch_lr<T, true, true>(a, smem, s)
+                                      : launch_lr<T, true, false>(a, smem, s))
+                              : (adam ? launch_lr<T, false, true>(a, smem, s)
+                                      : launch_lr<T, false, false>(a, smem, s));
+  return int(err);
 }
 
 template <typename K>
@@ -1037,32 +1144,68 @@ cudaError_t diag_geometry(K kernel, int32_t* out) {
   return err;
 }
 
-// What was compiled: for each diagonal form (DiagForms' order) the
-// registers and local (spill) bytes per thread and the blocks an SM holds,
-// the threads of its block; then the low-rank instantiation's registers,
-// local bytes and threads, and for the low-rank plan in `cfg` (lr_rank >
-// 0; zeros otherwise) the dynamic shared-memory bytes of a block and the
-// blocks an SM holds.
+// The held and strided forms, without and with the divergence rows.
+template <typename T, bool ADAM>
+cudaError_t diag_forms_geometry(int32_t (*d)[3]) {
+  cudaError_t err = diag_geometry(
+      step_advance<T, false, kLanes / kVec<T>, kVec<T>, kHeld, false, ADAM>, d[0]);
+  if (err == cudaSuccess) {
+    err = diag_geometry(step_advance<T, false, kLanes, 1, 0, false, ADAM>, d[1]);
+  }
+  if (err == cudaSuccess) {
+    err = diag_geometry(step_advance<T, false, kLanes / kVec<T>, kVec<T>, kHeld, true, ADAM>,
+                        d[2]);
+  }
+  if (err == cudaSuccess) err = diag_geometry(step_advance<T, false, kLanes, 1, 0, true, ADAM>, d[3]);
+  return err;
+}
+
+// What was compiled: for each diagonal form (DiagForms' order), without and
+// then with the divergence rows, then the same four for Adam, the
+// registers and local (spill) bytes per thread and the blocks an SM holds;
+// the threads of their block; then the low-rank instantiation's registers,
+// local bytes and threads, the registers and local bytes of its Adam
+// instantiation, of the one with the rows and of Adam's with the rows, and
+// for the low-rank plan in `cfg` (lr_rank > 0; zeros otherwise) the dynamic
+// shared-memory bytes of a block and the blocks an SM holds.
 template <typename T>
 int geometry(const MkConfig* cfg, int32_t* out) {
-  int32_t d[2][3];
-  cudaError_t err =
-      diag_geometry(step_advance<T, false, kLanes / kVec<T>, kVec<T>, kHeld>, d[0]);
-  if (err == cudaSuccess) err = diag_geometry(step_advance<T, false, kLanes, 1, 0>, d[1]);
-  cudaFuncAttributes lr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&lr, step_advance<T, true, 0, 1, 0>);
+  int32_t d[8][3];
+  cudaError_t err = diag_forms_geometry<T, false>(d);
+  if (err == cudaSuccess) err = diag_forms_geometry<T, true>(d + 4);
+  cudaFuncAttributes lr, lr_adam, lr_div, lr_adam_div;
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&lr, step_advance<T, true, 0, 1, 0, false, false>);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&lr_adam, step_advance<T, true, 0, 1, 0, false, true>);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&lr_div, step_advance<T, true, 0, 1, 0, true, false>);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&lr_adam_div, step_advance<T, true, 0, 1, 0, true, true>);
+  }
   if (err != cudaSuccess) return int(err);
-  out[0] = d[0][0];
-  out[1] = d[0][1];
-  out[2] = d[0][2];
-  out[3] = d[1][0];
-  out[4] = d[1][1];
-  out[5] = d[1][2];
-  out[6] = kLaneBlockThreads;
-  out[7] = lr.numRegs;
-  out[8] = int32_t(lr.localSizeBytes);
-  out[9] = kLrThreads;
-  out[10] = out[11] = 0;
+  out[0] = d[0][0]; out[1] = d[0][1]; out[2] = d[0][2];
+  out[3] = d[1][0]; out[4] = d[1][1]; out[5] = d[1][2];
+  out[6] = d[2][0]; out[7] = d[2][1]; out[8] = d[2][2];
+  out[9] = d[3][0]; out[10] = d[3][1]; out[11] = d[3][2];
+  out[12] = d[4][0]; out[13] = d[4][1]; out[14] = d[4][2];
+  out[15] = d[5][0]; out[16] = d[5][1]; out[17] = d[5][2];
+  out[18] = d[6][0]; out[19] = d[6][1]; out[20] = d[6][2];
+  out[21] = d[7][0]; out[22] = d[7][1]; out[23] = d[7][2];
+  out[24] = kLaneBlockThreads;
+  out[25] = lr.numRegs;
+  out[26] = int32_t(lr.localSizeBytes);
+  out[27] = kLrThreads;
+  out[28] = lr_adam.numRegs;
+  out[29] = int32_t(lr_adam.localSizeBytes);
+  out[30] = lr_div.numRegs;
+  out[31] = int32_t(lr_div.localSizeBytes);
+  out[32] = lr_adam_div.numRegs;
+  out[33] = int32_t(lr_adam_div.localSizeBytes);
+  out[34] = out[35] = 0;
   if (cfg == nullptr || cfg->lr_rank < 1) return 0;
   // the plan as a launch checks it, without a basis to align
   MkConfig c = *cfg;
@@ -1071,14 +1214,14 @@ int geometry(const MkConfig* cfg, int32_t* out) {
   if (code != 0) return code;
   const size_t smem = lr_layout<T>(c).bytes;
   int blocks = 0;
-  err = allow_smem<T>(smem);
+  err = allow_smem<T, false, false>(smem);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, step_advance<T, true, 0, 1, 0>, kLrThreads, smem);
+        &blocks, step_advance<T, true, 0, 1, 0, false, false>, kLrThreads, smem);
   }
   if (err != cudaSuccess) return int(err);
-  out[10] = int32_t(smem);
-  out[11] = blocks;
+  out[34] = int32_t(smem);
+  out[35] = blocks;
   return 0;
 }
 

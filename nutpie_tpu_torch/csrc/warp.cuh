@@ -56,6 +56,26 @@ __device__ __forceinline__ T warp_max(T v) {
   return v;
 }
 
+// The draw's tree-depth limit (nutpie_tpu/sampler/nuts.py:885-899): with a
+// target integration time, ceil(log2(max(target / eps, 1))) plus the extra
+// doublings, clipped to [max(mindepth, 1), maxdepth]; else maxdepth; then
+// the fleet's depth cap and the floor max(mindepth, 1).  eps is the draw's
+// own step, after jitter; the ratio and its log2 are taken in T, as the
+// plain version takes them, so a power of two gives the exact integer.
+template <typename T>
+__device__ __forceinline__ int depth_limit(const MkConfig& cfg, const Sched& s, T eps) {
+  const int floor_depth = cfg.mindepth > 1 ? cfg.mindepth : 1;
+  int limit = cfg.maxdepth;
+  if (cfg.has_target_time) {
+    const T ratio = jmax(T(cfg.target_time) / eps, T(1));
+    const int req = int(ceil(log2(ratio))) + cfg.extra_doublings;
+    limit = req > floor_depth ? req : floor_depth;
+    limit = limit < cfg.maxdepth ? limit : cfg.maxdepth;
+  }
+  limit = limit < s.depth_cap ? limit : s.depth_cap;
+  return limit > floor_depth ? limit : floor_depth;
+}
+
 // jnp.logaddexp: equal infinities (and NaNs) give a + b.
 template <typename T>
 __device__ __forceinline__ T logaddexp(T a, T b) {

@@ -18,6 +18,7 @@ keep its constants on ``x.device`` in ``x.dtype``.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
@@ -147,6 +148,44 @@ class CompiledModel:
         raise NotImplementedError(
             f"{type(self).__name__} does not support with_data"
         )
+
+    def benchmark_logp(self, point, num_evals: int, cores: int | Sequence[int] = 1,
+                       device="cuda"):
+        """Time gradient evaluations (``nutpie_tpu/model.py:157-188``).
+
+        On a GPU the counterpart of concurrent cores is the number of chains
+        evaluated in one batched call, so ``cores`` is the batch size (a list
+        is accepted).  Each batch is evaluated once untimed, then
+        ``num_evals`` times between two synchronizations of ``device``, in
+        the point's dtype (float64 for an integer point).
+        Returns a pandas DataFrame (``batch``, ``time`` in seconds a call,
+        ``evals_per_sec``) when pandas is available, else a dict of those
+        columns.
+        """
+        device = torch.device(device)
+        model = self._make_model(0)
+        point = torch.as_tensor(np.asarray(point), device=device)
+        if not point.is_floating_point():
+            point = point.to(torch.float64)
+        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        times: dict[str, list] = {"batch": [], "time": [], "evals_per_sec": []}
+        for batch in [cores] if isinstance(cores, int) else list(cores):
+            xs = point.expand(batch, model.ndim).contiguous()
+            model.logp_and_grad(xs)
+            sync()
+            start = time.perf_counter()
+            for _ in range(num_evals):
+                model.logp_and_grad(xs)
+            sync()
+            elapsed = (time.perf_counter() - start) / num_evals
+            times["batch"].append(batch)
+            times["time"].append(elapsed)
+            times["evals_per_sec"].append(batch / elapsed)
+        try:
+            import pandas as pd
+        except ImportError:
+            return times
+        return pd.DataFrame(times)
 
 
 def make_model(

@@ -36,6 +36,7 @@ from .sampler.megakernel import make_megakernel_chunk_runner
 from .sampler.nuts import (
     _FLOW_ITEM,
     _MCLMC_ITEM,
+    DIV_BUFFERS,
     SCALAR_SLOTS,
     LowRankConfig,
     NutsConfig,
@@ -163,6 +164,12 @@ _SCALAR_DTYPES = {
 }
 
 
+# the optional buffers that become statistics of the trace
+_OPTIONAL_STATS = ("gradient", "mass_matrix_inv", "mass_matrix_eigvals", *DIV_BUFFERS)
+# the message a divergent draw carries beside its divergence rows
+DIVERGENCE_MESSAGE = "energy error exceeded max_energy_error (or was non-finite)"
+
+
 def chunk_to_host(bufs, expanded: dict, limit: int,
                   store_unconstrained: bool = False,
                   store_gradient: bool = False) -> dict:
@@ -170,11 +177,13 @@ def chunk_to_host(bufs, expanded: dict, limit: int,
 
     The optional buffers become statistics under the JAX trace's names;
     the gradient only when ``store_gradient`` asked for it (low-rank
-    adaptation allocates it for its own update)."""
+    adaptation allocates it for its own update).  With the divergence
+    buffers comes ``divergence_message``, as in ``nutpie_tpu/sample.py``:
+    the message at a divergent draw, empty elsewhere."""
     cut = lambda x: x[:, :limit].detach().cpu().numpy()
     packed = cut(bufs.scalars)
     stats = {}
-    for name in ("gradient", "mass_matrix_inv", "mass_matrix_eigvals"):
+    for name in _OPTIONAL_STATS:
         value = getattr(bufs, name)
         if value is not None and (name != "gradient" or store_gradient):
             stats[name] = cut(value)
@@ -190,6 +199,9 @@ def chunk_to_host(bufs, expanded: dict, limit: int,
         stats[name] = arr
     if "mass_matrix_inv" in stats:
         stats["mass_matrix_stds"] = np.sqrt(stats["mass_matrix_inv"])
+    if "divergence_start" in stats:
+        stats["divergence_message"] = np.where(
+            stats["diverging"], DIVERGENCE_MESSAGE, "").astype(object)
     position = cut(bufs.position)
     if store_unconstrained:
         stats["unconstrained_draw"] = position
@@ -216,12 +228,13 @@ def route(cfg: NutsConfig, model: ModelDef) -> str:
     """The chunk runner for this model and configuration, on every device:
     ``"megakernel"`` (K1) or ``"step"`` (K2 around the model's torch logp).
     Raises ``NotImplementedError`` naming the ``ROADMAP.md`` item of what
-    neither kernel runs."""
-    if model.kernel_model is not None and megakernel.supports(cfg):
-        return "megakernel"
+    neither kernel runs (``step_kernel.unsupported``: each of its refusals
+    holds for whichever kernel the configuration would take)."""
     why = step_kernel.unsupported(cfg)
     if why is not None:
         raise NotImplementedError(f"no kernel runs this configuration yet: {why}")
+    if model.kernel_model is not None and megakernel.supports(cfg):
+        return "megakernel"
     return "step"
 
 
@@ -304,7 +317,8 @@ def sample(
     ``pool_mass_matrix`` and ``pool_step_size``.  ``device`` defaults to
     CUDA.  Not yet ported (each raises ``NotImplementedError``):
     non-blocking runs and progress callbacks, Zarr storage, checkpoints,
-    MCLMC, flow adaptation, ``store_divergences`` and ``store_transformed``.
+    MCLMC and flow adaptation.  ``store_transformed`` stores nothing
+    without flow adaptation, as in the JAX package.
     """
     if not blocking or progress_callback is not None or progress_template \
             or progress_style:

@@ -5,7 +5,8 @@ the static configuration both kernels take (the radon sizes are used by
 the chunk kernel only and stay 0 for the step kernel; the low-rank
 metric's rank ``lr_rank`` and its launch plan, ``lr_streamed`` to
 ``lr_grid``, and the diagonal plan, ``step_lanes`` to ``step_grid``, are
-the step kernel's and stay 0 for the chunk kernel).  The schedule
+the step kernel's and stay 0 for the chunk kernel; so does
+``store_divergences``, which only the step kernel takes).  The schedule
 scalars travel as one int32 tensor on the device, so a ``depth_cap`` that
 lives on the device needs no host round trip.
 """
@@ -13,6 +14,7 @@ lives on the device needs no host round trip.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -33,6 +35,11 @@ class MkConfig(ctypes.Structure):
         ("max_step_size", ctypes.c_double),
         ("min_variance", ctypes.c_double),
         ("max_variance", ctypes.c_double),
+        ("adam_lr", ctypes.c_double),
+        ("adam_beta1", ctypes.c_double),
+        ("adam_beta2", ctypes.c_double),
+        ("log_fixed_step", ctypes.c_double),
+        ("target_time", ctypes.c_double),
         ("n_chains", ctypes.c_int32),
         ("dim", ctypes.c_int32),
         ("depth_slots", ctypes.c_int32),
@@ -45,6 +52,10 @@ class MkConfig(ctypes.Structure):
         ("has_jitter", ctypes.c_int32),
         ("switch_freq", ctypes.c_int32),
         ("early_switch_freq", ctypes.c_int32),
+        ("step_method", ctypes.c_int32),
+        ("has_target_time", ctypes.c_int32),
+        ("extra_doublings", ctypes.c_int32),
+        ("store_divergences", ctypes.c_int32),
         ("n_counties", ctypes.c_int32),
         ("n_obs", ctypes.c_int32),
         ("n_seg", ctypes.c_int32),
@@ -60,12 +71,27 @@ class MkConfig(ctypes.Structure):
     ]
 
 
+# AdaptConfig.method -> StepMethod in csrc/layout.cuh (a float is a fixed step)
+STEP_METHODS = {"dual_average": 0, "adam": 1}
+STEP_FIXED = 2
+
+
+def step_method(method) -> tuple:
+    """``(StepMethod, log of the fixed step or 0)`` of ``AdaptConfig.method``."""
+    if isinstance(method, (int, float)) and not isinstance(method, bool):
+        return STEP_FIXED, math.log(float(method))
+    if method not in STEP_METHODS:
+        raise ValueError(f"unknown step size method {method!r}")
+    return STEP_METHODS[method], 0.0
+
+
 def sampler_config(cfg: NutsConfig, n_chains: int, dim: int, depth_slots: int,
                    chunk_len: int, adapt_frozen: bool, **model_sizes) -> MkConfig:
     """``MkConfig`` from the sampler's configuration; ``model_sizes`` sets
     the radon fields (``n_counties``, ``n_obs``, ``n_seg``, ``obs_rows``)
     or the step kernel's ``lr_*`` and ``step_*`` fields."""
     ac = cfg.adapt
+    method, log_fixed = step_method(ac.method)
     return MkConfig(
         max_energy_error=cfg.max_energy_error,
         step_size_jitter=ac.step_size_jitter or 0.0,
@@ -76,6 +102,11 @@ def sampler_config(cfg: NutsConfig, n_chains: int, dim: int, depth_slots: int,
         max_step_size=ac.max_step_size,
         min_variance=ac.min_variance,
         max_variance=ac.max_variance,
+        adam_lr=ac.adam_lr,
+        adam_beta1=ac.adam_beta1,
+        adam_beta2=ac.adam_beta2,
+        log_fixed_step=log_fixed,
+        target_time=0.0 if cfg.target_time is None else cfg.target_time,
         n_chains=n_chains,
         dim=dim,
         depth_slots=depth_slots,
@@ -88,6 +119,10 @@ def sampler_config(cfg: NutsConfig, n_chains: int, dim: int, depth_slots: int,
         has_jitter=int(ac.step_size_jitter is not None),
         switch_freq=ac.switch_freq,
         early_switch_freq=ac.early_switch_freq,
+        step_method=method,
+        has_target_time=int(cfg.target_time is not None),
+        extra_doublings=cfg.extra_doublings,
+        store_divergences=int(cfg.store_divergences),
         **model_sizes,
     )
 

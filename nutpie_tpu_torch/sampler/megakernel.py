@@ -42,13 +42,13 @@ MAX_KERNEL_DIM = 8 * 32
 def supports(cfg: NutsConfig) -> bool:
     """Whether the CUDA chunk kernel handles this configuration.
 
-    The JAX kernel's exclusions (``nutpie_tpu/sampler/megakernel.py:62-71``):
-    no flow or low-rank adaptation, no microcanonical kinetic, no
-    ``store_*`` buffer; ``sample.route`` sends those to the step kernel.
-    The kernel narrows further to dual averaging (no Adam, no fixed step)
-    and no ``target_integration_time``.  It also needs a model with a
-    ``kernel_model`` (the radon log density it evaluates in place);
-    ``sample.route`` checks both.
+    Exactly the JAX kernel's exclusions
+    (``nutpie_tpu/sampler/megakernel.py:62-71``): no flow or low-rank
+    adaptation, no microcanonical kinetic, no ``store_*`` buffer;
+    ``sample.route`` sends those to the step kernel.  Every step-size
+    method and ``target_integration_time`` run in the kernel.  It also
+    needs a model with a ``kernel_model`` (the radon log density it
+    evaluates in place); ``sample.route`` checks both.
     """
     return (
         cfg.flow is None
@@ -57,9 +57,6 @@ def supports(cfg: NutsConfig) -> bool:
         and not cfg.store_divergences
         and not cfg.store_gradient
         and not cfg.store_mass_matrix
-        and cfg.target_time is None
-        and cfg.adapt.method == "dual_average"
-        and cfg.adapt.update_mass_matrix
     )
 
 
@@ -188,7 +185,7 @@ class ChunkKernel:
     def geometry(self, mk_cfg: MkConfig, dtype, device) -> dict:
         """``query_geometry`` once per device, dtype and data shape."""
         key = (str(device), dtype, mk_cfg.dim, mk_cfg.depth_slots,
-               mk_cfg.n_counties, mk_cfg.n_seg, mk_cfg.obs_rows)
+               mk_cfg.n_counties, mk_cfg.n_seg, mk_cfg.obs_rows, mk_cfg.step_method)
         if key not in self._geometry:
             with torch.cuda.device(device):
                 self._geometry[key] = query_geometry(self.library(), mk_cfg, dtype)

@@ -16,7 +16,10 @@ which run the same steps for one chain per warp.  The metric is the
 diagonal one or, with ``NutsConfig.low_rank``, the low-rank modified one
 (``low_rank.py``), applied through ``metric_velocity``,
 ``metric_velocity_rows`` and ``metric_momentum`` at every site where the
-JAX machine step applies it.  The kinetic is the exact-normal one.
+JAX machine step applies it.  The kinetic is the exact-normal one.  With
+``store_divergences`` the state carries four more rows (``DIV_SLOTS``):
+the start, its gradient, the end and the momentum of a draw's divergent
+leapfrog, NaN until one diverges, committed with the draw.
 """
 
 from __future__ import annotations
@@ -32,11 +35,13 @@ from .adapt import AdaptConfig, Schedule, diag_adapt_init, diag_adapt_update
 from .low_rank import identity_metric, lr_sample_momentum, lr_velocity, lr_velocity_rows
 from .state import (
     ADAPT_FLT_SLOTS,
+    DIV_SLOTS,
     FLT_SLOTS,
     INT_SLOTS,
     N_FLT,
     N_INT,
-    N_VEC,
+    N_VEC_BASE,
+    N_VEC_DIV,
     VEC_SLOTS,
     NutsMachineState,
     tree_where,
@@ -45,7 +50,6 @@ from .state import (
 
 _FLOW_ITEM = "ROADMAP.md queue 1: flow adaptation"
 _MCLMC_ITEM = "ROADMAP.md queue 1: MCLMC and the microcanonical kinetic"
-_STORE_ITEM = "ROADMAP.md queue 1: optional draw buffers (store_divergences, store_transformed)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +82,8 @@ class NutsConfig:
     store_gradient: bool = False
     store_mass_matrix: bool = False
     store_divergences: bool = False
+    # the transformed draws exist only under flow adaptation (the JAX
+    # package allocates them there alone), so without flow it is a no-op
     store_transformed: bool = False
     low_rank: Optional[LowRankConfig] = None
     flow: Optional[object] = None
@@ -90,10 +96,11 @@ class NutsConfig:
             raise NotImplementedError(f"flow adaptation: {_FLOW_ITEM}")
         if self.kinetic != "exact_normal":
             raise NotImplementedError(f"{self.kinetic} kinetic: {_MCLMC_ITEM}")
-        if self.store_divergences:
-            raise NotImplementedError(f"store_divergences: {_STORE_ITEM}")
-        if self.store_transformed:
-            raise NotImplementedError(f"store_transformed: {_STORE_ITEM}")
+
+
+def n_vec_rows(cfg: NutsConfig) -> int:
+    """Rows of the state's ``vecs``: 18 with the divergence rows, else 14."""
+    return N_VEC_DIV if cfg.store_divergences else N_VEC_BASE
 
 
 def metric_velocity(cfg: NutsConfig, s, p: torch.Tensor) -> torch.Tensor:
@@ -148,6 +155,11 @@ class ChunkBuffers(NamedTuple):
     gradient: Optional[torch.Tensor] = None
     mass_matrix_inv: Optional[torch.Tensor] = None      # [C, L, dim] if store_mass_matrix
     mass_matrix_eigvals: Optional[torch.Tensor] = None  # [C, L, R] (low_rank)
+    # [C, L, dim] each if store_divergences: NaN where the draw did not diverge
+    divergence_start: Optional[torch.Tensor] = None
+    divergence_end: Optional[torch.Tensor] = None
+    divergence_momentum: Optional[torch.Tensor] = None
+    divergence_start_gradient: Optional[torch.Tensor] = None
 
     def _slot(self, name):
         return self.scalars[..., SCALAR_SLOTS[name]]
@@ -165,6 +177,15 @@ class ChunkBuffers(NamedTuple):
         return self._slot("depth").to(torch.int32)
 
 
+# the divergence buffers and the state row each commits
+DIV_BUFFERS = {
+    "divergence_start": "div_start",
+    "divergence_end": "div_end",
+    "divergence_momentum": "div_mom",
+    "divergence_start_gradient": "div_start_grad",
+}
+
+
 def init_buffers(chunk_len: int, dim: int, dtype, n_chains: int,
                  device=None, cfg: Optional[NutsConfig] = None) -> ChunkBuffers:
     """The chunk's buffers; ``cfg`` adds the optional ones it asks for."""
@@ -173,6 +194,7 @@ def init_buffers(chunk_len: int, dim: int, dtype, n_chains: int,
     L = chunk_len
     cfg = cfg or NutsConfig()
     lr = cfg.low_rank
+    div = {name: f(L, dim) for name in DIV_BUFFERS} if cfg.store_divergences else {}
     return ChunkBuffers(
         position=f(L, dim),
         scalars=f(L, N_SCALAR_SLOTS),
@@ -180,6 +202,7 @@ def init_buffers(chunk_len: int, dim: int, dtype, n_chains: int,
         mass_matrix_inv=f(L, dim) if cfg.store_mass_matrix else None,
         mass_matrix_eigvals=(f(L, lr.max_rank)
                              if lr is not None and cfg.store_mass_matrix else None),
+        **div,
     )
 
 
@@ -220,12 +243,12 @@ def start_draw(cfg: NutsConfig, sched: Schedule, state: NutsMachineState,
     h0 = -logp + ke
     zeros = torch.zeros_like(logp)
     zeros_i = torch.zeros_like(state.draw_idx)
-    vecs = torch.stack(
-        [position, p0, gradient, position, p0, gradient, p0,
-         torch.zeros_like(position), position, gradient, position, gradient,
-         position, gradient],
-        dim=1,
-    )
+    rows = [position, p0, gradient, position, p0, gradient, p0,
+            torch.zeros_like(position), position, gradient, position, gradient,
+            position, gradient]
+    if cfg.store_divergences:
+        rows += [torch.full_like(position, math.nan)] * len(DIV_SLOTS)
+    vecs = torch.stack(rows, dim=1)
     flts = _pack(FLT_SLOTS, N_FLT, dict(
         logp=logp, eps=eps, h0=h0, logw_traj=zeros, prop_logp=logp,
         prop_energy=h0, logw_sub=torch.full_like(logp, -math.inf),
@@ -252,9 +275,10 @@ def init_machine_state(cfg: NutsConfig, key: torch.Tensor, position, gradient,
     position = position.to(dtype)
     gradient = gradient.to(dtype)
     adapt_vecs, adapt_flts = diag_adapt_init(cfg.adapt, gradient, dtype)
-    vecs = torch.zeros((n, N_VEC, dim), dtype=dtype, device=device)
+    vecs = torch.zeros((n, n_vec_rows(cfg), dim), dtype=dtype, device=device)
     vecs[:, VEC_SLOTS["position"]] = position
     vecs[:, VEC_SLOTS["gradient"]] = gradient
+    vecs[:, N_VEC_BASE:] = math.nan
     flts = torch.zeros((n, N_FLT), dtype=dtype, device=device)
     flts[:, FLT_SLOTS["logp"]] = logp.to(dtype)
     flts[:, FLT_SLOTS["eps"]] = cfg.adapt.initial_step
@@ -542,7 +566,10 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
         turning_traj = torch.zeros_like(merge_ok)
 
     if cfg.target_time is not None:
-        req = torch.ceil(torch.log2(torch.clamp(cfg.target_time / in_eps, min=1.0)))
+        # target / eps as a true division in eps's dtype, as the JAX package
+        # computes it (a float over a tensor would multiply by 1 / eps)
+        ratio = torch.div(torch.full_like(in_eps, cfg.target_time), in_eps)
+        req = torch.ceil(torch.log2(torch.clamp(ratio, min=1.0)))
         req = req.to(torch.int32) + cfg.extra_doublings
         depth_limit = torch.clamp(req, max(cfg.mindepth, 1), cfg.maxdepth)
     else:
@@ -574,6 +601,17 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
     z_minus = _w(active & ~fwd, z_new, vec("z_minus"))
     p_minus = _w(active & ~fwd, p_new, in_p_minus)
     g_minus = _w(active & ~fwd, g_new, vec("g_minus"))
+
+    # divergence location: the edge the step left, and where it went
+    div_rows = []
+    if cfg.store_divergences:
+        m_div = active & div_leaf
+        edge = lambda plus, minus: _w(fwd, vec(plus), vec(minus))
+        div_values = {"div_start": edge("z_plus", "z_minus"),
+                      "div_start_grad": edge("g_plus", "g_minus"),
+                      "div_end": z_new, "div_mom": edge("p_plus", "p_minus")}
+        div_rows = [_w(m_div, div_values[name], s.vecs[:, slot])
+                    for name, slot in DIV_SLOTS.items()]
 
     diverging = _w(active, in_diverging | div_leaf, in_diverging)
 
@@ -612,6 +650,9 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
             bufs.mass_matrix_inv[at] = s.inv_mass[done_rows]
         if bufs.mass_matrix_eigvals is not None:
             bufs.mass_matrix_eigvals[at] = torch.exp(s.lr_log_eigs[done_rows])
+        if cfg.store_divergences:
+            for buf, row in DIV_BUFFERS.items():
+                getattr(bufs, buf)[at] = div_rows[DIV_SLOTS[row] - N_VEC_BASE][done_rows]
 
     # adaptation (tuning draws only)
     adapt_vecs, adapt_flts = s.adapt_vecs, s.adapt_flts
@@ -640,7 +681,7 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
         [z_minus, p_minus, g_minus, z_plus, p_plus, g_plus, rho, rho_sub,
          prop_z, prop_g, sprop_z, sprop_g,
          _w(draw_done, prop_z, vec("position")),
-         _w(draw_done, prop_g, vec("gradient"))],
+         _w(draw_done, prop_g, vec("gradient"))] + div_rows,
         dim=1,
     )
     state = s.replace(

@@ -2,7 +2,8 @@
 
 Every field carries a leading chains axis ``C``.  The slot maps are those
 of ``nutpie_tpu/sampler/state.py``: the 14 per-chain ``[dim]`` trajectory
-vectors live in ``vecs [C, 14, dim]``, the float scalars in
+vectors live in ``vecs [C, 14, dim]`` (``[C, 18, dim]`` with the four
+divergence-location rows of ``store_divergences``), the float scalars in
 ``flts [C, 12]`` and the integer/boolean scalars in ``ints [C, 15]``
 (int32, booleans as 0/1).  The adaptation state is packed the same way:
 ``adapt_vecs [C, 9, dim]`` (inverse mass plus four Welford mean/m2 pairs)
@@ -38,7 +39,15 @@ VEC_SLOTS = {
     "position": 12,
     "gradient": 13,
 }
-N_VEC = 14
+# divergence-location rows, appended only when store_divergences is set
+DIV_SLOTS = {
+    "div_start": 14,
+    "div_start_grad": 15,
+    "div_end": 16,
+    "div_mom": 17,
+}
+N_VEC_BASE = 14
+N_VEC_DIV = 18
 
 # float scalar slots of flts
 FLT_SLOTS = {
@@ -124,7 +133,7 @@ class NutsMachineState:
     key: torch.Tensor         # [C, 2] int64 raw Threefry key data
     adapt_vecs: torch.Tensor  # [C, 9, dim]
     adapt_flts: torch.Tensor  # [C, 12]
-    vecs: torch.Tensor        # [C, 14, dim]
+    vecs: torch.Tensor        # [C, 14, dim], or [C, 18, dim] with the divergence rows
     ckpt_p: torch.Tensor      # [C, D, dim] momentum at checkpoint leaves
     ckpt_s: torch.Tensor      # [C, D, dim] momentum prefix-sum before ckpt leaf
     flts: torch.Tensor        # [C, 12]

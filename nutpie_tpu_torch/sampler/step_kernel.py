@@ -44,7 +44,9 @@ aligned, by the warps' own loads where not.  Both plans travel in
 ``MkConfig`` (``lr_rank`` 0 for the diagonal metric), and the kernel
 refuses a launch whose plan or rows do not match what it was built for.
 The commit also writes the optional buffers the chunk has (``gradient``,
-``mass_matrix_inv``, ``mass_matrix_eigvals``).
+``mass_matrix_inv``, ``mass_matrix_eigvals``, and with ``store_divergences``
+the four divergence buffers from the state's divergence rows, which the
+kernel's instantiations with those rows carry: ``vecs`` then has 18 rows).
 
 There is no fallback between the two.  ``launches`` counts the kernel's
 launches the card executes (one per machine step and one per chunk),
@@ -65,29 +67,24 @@ from .adapt import Schedule
 from .nuts import (
     ChunkBuffers,
     LeapfrogUniformTable,
+    DIV_BUFFERS,
     NutsConfig,
     leapfrog_begin,
     leapfrog_finish,
     metric_velocity_rows,
+    n_vec_rows,
 )
-from .state import N_ADAPT_FLT, N_ADAPT_VEC, N_FLT, N_INT, N_VEC, VEC_SLOTS, NutsMachineState
+from .state import N_ADAPT_FLT, N_ADAPT_VEC, N_FLT, N_INT, VEC_SLOTS, NutsMachineState
 
-ADAM_ITEM = "ROADMAP.md queue 1: Adam and fixed step sizes on the card"
-TARGET_TIME_ITEM = "ROADMAP.md queue 1: target_integration_time on the card"
 FIXED_METRIC_ITEM = "ROADMAP.md queue 1: a fixed mass matrix on the card"
 
 
 def unsupported(cfg: NutsConfig) -> Optional[str]:
     """What of this configuration the step kernel leaves out, with its
     ``ROADMAP.md`` item, or None.  (The port's ``NutsConfig`` already
-    refuses flow, microcanonical, ``store_divergences`` and
-    ``store_transformed`` configurations.)"""
+    refuses flow and microcanonical configurations.)"""
     if cfg.low_rank is not None and not 0 < cfg.low_rank.max_rank <= MAX_RANK:
         return f"low-rank max_rank {cfg.low_rank.max_rank}: the step kernel takes 1..{MAX_RANK}"
-    if cfg.adapt.method != "dual_average":
-        return f"step size method {cfg.adapt.method!r}: {ADAM_ITEM}"
-    if cfg.target_time is not None:
-        return f"target_integration_time: {TARGET_TIME_ITEM}"
     if not cfg.adapt.update_mass_matrix:
         return f"update_mass_matrix=False: {FIXED_METRIC_ITEM}"
     return None
@@ -250,20 +247,26 @@ class StepPtrs(ctypes.Structure):
         "scal", "key", "vecs", "ckpt_p", "ckpt_s", "flts", "ints", "adapt_vecs",
         "adapt_flts", "mom", "jit", "pos_out", "scal_out", "z_new", "u3",
         "stagnant", "logp", "grad", "lr_basis", "lr_log_eigs", "edge_v", "ckpt_v",
-        "grad_out", "minv_out", "eig_out",
+        "grad_out", "minv_out", "eig_out", "div_start_out", "div_end_out", "div_mom_out",
+        "div_grad_out",
     )]
 
 
 # what nutpie_step_geometry_* reports, in its order: for each diagonal form
-# (``diag_forms``' order) its registers and spill bytes a thread and the
-# blocks an SM holds, their threads a block; the low-rank instantiation's
-# registers, spill bytes and threads, then for a low-rank plan its dynamic
-# shared memory and the blocks an SM holds
-DIAG_FORM_TAGS = ("held", "strided")
+# (``diag_forms``' order), without and then with the divergence rows
+# ("div_"), and the same four instantiations for Adam ("adam_"), its
+# registers and spill bytes a thread and the blocks an SM holds, their
+# threads a block; the low-rank instantiation's registers, spill bytes and
+# threads, the registers and spill bytes of its Adam instantiation, of the
+# one with the rows and of Adam's with the rows, then for a low-rank plan
+# its dynamic shared memory and the blocks an SM holds
+DIAG_FORM_TAGS = tuple(f"{method}{rows}{form}" for method in ("", "adam_")
+                       for rows in ("", "div_") for form in ("held", "strided"))
 GEOMETRY_FIELDS = tuple(f"{tag}_{field}" for tag in DIAG_FORM_TAGS
                         for field in ("registers", "local_bytes", "blocks_per_sm")) + (
     "threads_per_block", "lr_registers", "lr_local_bytes", "lr_threads_per_block",
-    "lr_smem_bytes", "lr_blocks_per_sm")
+    "adam_lr_registers", "adam_lr_local_bytes", "div_lr_registers", "div_lr_local_bytes",
+    "adam_div_lr_registers", "adam_div_lr_local_bytes", "lr_smem_bytes", "lr_blocks_per_sm")
 # what nutpie_step_device reports, in its order
 DEVICE_FIELDS = ("smem_per_block", "smem_per_sm", "sm_count", "reserved_per_block")
 
@@ -323,27 +326,30 @@ def metric_rank(cfg: NutsConfig, states: NutsMachineState) -> int:
     return R
 
 
-def _check_chunk(states: NutsMachineState, mom, jit, bufs: ChunkBuffers, R: int):
+def _check_chunk(cfg: NutsConfig, states: NutsMachineState, mom, jit, bufs: ChunkBuffers,
+                 R: int):
     """Device, dtype, shape and contiguity of everything a chunk launches on."""
     dtype = states.vecs.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"step kernel takes float32 or float64, got {dtype}")
-    C, n_vec, dim = states.vecs.shape
+    C, _, dim = states.vecs.shape
     D = states.ckpt_p.shape[1]
     L = mom.shape[1]
     shapes = {
-        "key": (C, 2), "vecs": (C, N_VEC, dim), "ckpt_p": (C, D, dim),
+        "key": (C, 2), "vecs": (C, n_vec_rows(cfg), dim), "ckpt_p": (C, D, dim),
         "ckpt_s": (C, D, dim), "flts": (C, N_FLT), "ints": (C, N_INT),
         "adapt_vecs": (C, N_ADAPT_VEC, dim), "adapt_flts": (C, N_ADAPT_FLT),
         "lr_basis": (C, dim, R), "lr_log_eigs": (C, R),
         "mom": (C, L, dim), "jit": (C, L), "position": (C, L, dim),
         "scalars": (C, L, bufs.scalars.shape[-1]),
         "gradient": (C, L, dim), "mass_matrix_inv": (C, L, dim),
-        "mass_matrix_eigvals": (C, L, R),
+        "mass_matrix_eigvals": (C, L, R), **{name: (C, L, dim) for name in DIV_BUFFERS},
     }
     optional = {name: getattr(bufs, name)
-                for name in ("gradient", "mass_matrix_inv", "mass_matrix_eigvals")
+                for name in ("gradient", "mass_matrix_inv", "mass_matrix_eigvals", *DIV_BUFFERS)
                 if getattr(bufs, name) is not None}
+    if cfg.store_divergences and len(optional.keys() & DIV_BUFFERS.keys()) != len(DIV_BUFFERS):
+        raise ValueError("step kernel: store_divergences needs the four divergence buffers")
     tensors = dict(states.tensors(), mom=mom, jit=jit, position=bufs.position,
                    scalars=bufs.scalars, **optional)
     for name, t in tensors.items():
@@ -367,7 +373,7 @@ class KernelSteps:
                  mom: torch.Tensor, jit: torch.Tensor, bufs: ChunkBuffers,
                  adapt_frozen: bool):
         R = metric_rank(cfg, states)
-        _check_chunk(states, mom, jit, bufs, R)
+        _check_chunk(cfg, states, mom, jit, bufs, R)
         self.owner = owner
         self.lib = owner.library()
         self.states = states
@@ -410,6 +416,9 @@ class KernelSteps:
             lr_basis=ptr(states.lr_basis), lr_log_eigs=ptr(states.lr_log_eigs),
             edge_v=ptr(self.edge_v), ckpt_v=ptr(self.ckpt_v), grad_out=ptr(bufs.gradient),
             minv_out=ptr(bufs.mass_matrix_inv), eig_out=ptr(bufs.mass_matrix_eigvals),
+            div_start_out=ptr(bufs.divergence_start), div_end_out=ptr(bufs.divergence_end),
+            div_mom_out=ptr(bufs.divergence_momentum),
+            div_grad_out=ptr(bufs.divergence_start_gradient),
         )
 
     def _launch(self, half: str, states: NutsMachineState) -> None:

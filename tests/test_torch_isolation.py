@@ -90,6 +90,12 @@ def test_cuda_without_card_raises():
         nutpie_tpu_torch.sample(compile_model_def(radon()), chains=2, tune=2, draws=2)
 
 
+# the route each configuration takes on radon, or None where it still
+# raises naming its ROADMAP item
+_CARD_ROUTES = {"store_divergences": "step", "step_size_adapt_method": "megakernel",
+                "target_integration_time": "megakernel"}
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(store_divergences=True),
     dict(adaptation="flow"),
@@ -98,9 +104,26 @@ def test_cuda_without_card_raises():
     dict(target_integration_time=2.0),
 ])
 def test_unported_configs_raise_on_card_path(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nutpie_tpu_torch.sample(compile_model_def(radon()), chains=2, tune=2, draws=2,
-                                device="cuda", **kwargs)
+    """Flow and MCLMC raise naming their ROADMAP item; Adam and the target
+    time take the chunk kernel on radon, the divergence rows the step
+    kernel (as in the JAX package), and then only the missing card stops
+    the run."""
+    expected = _CARD_ROUTES.get(next(iter(kwargs)))
+    if expected is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            nutpie_tpu_torch.sample(compile_model_def(radon()), chains=2, tune=2, draws=2,
+                                    device="cuda", **kwargs)
+        return
+    from nutpie_tpu_torch.sample import nuts_config_from_settings, route
+    from nutpie_tpu_torch.settings import NutsSettings
+
+    settings = NutsSettings.Diag(0)
+    settings.update(kwargs)
+    assert route(nuts_config_from_settings(settings), radon()) == expected
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            nutpie_tpu_torch.sample(compile_model_def(radon()), chains=2, tune=2, draws=2,
+                                    device="cuda", **kwargs)
 
 
 def test_model_without_kernel_raises_on_card_path():

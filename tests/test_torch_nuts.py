@@ -13,7 +13,12 @@ A radon fleet of 8 chains is warmed by JAX and carried over with
   allows the kernel against the XLA runner); warmup from a fresh fleet,
   ints, step counts and Welford counts exact, positions to 1e-3 and the
   adapted metric and step size to 1e-4 (adaptation feeds rounding
-  differences back through the step size every draw).
+  differences back through the step size every draw).  The same warmup
+  chunk at those bars under Adam, a fixed step size, and a target
+  integration time with an extra doubling: the branches the chunk kernel
+  K1 runs for them (``csrc/adapt.cuh``, ``csrc/warp.cuh:depth_limit``).
+- ``convert`` carries a state both ways, with the four divergence rows of
+  ``store_divergences`` too.
 """
 
 from functools import partial
@@ -47,6 +52,7 @@ from nutpie_tpu_torch.sampler.nuts import (
     start_draw,
 )
 from nutpie_tpu_torch.sampler.state import state_with
+from nutpie_tpu_torch.sample import route
 from torch_parity import assert_state_close, jax_state_arrays
 
 torch.set_num_threads(1)
@@ -82,6 +88,20 @@ def test_convert_round_trip(fleet):
     assert state.key.dtype == torch.int64 and state.ints.dtype == torch.int32
     back = state_to_arrays(state)
     assert back.keys() == arrays.keys()
+    for name, value in arrays.items():
+        np.testing.assert_array_equal(back[name], np.asarray(value), err_msg=name)
+    # a state with the divergence rows (store_divergences): 18 rows, the
+    # last four NaN at a draw start, set where a draw diverged
+    jcfg = JNutsConfig(store_divergences=True, adapt=JAdaptConfig(num_tune=TUNE))
+    div_state, _ = jinit_chains(fleet["jmodel"], jcfg, 5, CHAINS,
+                                np.zeros(fleet["jmodel"].ndim), jnp.float64)
+    arrays = jax_state_arrays(div_state)
+    arrays["vecs"] = arrays["vecs"].copy()
+    arrays["vecs"][::2, 14:] = np.arange(4 * 173).reshape(4, 173)
+    state = state_from_arrays(arrays)
+    assert state.vecs.shape == (CHAINS, 18, 173)
+    assert torch.isnan(state.vecs[1::2, 14:]).all()
+    back = state_to_arrays(state)
     for name, value in arrays.items():
         np.testing.assert_array_equal(back[name], np.asarray(value), err_msg=name)
 
@@ -161,3 +181,51 @@ def test_runner_warmup_matches_jax_megakernel(fleet):
     np.testing.assert_allclose(got["adapt.inv_mass"], ref["adapt.inv_mass"], rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(got["adapt.da.log_step_bar"], ref["adapt.da.log_step_bar"],
                                rtol=1e-4, atol=1e-6)
+
+
+# (AdaptConfig fields, NutsConfig fields, draws) of each option K1 runs;
+# Adam and the fixed step keep the fresh fleet's early steps small for
+# longer, so their deeper trees take 8 draws to keep each case within
+# about 30 s in the Pallas interpreter
+OPTIONS = {
+    "adam": ({"method": "adam"}, {}, 8),
+    "fixed_step": ({"method": 0.05}, {}, 8),
+    "target_time": ({}, {"target_time": 0.3, "extra_doublings": 1}, CHUNK),
+}
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_runner_warmup_options_match_jax_megakernel(fleet, option):
+    adapt, nuts, limit = OPTIONS[option]
+    jcfg = JNutsConfig(adapt=JAdaptConfig(num_tune=TUNE, **adapt), **nuts)
+    cfg = NutsConfig(adapt=AdaptConfig(num_tune=TUNE, **adapt), **nuts)
+    jrun = jmk_runner(fleet["jmodel"], jcfg, CHUNK, jnp.float64, tile=4, interpret=True,
+                      adapt_frozen=False)
+    js, jb = jrun(_copy(fleet["fresh"]), 0, limit, jmake_schedule(jcfg.adapt, TUNE))
+    run = make_megakernel_chunk_runner(fleet["model"], cfg, CHUNK, torch.float64,
+                                       adapt_frozen=False)
+    assert route(cfg, fleet["model"]) == "megakernel"
+    ts, tb = run(state_from_arrays(jax_state_arrays(fleet["fresh"])), 0, limit,
+                 make_schedule(cfg.adapt, TUNE))
+    got, ref = state_to_arrays(ts), jax_state_arrays(js)
+    np.testing.assert_array_equal(got["ints"], ref["ints"])
+    ns = SCALAR_SLOTS["n_steps"]
+    np.testing.assert_array_equal(tb.scalars[..., ns].numpy(), np.asarray(jb.scalars)[..., ns])
+    for acc in ("draws_cur", "grads_cur", "draws_bg", "grads_bg", "adam"):
+        np.testing.assert_array_equal(got[f"adapt.{acc}.count"], ref[f"adapt.{acc}.count"])
+    np.testing.assert_allclose(tb.position.numpy(), np.asarray(jb.position), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got["adapt.inv_mass"], ref["adapt.inv_mass"], rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got["adapt.da.log_step_bar"], ref["adapt.da.log_step_bar"],
+                               rtol=1e-4, atol=1e-6)
+    if option == "adam":
+        assert (got["adapt.adam.count"] == limit).all()
+    elif option == "fixed_step":
+        assert np.allclose(got["adapt.da.log_step_bar"], np.log(0.05), rtol=0, atol=0)
+    else:
+        # each draw's depth within its limit from its own step size, which
+        # some draws reach
+        scal = tb.scalars[:, :limit].numpy()
+        eps = scal[..., SCALAR_SLOTS["step_size"]]
+        cap = np.clip(np.ceil(np.log2(np.maximum(0.3 / eps, 1.0))) + 1, 1, 10)
+        depth = scal[..., SCALAR_SLOTS["depth"]]
+        assert (depth <= cap).all() and (depth == cap).any()

@@ -1,8 +1,8 @@
 """The slice as a whole on the CPU, and the route.
 
-- The route: radon goes to the chunk kernel K1; eight schools, the GLM
-  and a ``from_pyfunc`` model go to the step runner; configurations
-  neither kernel runs raise ``NotImplementedError`` naming ``ROADMAP``.
+- The route: radon goes to the chunk kernel K1, with Adam, a fixed step
+  size or a target integration time too; eight schools, the GLM and a
+  ``from_pyfunc`` model go to the step runner, with those options too.
 - ``sample(device="cpu")`` on eight schools against ``nutpie_tpu.sample``
   (8 chains x (100 tune + 150 draws), maxdepth 6, 25-draw chunks): the
   first chunk's step counts equal, posterior means within 4 Monte Carlo
@@ -55,10 +55,11 @@ def test_route_radon_to_chunk_kernel_others_to_step_kernel():
     dict(target_integration_time=2.0),
 ])
 def test_route_refuses_what_neither_kernel_runs(settings):
+    """Once refused, these options now run in both kernels: radon keeps the
+    chunk kernel and eight schools the step kernel."""
     cfg = _cfg(**settings)
-    for model in (tm.radon(), tm.eight_schools()):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            route(cfg, model)
+    assert route(cfg, tm.radon()) == "megakernel"
+    assert route(cfg, tm.eight_schools()) == "step"
 
 
 def test_pyfunc_samples_through_step_runner_on_cpu():

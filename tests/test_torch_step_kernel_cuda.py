@@ -20,7 +20,12 @@ inverse masses and eigenvalues held too; then, at 16 chains, a shape for
 each form of ``step_kernel.low_rank_plan`` on an H100: dim 1000 at rank 32
 (256,000 bytes a basis in float64: streamed through a ring), dim 500 at
 rank 32 (staged by TMA) and dim 33 at rank 5 with two slots padded (660
-bytes a basis, not 16-byte aligned: staged by loads).
+bytes a basis, not 16-byte aligned: staged by loads).  The options with
+branches of their own: Adam, a fixed step size and a target integration
+time on the dim-16 GLM, Adam under the low-rank metric on the 40-d
+Gaussian, and the divergence rows (the instantiations that carry them) on
+the centered eight schools (held form and the low-rank branch) and the
+33-d Gaussian (strided), their buffers held too.
 """
 
 import numpy as np
@@ -219,3 +224,58 @@ def test_low_rank_branch_matches_plain_version(lr_card):
                  (fk.vecs, fp.vecs), (fk.flts, fp.flts)):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-8, equal_nan=True)
     assert torch.isfinite(fbk.mass_matrix_eigvals).all()
+
+
+# (model, NutsConfig fields, AdaptConfig fields, low rank) of each option
+# (tests/test_torch_step_options.py holds the plain version to JAX); the
+# divergence rows' cases diverge at an energy error of 10 or 1
+OPTIONS = {
+    "adam": ("glm", {}, {"method": "adam"}, False),
+    "fixed_step": ("glm", {}, {"method": 0.1}, False),
+    "target_time": ("glm", {"target_time": 0.5, "extra_doublings": 1}, {}, False),
+    "adam_low_rank": ("gaussian40", {}, {"method": "adam"}, True),
+    "store_divergences_held": ("centered_eight_schools",
+                               {"store_divergences": True, "max_energy_error": 10.0}, {},
+                               False),
+    "store_divergences_strided": ("gaussian33",
+                                  {"store_divergences": True, "max_energy_error": 1.0}, {},
+                                  False),
+    "store_divergences_low_rank": ("centered_eight_schools",
+                                   {"store_divergences": True, "max_energy_error": 10.0}, {},
+                                   True),
+}
+OPTION_MODELS = {
+    "glm": MODELS["glm"],
+    "gaussian40": lambda: ill_conditioned_gaussian(dim=40),
+    "centered_eight_schools": lambda: eight_schools(centered=True),
+    "gaussian33": MODELS["gaussian33"],
+}
+DIV_BUFFERS = ("divergence_start", "divergence_end", "divergence_momentum",
+               "divergence_start_gradient")
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_options_match_plain_version(option):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    name, nuts, adapt, low_rank = OPTIONS[option]
+    model = OPTION_MODELS[name]()
+    cfg = NutsConfig(**{"maxdepth": 8, **nuts}, adapt=AdaptConfig(num_tune=100, **adapt),
+                     low_rank=LowRankConfig() if low_rank else None)
+    sched = make_schedule(cfg.adapt, 100)
+    states, _ = init_chains(model, cfg, 6, 16, np.zeros(model.ndim), torch.float64,
+                            device="cuda")
+    div = DIV_BUFFERS if cfg.store_divergences else ()
+    (sk, bk), (sp, bp) = _both(model, cfg, sched, states, 0, False)
+    assert torch.equal(sk.ints, sp.ints)
+    torch.testing.assert_close(bk.position, bp.position, rtol=1e-3, atol=1e-3, equal_nan=True)
+    (fk, fbk), (fp, fbp) = _both(model, cfg, sched, sk, 8, True)
+    assert torch.equal(fk.ints, fp.ints)
+    for a, b in ((fbk.position, fbp.position), (fbk.scalars, fbp.scalars),
+                 (fk.vecs, fp.vecs), (fk.flts, fp.flts),
+                 *((getattr(fbk, n), getattr(fbp, n)) for n in div)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-8, equal_nan=True)
+    for bufs in (bk, fbk):
+        diverging = bufs.diverging
+        for n in div:
+            assert torch.equal(torch.isfinite(getattr(bufs, n)).all(dim=-1), diverging), n
