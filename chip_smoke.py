@@ -49,7 +49,11 @@ Phases (each prints one JSON line):
    draws within 1e-3 (relative to 1 + |x|); from the same state in
    float64, ints exact and floats to rtol 1e-6 / atol 1e-8.
 6. ``profile``: the main path once more under ``torch.profiler``: device
-   time by kernel and the device's idle share of the wall time; then the
+   time by kernel and the device's idle share of the wall time, the
+   device-to-host copies into pinned and pageable memory and the seconds
+   of them that run under K1 (and under any kernel), beside the readings
+   of the single-buffered loop that preceded the background one (same
+   card and configuration); then the
    GLM path (below) at full width with tune and draws cut to
    ``GLM_PROFILE_TUNE`` + ``GLM_PROFILE_DRAWS``: device time split into the
    step kernel, the log density's matrix products and other work, and
@@ -184,6 +188,36 @@ divergence rows on the card):
     shape [chains, draws, 64], finite exactly where a draw diverged (warmup
     included), and the glm phase's posterior bars.
 
+Background sampling (every ``sample()`` call runs the background loop,
+double-buffered: chunk k+1 launched and its copies into pinned buffers
+started before chunk k is converted):
+
+14. ``control``: radon through K1 at the main configuration with
+    ``blocking=False`` and a progress callback: paused at the first
+    callback (K1's launch count read 0.2 s after ``pause()`` and again 1 s
+    later must not move), resumed, inspected once, waited: the trace is
+    bitwise the main phase's, the inspected one bitwise its prefix, the
+    last callback 600 draws for every chain; a second run aborted after
+    two chunks returns a partial trace bitwise the main phase's prefix
+    (the abort's latency printed).  Checkpoint and resume on both routes:
+    radon and the GLM (the glm phase's configuration) run 300 + 84 draws
+    with ``checkpoint=``, then resume to 300 + 300: the resumed draws and
+    statistics bitwise the main and glm phases' last 216 (the
+    checkpoint's bytes, save seconds and restored depth cap printed).  A
+    busy caller: the GLM cut as the profile phase cuts it, non-blocking,
+    while the calling thread runs matrix products on the card; graph
+    captures and replays hold and the trace is bitwise the same run made
+    blocking.  Host syncs on the K1 route: a radon run under
+    ``torch.cuda.set_sync_debug_mode("warn")``, each synchronizing call's
+    file:line counted (a reading).  Zarr: radon at the main configuration
+    streamed to a ``LocalStore`` in ``/dev/shm`` (else a temporary
+    directory) with
+    ``return_raw_trace=True``: every array read back with
+    ``read_zarr_array`` and through ``open_zarr_trace`` bitwise the raw
+    trace, which is bitwise the main phase's prefix (bytes, files, seconds
+    and the writer printed; the directory deleted).  That run stores no
+    warmup and cuts the draws to ``ZARR_DRAWS`` (see there).
+
 Every phase that reads split R-hat and bulk ESS (``column_diagnostics``)
 also computes them on the card with ``diagnostics_device`` and holds
 them to the host's to rtol ``DIAG_RTOL``.
@@ -213,6 +247,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # the main path's sizes (bench.py's radon configuration, draws cut to 300)
 CHAINS, TUNE, DRAWS, CHUNK = 2048, 300, 300, 128
+# the control phase's checkpoint: runs of 300 + 84 draws resumed to 300 +
+# 300; draw 384 is a chunk boundary of radon's run (128) and the GLM's (32)
+RESUME_DRAWS = 84
+# the control phase's Zarr run: the main configuration with its posterior
+# cut to 100 draws and no warmup stored.  The layout (the JAX package's) is
+# one file per chain, array and 16 draws: the main run's 600 draws would be
+# 1.7 M files, and a first cut to 128 posterior draws (311 k files) took 194
+# s to read back twice; 100 posterior draws over two device chunks (84 + 16
+# rows, re-buffered across them) are 272 k files
+ZARR_DRAWS = 100
 # 8 draws a parity chunk keep the whole run near ten minutes
 PARITY_CHAINS, PARITY_CHUNK = 64, 8
 # a chain count that divides neither the chains per block nor the card's
@@ -737,7 +781,7 @@ def phase_main(ctx):
     torch.cuda.synchronize()
     chunk_kernel.launches = 0
     t0 = time.perf_counter()
-    raw = nt.sample(compiled, chains=CHAINS, tune=TUNE, draws=DRAWS, seed=42,
+    raw = nt.sample(compiled, progress_bar=False, chains=CHAINS, tune=TUNE, draws=DRAWS, seed=42,
                     pool_mass_matrix=True, pool_step_size=True, device="cuda",
                     return_raw_trace=True)
     torch.cuda.synchronize()
@@ -766,6 +810,7 @@ def phase_main(ctx):
                 "posterior_divergences": div_post}
     eps = raw["stats"]["step_size"][:, TUNE:]
     ctx["main_readings"] = dict(readings, step_size=float(np.median(eps)))
+    ctx["main_raw"] = raw  # the control phase holds its runs to it bitwise
     emit({
         "phase": "main", "chains": CHAINS, "tune": TUNE, "draws": DRAWS,
         "chunk_len": chunk_len, "chunks": n_chunks, "kernel_launches": launches,
@@ -998,11 +1043,12 @@ def _device_rows(prof) -> list:
     )
 
 
-def _profiled_sample(compiled, **kwargs):
+def _profiled_sample(compiled, with_prof: bool = False, **kwargs):
     """``sample()`` on the card under ``torch.profiler``: (wall s, device
-    rows, K2's launches in the run, K2's launches the trace holds).  The
-    step runner replays its machine steps from CUDA graphs; the trace's
-    count of K2 launches says whether it saw the kernels inside them."""
+    rows, K2's launches in the run, K2's launches the trace holds), and the
+    profiler itself with ``with_prof``.  The step runner replays its machine
+    steps from CUDA graphs; the trace's count of K2 launches says whether it
+    saw the kernels inside them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1013,12 +1059,33 @@ def _profiled_sample(compiled, **kwargs):
     launches = step_kernel.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        nt.sample(compiled, device=DEVICE, return_raw_trace=True, **kwargs)
+        nt.sample(compiled, progress_bar=False, device=DEVICE, return_raw_trace=True, **kwargs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = _device_rows(prof)
     traced = sum(n for _, name, n in rows if _is_k2(name))
-    return wall, rows, step_kernel.launches - launches, traced
+    out = (wall, rows, step_kernel.launches - launches, traced)
+    return out + (prof,) if with_prof else out
+
+
+def _overlap_s(prof, is_a, is_b) -> float:
+    """Seconds of device events named ``is_a`` that run while an event
+    named ``is_b`` runs (the trace's intervals)."""
+    import torch
+
+    spans = lambda match: sorted(
+        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
+        if ev.device_type != torch.autograd.DeviceType.CPU and match(ev.name))
+    merged = []
+    for start, end in spans(is_b):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    total = 0.0
+    for start, end in spans(is_a):
+        total += sum(max(0.0, min(end, e) - max(start, s)) for s, e in merged)
+    return total / 1e6
 
 
 def _is_gemm(name: str) -> bool:
@@ -1037,12 +1104,24 @@ def phase_profile(ctx):
     import nutpie_tpu_torch as nt
     from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
 
-    wall, rows, _, _ = _profiled_sample(
-        compile_model_def(nt.models.radon()), chains=CHAINS, tune=TUNE,
+    wall, rows, _, _, prof = _profiled_sample(
+        compile_model_def(nt.models.radon()), with_prof=True, chains=CHAINS, tune=TUNE,
         draws=DRAWS, seed=43, pool_mass_matrix=True, pool_step_size=True)
     device_s = sum(r[0] for r in rows)
     kernel_s = sum(r[0] for r in rows if "megakernel_chunk" in r[1])
     copy_s = sum(r[0] for r in rows if r[1].startswith("Memcpy"))
+    dtoh = {kind: sum(r[0] for r in rows if r[1].startswith("Memcpy DtoH")
+                      and kind in r[1].lower()) for kind in ("pinned", "pageable")}
+    is_dtoh = lambda name: name.startswith("Memcpy DtoH")
+    copies = {
+        "memcpy_dtoh_pinned_s": dtoh["pinned"], "memcpy_dtoh_pageable_s": dtoh["pageable"],
+        "memcpy_dtoh_overlapping_k1_s": _overlap_s(
+            prof, is_dtoh, lambda name: "megakernel_chunk" in name),
+        "memcpy_dtoh_overlapping_any_kernel_s": _overlap_s(
+            prof, is_dtoh, lambda name: not name.startswith("Memcpy")
+            and not name.startswith("Memset")),
+    }
+    del prof
     top = lambda rows: [{"name": k[:80], "count": n, "self_device_ms": d * 1e3}
                         for d, k, n in rows[:8]]
 
@@ -1057,8 +1136,10 @@ def phase_profile(ctx):
     emit({
         "phase": "profile", "wall_s_profiled": wall, "device_busy_s": device_s,
         "device_idle_share": max(0.0, 1.0 - device_s / wall),
-        "chunk_kernel_s": kernel_s, "memcpy_s": copy_s,
+        "chunk_kernel_s": kernel_s, "memcpy_s": copy_s, **copies,
         "other_device_s": device_s - kernel_s - copy_s,
+        "single_buffered_loop": {"wall_s_profiled": 3.30, "device_idle_share": 0.542,
+                                 "memcpy_s": 0.98},
         "top_device_events": top(rows),
         "glm": {
             "chains": GLM_CHAINS, "tune": GLM_PROFILE_TUNE, "draws": GLM_PROFILE_DRAWS,
@@ -1432,7 +1513,7 @@ def phase_glm(ctx):
     torch.cuda.synchronize()
     _zero_counts(step_kernel, chunk_kernel)
     t0 = time.perf_counter()
-    raw = nt.sample(compiled, chains=GLM_CHAINS, tune=GLM_TUNE, draws=GLM_DRAWS,
+    raw = nt.sample(compiled, progress_bar=False, chains=GLM_CHAINS, tune=GLM_TUNE, draws=GLM_DRAWS,
                     seed=42, chunk_size=GLM_CHUNK, precision="float32", device=DEVICE,
                     return_raw_trace=True)
     torch.cuda.synchronize()
@@ -1465,6 +1546,11 @@ def phase_glm(ctx):
         f"posterior mean {is_dev.max()} sd from the importance-sampled mean"
     assert dev.max() <= LAPLACE_SD_TOL, f"posterior mean {dev.max()} sd from the Laplace mode"
     ctx["glm_launches"] = k2
+    # the control phase's resumed GLM run is held to these draws bitwise
+    cut = GLM_TUNE + RESUME_DRAWS
+    ctx["glm_tail"] = {"position": pos[:, cut:].copy(),
+                       **{g: {k: v[:, cut:].copy() for k, v in raw[g].items()}
+                          for g in ("stats", "expanded")}}
     ctx["glm_graphs"] = {"launches_per_machine_step": k2 / steps,
                          "graph_replays": step_kernel.replays,
                          "capture_s": step_kernel.capture_s}
@@ -1917,7 +2003,7 @@ def phase_lowrank(ctx):
         torch.cuda.synchronize()
         _zero_counts(step_kernel, chunk_kernel)
         t0 = time.perf_counter()
-        raw = nt.sample(compiled, adaptation="low_rank", chains=LR_CHAINS, tune=LR_TUNE,
+        raw = nt.sample(compiled, progress_bar=False, adaptation="low_rank", chains=LR_CHAINS, tune=LR_TUNE,
                         draws=LR_DRAWS, mass_matrix_eigval_cutoff=LR_CUTOFF, seed=42,
                         precision="float32", device=DEVICE, return_raw_trace=True)
         torch.cuda.synchronize()
@@ -2377,7 +2463,7 @@ def _radon_run(**kwargs):
     torch.cuda.synchronize()
     _zero_counts(step_kernel, chunk_kernel)
     t0 = time.perf_counter()
-    raw = nt.sample(compiled, chains=CHAINS, tune=TUNE, draws=DRAWS, seed=42,
+    raw = nt.sample(compiled, progress_bar=False, chains=CHAINS, tune=TUNE, draws=DRAWS, seed=42,
                     pool_mass_matrix=True, pool_step_size=True, device=DEVICE,
                     return_raw_trace=True, **kwargs)
     torch.cuda.synchronize()
@@ -2481,7 +2567,7 @@ def phase_options(ctx):
     torch.cuda.synchronize()
     _zero_counts(step_kernel, chunk_kernel)
     t0 = time.perf_counter()
-    raw = nt.sample(compiled, chains=GLM_CHAINS, tune=GLM_TUNE, draws=GLM_DIV_DRAWS,
+    raw = nt.sample(compiled, progress_bar=False, chains=GLM_CHAINS, tune=GLM_TUNE, draws=GLM_DIV_DRAWS,
                     seed=42, chunk_size=GLM_CHUNK, precision="float32", device=DEVICE,
                     return_raw_trace=True, **div)
     torch.cuda.synchronize()
@@ -2530,6 +2616,336 @@ def phase_options(ctx):
     assert dev.max() <= LAPLACE_SD_TOL, f"posterior mean {dev.max()} sd from the Laplace mode"
 
 
+# ------------------------------------------------------------- control path
+
+
+def _raw_diff(got: dict, want: dict, lo: int = 0) -> list:
+    """Names of the arrays of the raw trace ``got`` that are not bitwise
+    draws ``lo:lo + n`` of ``want`` (n: ``got``'s draws)."""
+    import numpy as np
+
+    n = got["position"].shape[1]
+
+    def same(a, b):
+        b = b[:, lo:lo + n]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.dtype.kind == "f":
+            bits = f"u{a.itemsize}"
+            return bool(np.array_equal(a.view(bits), b.view(bits)))
+        return bool(np.array_equal(a, b))
+
+    bad = [] if same(got["position"], want["position"]) else ["position"]
+    for group in ("stats", "expanded"):
+        if got[group].keys() != want[group].keys():
+            bad.append(f"{group} keys")
+            continue
+        bad += [f"{group}/{k}" for k, v in got[group].items() if not same(v, want[group][k])]
+    return bad
+
+
+def _radon_background(progress_callback, **kwargs):
+    """``sample(blocking=False)`` on radon at the main phase's configuration."""
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+
+    return nt.sample(compile_model_def(nt.models.radon()), progress_bar=False,
+                     chains=CHAINS, tune=TUNE, seed=42, pool_mass_matrix=True,
+                     pool_step_size=True, device=DEVICE, return_raw_trace=True,
+                     blocking=False, progress_callback=progress_callback,
+                     progress_rate=0, **kwargs)
+
+
+def _control_handle(ctx) -> dict:
+    """Pause, resume, inspect, wait and abort on radon through K1."""
+    import threading
+
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    main = ctx["main_raw"]
+    first, last = threading.Event(), {}
+
+    def on_progress(progress):
+        last["finished"] = [p.finished_draws for p in progress]
+        first.set()
+
+    _zero_counts(step_kernel, chunk_kernel)
+    handle = _radon_background(on_progress, draws=DRAWS)
+    assert first.wait(timeout=300), "no progress callback"
+    handle.pause()
+    time.sleep(0.2)  # the chunk the loop had begun may still launch
+    paused = chunk_kernel.launches
+    time.sleep(1.0)
+    assert chunk_kernel.launches == paused, \
+        f"K1 launched {chunk_kernel.launches - paused} times while paused"
+    handle.resume()
+    inspected = handle.inspect()
+    raw = handle.wait(timeout=600)
+    launches = chunk_kernel.launches
+    bad = _raw_diff(raw, main)
+    assert not bad, f"the background run differs from the main phase in {bad}"
+    bad = _raw_diff(inspected, main)
+    assert not bad, f"the inspected trace is not the main phase's prefix: {bad}"
+    assert last["finished"] == [TUNE + DRAWS] * CHAINS, "the last callback is not 600 draws"
+    assert launches == math.ceil((TUNE + DRAWS) / CHUNK), launches
+
+    enough = threading.Event()
+    handle = _radon_background(
+        lambda progress: progress[0].finished_draws >= 2 * CHUNK and enough.set(),
+        draws=DRAWS)
+    assert enough.wait(timeout=300), "the abort run made no progress"
+    t0 = time.perf_counter()
+    partial = handle.abort()
+    abort_s = time.perf_counter() - t0
+    assert partial is not None, "abort returned no trace"
+    bad = _raw_diff(partial, main)
+    assert not bad, f"the aborted trace is not the main phase's prefix: {bad}"
+    return {"paused_at_launches": paused, "k1_launches": launches,
+            "inspected_draws": inspected["position"].shape[1],
+            "aborted_draws": partial["position"].shape[1], "abort_latency_s": abort_s,
+            "pinned_bytes": handle.transfer.pinned_bytes,
+            "pinned_alloc_s": handle.transfer.alloc_s, "copy_wait_s": handle.transfer.wait_s}
+
+
+def _control_resume(ctx, tmp: str) -> dict:
+    """Checkpoint at draw 384 and resume to 600, on both routes."""
+    import importlib
+    import json
+
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.settings import NutsSettings
+
+    sample_module = importlib.import_module("nutpie_tpu_torch.sample")
+    save_state = sample_module.save_state
+    saves = []
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        save_state(*args, **kwargs)
+        saves.append(time.perf_counter() - t0)
+
+    cut = TUNE + RESUME_DRAWS
+    runs = {
+        "radon": (compile_model_def(nt.models.radon()), ctx["main_raw"], CHUNK,
+                  dict(chains=CHAINS, seed=42, pool_mass_matrix=True, pool_step_size=True)),
+        "glm": (compile_model_def(_glm_model()), ctx["glm_tail"], GLM_CHUNK,
+                dict(chains=GLM_CHAINS, seed=42, chunk_size=GLM_CHUNK, precision="float32")),
+    }
+    out = {}
+    for name, (compiled, ref, chunk, kwargs) in runs.items():
+        assert cut % chunk == 0, (cut, chunk)
+        path = os.path.join(tmp, f"{name}.npz")
+        saves.clear()
+        sample_module.save_state = timed_save
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nt.sample(compiled, progress_bar=False, tune=TUNE, draws=RESUME_DRAWS,
+                      device=DEVICE, return_raw_trace=True, checkpoint=path, **kwargs)
+            first_s = time.perf_counter() - t0
+        finally:
+            sample_module.save_state = save_state
+        with np.load(path) as data:
+            manifest = json.loads(str(data["__manifest__"]))
+        t0 = time.perf_counter()
+        raw = nt.sample(compiled, progress_bar=False, tune=TUNE, draws=DRAWS, device=DEVICE,
+                        return_raw_trace=True, resume_from=path, **kwargs)
+        resumed_s = time.perf_counter() - t0
+        lo = cut if ref is ctx["main_raw"] else 0
+        bad = _raw_diff(raw, ref, lo)
+        assert not bad, f"{name}: the resumed draws differ from the uninterrupted run in {bad}"
+        cap, maxdepth = manifest["depth_cap"], NutsSettings.Diag(0).maxdepth
+        out[name] = {"resume_at": manifest["draws_done"], "checkpoint_bytes": os.path.getsize(path),
+                     "saves": len(saves), "save_s_mean": float(np.mean(saves)),
+                     "first_run_s": first_s, "resumed_run_s": resumed_s,
+                     "depth_cap_restored": cap,
+                     "resumed_draws_at_cap_below_maxdepth":
+                         int((raw["stats"]["depth"] == cap).sum()) if cap < maxdepth else 0,
+                     "resumed_draws": raw["position"].shape[1]}
+        assert out[name]["resume_at"] == cut, out[name]
+    return out
+
+
+def _control_zarr(ctx, tmp: str) -> dict:
+    """Radon streamed to a local store: every array read back is the raw trace."""
+    import shutil
+    import tempfile
+
+    # a store in memory where the host has one: a disk-backed temporary
+    # directory creates chunk files several times slower than tmpfs
+    shm = "/dev/shm"
+    root = tempfile.mkdtemp(prefix="chip_smoke_zarr_", dir=shm if os.path.isdir(shm) else tmp)
+    try:
+        return _zarr_checks(ctx, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _zarr_checks(ctx, root: str) -> dict:
+    """The Zarr run into ``root`` and its read-back (``_control_zarr``)."""
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.storage.zarr_writer import read_zarr_array
+    from nutpie_tpu_torch.trace import open_zarr_trace
+    from nutpie_tpu_torch.zarr_store import LocalStore
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handle = nt.sample(compile_model_def(nt.models.radon()), progress_bar=False,
+                       chains=CHAINS, tune=TUNE, draws=ZARR_DRAWS, save_warmup=False,
+                       seed=42, pool_mass_matrix=True, pool_step_size=True, device=DEVICE,
+                       return_raw_trace=True, zarr_store=LocalStore(root), blocking=False)
+    raw = handle.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    bad = _raw_diff(raw, ctx["main_raw"])
+    assert not bad, f"the zarr run's raw trace is not the main phase's prefix: {bad}"
+    trace = open_zarr_trace(LocalStore(root))
+    groups = {"posterior": ("expanded", TUNE, TUNE + ZARR_DRAWS),
+              "sample_stats": ("stats", TUNE, TUNE + ZARR_DRAWS)}
+    jobs = [(g, name) for g, (src, _, _) in groups.items() for name in raw[src]
+            if name != "divergence_message"]
+
+    def check(job):
+        import numpy as np
+
+
+        group, name = job
+        src, lo, hi = groups[group]
+        want = raw[src][name][:, lo:hi]
+        if want.dtype.kind in "OU":
+            want = want.astype("<U128")
+        ok = []
+        for got in (read_zarr_array(root, f"{group}/{name}"), trace[group][name].values):
+            bits = f"u{want.itemsize}" if want.dtype.kind == "f" else None
+            ok.append(got.shape == want.shape and got.dtype == want.dtype and bool(
+                np.array_equal(got.view(bits), want.view(bits)) if bits
+                else np.array_equal(got, want)))
+        return job, ok
+
+    # one thread: the reader is Python around small reads and inflates, and
+    # threads contending for the interpreter lock read slower than one
+    t0 = time.perf_counter()
+    results = [check(job) for job in jobs]
+    read_s = time.perf_counter() - t0
+    bad = [f"{g}/{n} ({'read_zarr_array' if not ok[0] else 'open_zarr_trace'})"
+           for (g, n), ok in results if not all(ok)]
+    assert not bad, f"arrays read back differ from the raw trace: {bad}"
+    nbytes = files = 0
+    for dirpath, _, names in os.walk(root):
+        files += len(names)
+        nbytes += sum(os.path.getsize(os.path.join(dirpath, n)) for n in names)
+    return {"draws": TUNE + ZARR_DRAWS, "wall_s": wall,
+            "main_wall_s": ctx["main_readings"]["wall_s"], "main_draws": TUNE + DRAWS,
+            "store": os.path.dirname(root), "writer": handle.zarr_writer,
+            "bytes_written": nbytes, "files": files, "arrays_checked": len(jobs),
+            "read_back_s": read_s}
+
+
+def _control_busy_caller(ctx) -> dict:
+    """The GLM (cut as the profile phase cuts it) with ``blocking=False``
+    while the calling thread runs matrix products on the card."""
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    compiled = compile_model_def(_glm_model())
+    kwargs = dict(progress_bar=False, chains=GLM_CHAINS, tune=GLM_PROFILE_TUNE,
+                  draws=GLM_PROFILE_DRAWS, seed=42, chunk_size=GLM_CHUNK,
+                  precision="float32", device=DEVICE, return_raw_trace=True)
+    ref = nt.sample(compiled, **kwargs)
+    a = torch.randn(1024, 1024, device=DEVICE)
+    torch.cuda.synchronize()
+    _zero_counts(step_kernel, chunk_kernel)
+    handle = nt.sample(compiled, blocking=False, **kwargs)
+    products = 0
+    t0 = time.perf_counter()
+    while not handle.is_finished:
+        a = torch.tanh(a @ a)
+        products += 1
+        if products % 32 == 0:
+            torch.cuda.current_stream().synchronize()
+    raw = handle.wait(timeout=600)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert step_kernel.replays > 0 and step_kernel.launches > 0, "no graph replays"
+    assert chunk_kernel.launches == 0
+    bad = _raw_diff(raw, ref)
+    assert not bad, f"the run beside a busy caller differs from the blocking run in {bad}"
+    return {"products": products, "wall_s": wall, "graph_replays": step_kernel.replays,
+            "k2_launches": step_kernel.launches, "capture_s": step_kernel.capture_s,
+            "pinned_bytes": handle.transfer.pinned_bytes}
+
+
+def _sync_readings() -> dict:
+    """Host syncs on the K1 route: a radon run (the main configuration, 128
+    draws) under ``torch.cuda.set_sync_debug_mode("warn")``; each
+    synchronizing call's file:line and count, the sampling thread's
+    included (the warnings module is process-wide)."""
+    import collections
+    import warnings
+
+    import torch
+
+    import traceback as tb
+
+    counts = collections.Counter()
+    pkg = os.path.join(ROOT, "nutpie_tpu_torch")
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        # the innermost frame of the package that led to the synchronizing call
+        frames = [f for f in tb.extract_stack() if f.filename.startswith(pkg)]
+        where = frames[-1] if frames else None
+        counts[f"{os.path.relpath(where.filename, ROOT)}:{where.lineno} ({where.name})"
+               if where else f"{os.path.basename(filename)}:{lineno} (outside the package)"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _radon_background(None, draws=DRAWS).wait(timeout=600)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(counts.most_common())
+
+
+def phase_control(ctx):
+    """Background control, checkpoints and Zarr storage on the card."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    failed: list = []
+    readings = {}
+    try:
+        for name, fn in (("handle", lambda: _control_handle(ctx)),
+                         ("resume", lambda: _control_resume(ctx, tmp)),
+                         ("busy_caller", lambda: _control_busy_caller(ctx)),
+                         ("syncs", _sync_readings),
+                         ("zarr", lambda: _control_zarr(ctx, tmp))):
+            t0 = time.perf_counter()
+            readings[name] = _held(failed, fn)
+            emit({"control": name, "s": round(time.perf_counter() - t0, 1),
+                  "readings": readings[name]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "control", **readings, "card": ctx["card"]})
+    assert not failed, failed
+
+
 PHASES = {
     "build": phase_build,
     "parity": phase_parity,
@@ -2543,11 +2959,13 @@ PHASES = {
     "step_timing": phase_step_timing,
     "options_parity": phase_options_parity,
     "options": phase_options,
+    "control": phase_control,
     "profile": phase_profile,
 }
 # phases whose results a later phase reads
 NEEDS = {"timing": ("warmup",), "step_timing": ("step_parity", "lowrank_parity"),
-         "options_parity": ("warmup", "step_parity"), "options": ("main", "options_parity", "warmup", "step_parity")}
+         "options_parity": ("warmup", "step_parity"), "options": ("main", "options_parity", "warmup", "step_parity"),
+         "control": ("main", "glm")}
 
 
 def main() -> int:

@@ -197,6 +197,7 @@ def radon(log_radon=None, county_idx=None, floor=None, counties=None,
     basis_np = _zero_sum_basis(n_c)
     # tensors per (device, dtype), built on first use
     cache: dict = {}
+    onehot: dict = {}
 
     def data(ref: torch.Tensor):
         key = (ref.device, ref.dtype)
@@ -207,7 +208,20 @@ def radon(log_radon=None, county_idx=None, floor=None, counties=None,
                 torch.as_tensor(county_idx, device=ref.device),
                 torch.as_tensor(floor, dtype=ref.dtype, device=ref.device),
             )
+            if ref.is_cuda:  # [n_obs, n_c] one-hot map of each observation's county
+                onehot[key] = torch.as_tensor(np.eye(n_c)[county_idx], dtype=ref.dtype,
+                                              device=ref.device)
         return cache[key]
+
+    def county_sums(x: torch.Tensor, cidx: torch.Tensor) -> torch.Tensor:
+        """Per-county sums of ``x [C, n_obs]``.  On CUDA ``index_add_``
+        accumulates with atomics, in an order that changes from run to run
+        (two runs from one seed would part ways at the step-size search);
+        there the product with the one-hot map sums in a fixed order."""
+        if x.is_cuda:
+            return x @ onehot[(x.device, x.dtype)]
+        return torch.zeros((x.shape[0], n_c), dtype=x.dtype, device=x.device).index_add_(
+            1, cidx, x)
 
     # flat layout: intercept | county_raw_z (n_c-1) | log_county_sd |
     #              floor_effect | county_floor_raw_z (n_c-1) | log_cf_sd |
@@ -277,8 +291,8 @@ def radon(log_radon=None, county_idx=None, floor=None, counties=None,
         resid = (y - mu) / sigma[:, None]
         ss = torch.sum(resid * resid, dim=1)
         # d logp / d county effects: per-county sums of resid / sigma
-        A = torch.zeros_like(county_raw).index_add_(1, cidx, resid) / sigma[:, None]
-        B = torch.zeros_like(county_raw).index_add_(1, cidx, resid * fl) / sigma[:, None]
+        A = county_sums(resid, cidx) / sigma[:, None]
+        B = county_sums(resid * fl, cidx) / sigma[:, None]
         lp = -0.5 * (intercept / 10.0) ** 2
         lp = lp + -0.5 * torch.sum(raw_z * raw_z, dim=1)
         lp = lp + -0.5 * torch.sum(cf_raw_z * cf_raw_z, dim=1)

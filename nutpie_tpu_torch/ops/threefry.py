@@ -75,7 +75,10 @@ def fold_in_data(kd: torch.Tensor, data) -> torch.Tensor:
     ``data`` is an int or an integer tensor broadcastable against
     ``kd[..., 0]``; it is taken modulo 2**32 as JAX casts it to uint32.
     """
-    data = torch.as_tensor(data, dtype=torch.int64, device=kd.device) & MASK32
+    if isinstance(data, torch.Tensor):
+        data = data.to(device=kd.device, dtype=torch.int64) & MASK32
+    else:  # filled on the device: a host scalar copied up would sync
+        data = torch.full((), int(data) & MASK32, dtype=torch.int64, device=kd.device)
     y0, y1 = threefry2x32(kd[..., 0], kd[..., 1], torch.zeros_like(data), data)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
@@ -130,8 +133,8 @@ def uniform(kd: torch.Tensor, shape, dtype=torch.float32, minval=0.0,
     ``kd`` is ``[..., 2]`` key data; the result is ``[..., *shape]``.
     """
     shape = tuple(shape)
-    lo = torch.tensor(minval, dtype=dtype, device=kd.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=kd.device)
+    lo = torch.full((), minval, dtype=dtype, device=kd.device)
+    hi = torch.full((), maxval, dtype=dtype, device=kd.device)
     floats = _unit_uniform(kd, shape, dtype)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
@@ -228,7 +231,7 @@ def normal(kd: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     lo = float(np.nextafter(np_dtype(-1.0), np_dtype(0.0)))
     u = uniform(kd, shape, dtype, lo, 1.0)
-    return torch.tensor(np.sqrt(2), dtype=dtype, device=kd.device) * erfinv(u)
+    return torch.full((), np.sqrt(2), dtype=dtype, device=kd.device) * erfinv(u)
 
 
 def uniform1(kd: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,18 @@
-"""``sample()``: blocking NUTS sampling of a compiled model, in torch.
+"""``sample()``: NUTS sampling of a compiled model, in torch.
 
-Same settings vocabulary and trace layout as ``nutpie_tpu.sample`` (and
-the reference's ``nutpie.sample``).  The run is a loop of chunks: chain
-initialization, then warmup chunks through the chunk runner with the
-per-draw adaptation on, then posterior chunks with it frozen; pooling, the
-trapped-chain rescue and the fleet depth cap act at chunk boundaries.
-Each chunk's draws are expanded (batched over ``[C*L, dim]``) and copied
-to the host, and the chunks are assembled into the trace.
+Same settings vocabulary, trace layout and control surface as
+``nutpie_tpu.sample`` (and the reference's ``nutpie.sample``).  Every call
+runs in a background thread (``_BackgroundSampler``), which ``blocking=False``
+returns as a handle: pause, resume, abort, cancel, inspect and wait, with
+progress callbacks and renderers (``progress.py``), checkpoints
+(``checkpoint.py``) and streaming Zarr storage (``storage/``) between
+chunks.  The run is a loop of chunks: chain initialization, then warmup
+chunks through the chunk runner with the per-draw adaptation on, then
+posterior chunks with it frozen; pooling, the trapped-chain rescue and the
+fleet depth cap act at chunk boundaries.  The loop is double-buffered:
+chunk k+1 is launched, expanded (batched over ``[C*L, dim]``) and its
+copies to the host started (``ChunkTransfer``: pinned buffers and a copy
+stream on the card) before chunk k is converted, stored and reported.
 
 Route: one decision, taken before anything runs (``route``).  A model
 with a ``kernel_model`` (radon) whose configuration the chunk kernel K1
@@ -23,13 +29,20 @@ float64 on the CPU.
 
 from __future__ import annotations
 
+import sys
+import threading
+import time
+import traceback
+import warnings
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from . import __version__ as _version
+from .checkpoint import load_state, save_state
 from .model import CompiledModel, ModelDef
+from .progress import ChainProgress, make_progress_handlers
 from .sampler import megakernel, step_kernel
 from .sampler.adapt import AdaptConfig, make_schedule
 from .sampler.megakernel import make_megakernel_chunk_runner
@@ -43,13 +56,10 @@ from .sampler.nuts import (
 )
 from .sampler.run import fleet_depth_cap, init_chains, make_chunk_runner, resolve_dtype
 from .settings import NutsSettings
-from .trace import assemble_trace
+from .storage.sink import ZarrTraceSink
+from .trace import assemble_trace, open_zarr_trace
 
 __all__ = ["sample"]
-
-_CONTROL_ITEM = "ROADMAP.md queue 1: background control and progress"
-_CHECKPOINT_ITEM = "ROADMAP.md queue 1: checkpoint"
-_STORAGE_ITEM = "ROADMAP.md queue 1: storage/Zarr"
 
 
 def _make_settings(sampler: str, adaptation: str, seed) -> NutsSettings:
@@ -170,23 +180,19 @@ _OPTIONAL_STATS = ("gradient", "mass_matrix_inv", "mass_matrix_eigvals", *DIV_BU
 DIVERGENCE_MESSAGE = "energy error exceeded max_energy_error (or was non-finite)"
 
 
-def chunk_to_host(bufs, expanded: dict, limit: int,
-                  store_unconstrained: bool = False,
-                  store_gradient: bool = False) -> dict:
-    """One chunk's buffers -> host arrays cut to the draws produced.
+def chunk_to_host(bufs: dict, expanded: dict, limit: int,
+                  store_unconstrained: bool = False) -> dict:
+    """One chunk's host arrays (``ChunkBuffers`` fields and expanded
+    variables by name, ``[C, L, ...]``) cut to the draws produced and
+    copied out of the transfer's buffers.
 
-    The optional buffers become statistics under the JAX trace's names;
-    the gradient only when ``store_gradient`` asked for it (low-rank
-    adaptation allocates it for its own update).  With the divergence
-    buffers comes ``divergence_message``, as in ``nutpie_tpu/sample.py``:
-    the message at a divergent draw, empty elsewhere."""
-    cut = lambda x: x[:, :limit].detach().cpu().numpy()
-    packed = cut(bufs.scalars)
-    stats = {}
-    for name in _OPTIONAL_STATS:
-        value = getattr(bufs, name)
-        if value is not None and (name != "gradient" or store_gradient):
-            stats[name] = cut(value)
+    The optional buffers become statistics under the JAX trace's names.
+    With the divergence buffers comes ``divergence_message``, as in
+    ``nutpie_tpu/sample.py``: the message at a divergent draw, empty
+    elsewhere."""
+    cut = lambda x: np.array(x[:, :limit])
+    packed = cut(bufs["scalars"])
+    stats = {name: cut(bufs[name]) for name in _OPTIONAL_STATS if name in bufs}
     for name, slot in SCALAR_SLOTS.items():
         if name == "fisher_distance":
             continue  # flow adaptation only
@@ -202,7 +208,7 @@ def chunk_to_host(bufs, expanded: dict, limit: int,
     if "divergence_start" in stats:
         stats["divergence_message"] = np.where(
             stats["diverging"], DIVERGENCE_MESSAGE, "").astype(object)
-    position = cut(bufs.position)
+    position = cut(bufs["position"])
     if store_unconstrained:
         stats["unconstrained_draw"] = position
     return {
@@ -218,6 +224,76 @@ def expand_chunk(model: ModelDef, position: torch.Tensor) -> dict:
     with torch.no_grad():
         out = model.expand_fn(position.reshape(C * L, dim))
     return {k: v.reshape((C, L) + tuple(v.shape[1:])) for k, v in out.items()}
+
+
+class ChunkTransfer:
+    """Device-to-host copies of the chunks in flight.
+
+    ``start(tensors)`` begins one chunk's copies and returns a ticket;
+    ``fetch(ticket)`` waits for them and returns numpy arrays by name.  On
+    the card each chunk's tensors are copied into pinned host buffers with
+    ``non_blocking`` copies on a copy stream, which first waits on an event
+    recorded on the compute stream after the chunk's work (the kernel, the
+    expansion, the progress snapshot), so the copies overlap whatever the
+    compute stream runs next.  Two sets of pinned buffers, one per chunk in
+    flight, are allocated at the first chunk and then alternate; the
+    caller copies a fetched chunk out of its set before the set's next
+    ``start`` (two chunks later).  A ticket keeps the chunk's device
+    tensors alive until it is fetched, so the allocator cannot hand their
+    memory to the compute stream while the copy stream reads it.  On the
+    CPU the tensors are on the host already and ``fetch`` returns views.
+    ``pinned_bytes`` counts both sets, ``alloc_s`` the host seconds their
+    allocation took, ``wait_s`` the host seconds ``fetch`` waited for
+    copies.
+    """
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self._sets: list = [None, None]
+        self._next = 0
+        self.pinned_bytes = 0
+        self.alloc_s = self.wait_s = 0.0
+
+    def _pinned(self, tensors: dict) -> dict:
+        i, self._next = self._next, self._next ^ 1
+        host = self._sets[i]
+        if host is None or any(host[k].shape != t.shape or host[k].dtype != t.dtype
+                               for k, t in tensors.items()):
+            t0 = time.perf_counter()
+            host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for k, t in tensors.items()}
+            self.alloc_s += time.perf_counter() - t0
+            self._sets[i] = host
+            self.pinned_bytes = sum(v.numel() * v.element_size()
+                                    for h in self._sets if h is not None
+                                    for v in h.values())
+        return host
+
+    def start(self, tensors: dict):
+        if not self.cuda:
+            return tensors
+        # contiguous on the compute stream, so the copy stream allocates nothing
+        tensors = {k: t.contiguous() for k, t in tensors.items()}
+        host = self._pinned(tensors)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.stream.device))
+        self.stream.wait_event(ready)
+        with torch.cuda.stream(self.stream):
+            for k, t in tensors.items():
+                host[k].copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        return host, done, tensors
+
+    def fetch(self, ticket) -> dict:
+        if not self.cuda:
+            return {k: t.detach().numpy() for k, t in ticket.items()}
+        host, done, _ = ticket
+        t0 = time.perf_counter()
+        done.synchronize()
+        self.wait_s += time.perf_counter() - t0
+        return {k: v.numpy() for k, v in host.items()}
 
 
 # the chunk runner of each route
@@ -238,48 +314,365 @@ def route(cfg: NutsConfig, model: ModelDef) -> str:
     return "step"
 
 
-def run_chains(model: ModelDef, cfg: NutsConfig, settings: NutsSettings,
-               init_mean, dtype, device, runner: str) -> list:
-    """Init + the chunk loop through the ``runner`` route; returns the host
-    chunks (``chunk_to_host``)."""
-    n_chains = settings.num_chains
-    num_tune, total = settings.num_tune, settings.num_tune + settings.num_draws
-    itemsize = torch.tensor([], dtype=dtype).element_size()
-    chunk_len = chunk_length(settings, n_chains, model.ndim, itemsize)
-    states, ok = init_chains(
-        model, cfg, settings.seed, n_chains, init_mean, dtype, device=device,
-        num_try_init=settings.num_try_init,
-    )
-    if not bool(ok.all()):
-        bad = int((~ok).sum())
-        raise RuntimeError(
-            f"Logp function returned error for initial positions of {bad} "
-            f"chains (tried {settings.num_try_init} points per chain)"
+class _BackgroundSampler:
+    """Drives the chunked device loop in a background thread; the handle
+    ``sample(blocking=False)`` returns.
+
+    The port of ``nutpie_tpu/sample.py:_BackgroundSampler``.  The loop is
+    double-buffered: it launches chunk k+1, queues its expansion, progress
+    snapshot and copies to the host (``ChunkTransfer``), and only then
+    converts, stores, streams and reports chunk k.  Pause and abort act at
+    chunk boundaries.  The thread runs under the run's device, on its
+    default stream.
+    """
+
+    def __init__(self, compiled_model: CompiledModel, settings: NutsSettings, init_mean,
+                 *, device=None, progress_bar: bool = True, progress_callback=None,
+                 save_warmup: bool = True, return_raw_trace: bool = False,
+                 progress_template=None, progress_style=None, progress_rate: int = 100,
+                 store=None, store_unconstrained: bool = False, checkpoint=None,
+                 checkpoint_every: int = 1, resume_from=None):
+        self._checkpoint_path = checkpoint
+        self._checkpoint_every = max(1, int(checkpoint_every))
+        self._resume_from = resume_from
+        self._resume_offset = 0
+        self._compiled_model = compiled_model
+        self._settings = settings
+        self._save_warmup = save_warmup
+        self._return_raw_trace = return_raw_trace
+        self._store_unconstrained = store_unconstrained
+        self._zarr_store = store
+        if settings.seed is None:
+            settings.seed = int(np.random.default_rng().integers(0, 2**63 - 1))
+        self._seed = int(settings.seed)
+
+        # everything that can refuse the run does so here, before anything runs
+        self._cfg = nuts_config_from_settings(settings)
+        self._model: ModelDef = compiled_model._make_model(self._seed)
+        self.route = route(self._cfg, self._model)
+        self._device = resolve_device(device)
+        self._dtype = resolve_dtype(settings.precision, self._device)
+        self._n_chains = settings.num_chains
+        self._num_tune = settings.num_tune
+        self._total = settings.num_tune + settings.num_draws
+        self._init_mean = np.asarray(
+            np.zeros(self._model.ndim) if init_mean is None else init_mean)
+        itemsize = torch.tensor([], dtype=self._dtype).element_size()
+        self._chunk_len = chunk_length(settings, self._n_chains, self._model.ndim, itemsize)
+        self._handlers = make_progress_handlers(
+            progress_bar, progress_callback, progress_rate, progress_template, progress_style,
         )
-    pool = dict(pool_step_size=settings.pool_step_size,
-                pool_mass_matrix=settings.pool_mass_matrix)
-    make_runner = RUNNERS[runner]
-    warm = make_runner(model, cfg, chunk_len, dtype, adapt_frozen=False, **pool)
-    post = make_runner(model, cfg, chunk_len, dtype, adapt_frozen=True, **pool)
-    # fleet-relative work cap: a static cap before the first measurement,
-    # then the fleet's, frozen with the mass matrix (>= 64 chains only)
-    sched = make_schedule(
-        cfg.adapt, num_tune, cfg.initial_depth_cap if n_chains >= 64 else None
-    )
-    cap_until = num_tune - int(cfg.adapt.freeze_share * num_tune)
-    chunks = []
-    start = 0
-    while start < total:
-        limit = min(chunk_len, total - start)
-        run_chunk = warm if start < num_tune else post
-        states, bufs = run_chunk(states, start, limit, sched)
-        if n_chains >= 64 and start + limit <= cap_until:
-            sched = sched._replace(depth_cap=fleet_depth_cap(cfg, bufs, limit))
-        expanded = expand_chunk(model, bufs.position)
-        chunks.append(chunk_to_host(bufs, expanded, limit, settings.store_unconstrained,
-                                    settings.store_gradient))
-        start += limit
-    return chunks
+        # the zarr writer in use ("native" or "threads" for a local store)
+        self.zarr_writer: Optional[str] = None
+        self._transfer: Optional[ChunkTransfer] = None
+
+        # control state
+        self._pause_evt = threading.Event()
+        self._abort_evt = threading.Event()
+        self._finished_evt = threading.Event()
+        self._lock = threading.Lock()
+        self._chunks: list = []
+        self._draws_done = 0
+        self._error: Optional[BaseException] = None
+        self._progress: list = []
+        self._start_time = time.monotonic()
+        # the first divergent draws of each chain (the counts are in
+        # ChainProgress.divergences); renderers show only a handful
+        self._divergent_draws: list = [[] for _ in range(self._n_chains)]
+        self._max_divergent_draws = 100
+
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------- device loop
+
+    def _run(self) -> None:
+        try:
+            if self._device.type == "cuda":
+                # the device's default stream, as a blocking run always had:
+                # the allocator caches memory per stream, so a stream of each
+                # run's own would strand every earlier run's cache
+                with torch.cuda.device(self._device):
+                    self._run_inner()
+            else:
+                self._run_inner()
+        except BaseException as err:  # surfaced in wait()
+            self._error = err
+        finally:
+            self._finished_evt.set()
+            for h in self._handlers:
+                try:
+                    h.finalize(self._progress)
+                except Exception:
+                    traceback.print_exc(file=sys.stderr)
+
+    def _run_inner(self) -> None:
+        model, cfg, settings = self._model, self._cfg, self._settings
+        n_chains, dtype, device = self._n_chains, self._dtype, self._device
+        states, ok = init_chains(
+            model, cfg, self._seed, n_chains, self._init_mean, dtype, device=device,
+            num_try_init=settings.num_try_init,
+        )
+        if not bool(ok.all()):
+            bad = int((~ok).sum())
+            raise RuntimeError(
+                f"Logp function returned error for initial positions of {bad} "
+                f"chains (tried {settings.num_try_init} points per chain)"
+            )
+        pool = dict(pool_step_size=settings.pool_step_size,
+                    pool_mass_matrix=settings.pool_mass_matrix)
+        make_runner = RUNNERS[self.route]
+        warm = make_runner(model, cfg, self._chunk_len, dtype, adapt_frozen=False, **pool)
+        post = make_runner(model, cfg, self._chunk_len, dtype, adapt_frozen=True, **pool)
+        # fleet-relative work cap: a static cap before the first measurement,
+        # then the fleet's, frozen with the mass matrix (>= 64 chains only:
+        # with few chains the median is noise)
+        sched = make_schedule(
+            cfg.adapt, self._num_tune, cfg.initial_depth_cap if n_chains >= 64 else None
+        )
+        cap_until = self._num_tune - int(cfg.adapt.freeze_share * self._num_tune)
+
+        # resume BEFORE building the zarr sink: the sink's layout appends
+        # from the resumed draw offset
+        start = 0
+        ckpt_meta = {"seed": self._seed, "settings": settings.as_dict()}
+        if self._resume_from is not None:
+            states, start, depth_cap, meta = load_state(self._resume_from, states)
+            sched = sched._replace(depth_cap=depth_cap)
+            self._resume_offset = start
+            if meta.get("seed") != self._seed:
+                warnings.warn("resuming a run that was started with a different seed",
+                              stacklevel=2)
+
+        sink = sink_dims = sink_coords = None
+        if self._zarr_store is not None:
+            sink = ZarrTraceSink(
+                self._zarr_store, n_chains=n_chains, num_tune=self._num_tune,
+                num_draws=settings.num_draws, save_warmup=self._save_warmup,
+                chunk_draws=min(16, self._chunk_len), start_offset=self._resume_offset,
+                attrs=self._attrs(),
+            )
+            self.zarr_writer = sink.writer
+            sink_dims = {v.name: tuple(v.dims or ()) for v in model.expanded_variables}
+            sink_coords = dict(model.coords)
+            sink_coords["unconstrained_parameter"] = np.asarray(
+                model.unconstrained_labels, dtype=object)
+
+        transfer = self._transfer = ChunkTransfer(device)
+        chunk_idx = 0
+        pending = None  # (start, limit, ticket) of the chunk in flight
+        while (start < self._total and not self._abort_evt.is_set()) or pending is not None:
+            launched = None
+            if start < self._total and not self._abort_evt.is_set():
+                while self._pause_evt.is_set() and not self._abort_evt.is_set():
+                    time.sleep(0.01)
+                if not self._abort_evt.is_set():
+                    if (self._checkpoint_path is not None and chunk_idx > 0
+                            and chunk_idx % self._checkpoint_every == 0):
+                        # states holds exactly `start` draws
+                        save_state(self._checkpoint_path, states, start, sched.depth_cap,
+                                   ckpt_meta)
+                    limit = min(self._chunk_len, self._total - start)
+                    run_chunk = warm if start < self._num_tune else post
+                    states, bufs = run_chunk(states, start, limit, sched)
+                    if n_chains >= 64 and start + limit <= cap_until:
+                        sched = sched._replace(depth_cap=fleet_depth_cap(cfg, bufs, limit))
+                    launched = (start, limit, transfer.start(self._chunk_tensors(states, bufs)))
+                    start += limit
+                    chunk_idx += 1
+            if pending is not None:
+                self._finish_chunk(*pending, sink, sink_dims, sink_coords)
+            pending = launched
+        if self._checkpoint_path is not None and self._draws_done > 0:
+            save_state(self._checkpoint_path, states, self._draws_done, sched.depth_cap,
+                       ckpt_meta)
+        if sink is not None:
+            sink.finalize(self._draws_done)
+
+    def _chunk_tensors(self, states, bufs) -> dict:
+        """The device tensors of a launched chunk that the host reads, by
+        ``group/name``: its buffers (the gradient only where the user asked
+        for it; low-rank adaptation allocates it for its own update), its
+        expansion and the progress snapshot (small copies of the chains'
+        counters and step sizes, taken after the chunk)."""
+        out = {f"bufs/{k}": v for k, v in bufs._asdict().items()
+               if v is not None and (k != "gradient" or self._settings.store_gradient)}
+        for k, v in expand_chunk(self._model, bufs.position).items():
+            out[f"expanded/{k}"] = v
+        for k in ("draw_idx", "divergence_count", "total_steps", "eps"):
+            out[f"snap/{k}"] = getattr(states, k).clone()
+        return out
+
+    def _finish_chunk(self, p_start: int, p_limit: int, ticket, sink, sink_dims,
+                      sink_coords) -> None:
+        host: dict = {"bufs": {}, "expanded": {}, "snap": {}}
+        for key, arr in self._transfer.fetch(ticket).items():
+            group, name = key.split("/", 1)
+            host[group][name] = arr
+        chunk = chunk_to_host(host["bufs"], host["expanded"], p_limit,
+                              self._store_unconstrained)
+        with self._lock:
+            # zarr runs stream to the store and return a store-backed trace;
+            # holding every chunk on the host as well would defeat streaming
+            if sink is None or self._return_raw_trace:
+                self._chunks.append(chunk)
+            self._draws_done = p_start + p_limit
+            div_rows = chunk["stats"]["diverging"]
+            for c in np.flatnonzero(div_rows.any(axis=1)):
+                room = self._max_divergent_draws - len(self._divergent_draws[c])
+                if room > 0:
+                    idxs = np.flatnonzero(div_rows[c])[:room] + p_start
+                    self._divergent_draws[c].extend(int(i) for i in idxs)
+        if sink is not None:
+            sink.append_chunk(chunk, p_start, sink_dims, sink_coords)
+        self._update_progress(host["snap"], chunk["stats"]["n_steps"])
+
+    def _update_progress(self, snap: dict, last_n_steps) -> None:
+        if not self._handlers:
+            return
+        draw_idx, divergences = snap["draw_idx"], snap["divergence_count"]
+        total_steps, eps = snap["total_steps"], snap["eps"]
+        runtime_ms = (time.monotonic() - self._start_time) * 1000.0
+        progress = [
+            ChainProgress(
+                chain_index=c,
+                finished_draws=int(min(draw_idx[c], self._total)),
+                total_draws=self._total,
+                divergences=int(divergences[c]),
+                tuning=bool(draw_idx[c] < self._num_tune),
+                started=True,
+                finished=bool(draw_idx[c] >= self._total),
+                latest_num_steps=int(last_n_steps[c, -1]),
+                total_num_steps=int(total_steps[c]),
+                step_size=float(eps[c]),
+                runtime_ms=runtime_ms,
+                divergent_draws=list(self._divergent_draws[c]),
+            )
+            for c in range(self._n_chains)
+        ]
+        self._progress = progress
+        for h in self._handlers:
+            h.update(progress)
+
+    # --------------------------------------------------------------- assembly
+
+    def _attrs(self) -> dict:
+        return {
+            "inference_library": "nutpie_tpu_torch",
+            "inference_library_version": _version,
+            "inference_library_settings": self._settings.as_json(),
+        }
+
+    def _collect(self) -> Optional[dict]:
+        with self._lock:
+            if not self._chunks:
+                return None
+            chunks = list(self._chunks)
+        cat = lambda key: {k: np.concatenate([c[key][k] for c in chunks], axis=1)
+                           for k in chunks[0][key]}
+        return {
+            "position": np.concatenate([c["position"] for c in chunks], axis=1),
+            "stats": cat("stats"),
+            "expanded": cat("expanded"),
+        }
+
+    def _extract(self, raw: Optional[dict]):
+        if self._return_raw_trace and raw is not None:
+            return raw
+        if self._zarr_store is not None and not self._return_raw_trace \
+                and self._draws_done > 0:
+            # a store-backed trace: arrays load from the store on access
+            return open_zarr_trace(self._zarr_store)
+        if raw is None:
+            raise RuntimeError("No draws were produced")
+        model = self._model
+        dims_map = {v.name: tuple(v.dims or ()) for v in model.expanded_variables}
+        coords = dict(model.coords)
+        coords.update(self._compiled_model.coords)
+        coords["unconstrained_parameter"] = np.asarray(
+            model.unconstrained_labels, dtype=object
+        )
+        unconstrained = None
+        if self._store_unconstrained:
+            unconstrained = {}
+            for v in model.param_variables:
+                arr = raw["position"][:, :, v.start_idx : v.end_idx]
+                unconstrained[v.name] = arr.reshape(arr.shape[:2] + v.shape)
+                dims_map.setdefault(v.name, tuple(v.dims or ()))
+        return assemble_trace(
+            expanded=raw["expanded"],
+            stats=raw["stats"],
+            unconstrained=unconstrained,
+            num_tune=max(0, self._num_tune - self._resume_offset),
+            save_warmup=self._save_warmup,
+            dims_map=dims_map,
+            coords=coords,
+            attrs=self._attrs(),
+            reparameterized_names=tuple(model.reparameterized_names),
+        )
+
+    # ---------------------------------------------------------------- control
+
+    def wait(self, timeout: Optional[float] = None):
+        """Block until sampling finishes and return the trace.
+
+        Raises ``TimeoutError`` if ``timeout`` (seconds) elapses first, and
+        re-raises an error of the sampling thread.
+        """
+        self._finished_evt.wait(timeout)
+        if not self._finished_evt.is_set():
+            raise TimeoutError("Sampling did not finish within the timeout")
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self._extract(self._collect())
+
+    def pause(self):
+        """Pause the sampler (at the next chunk boundary)."""
+        self._pause_evt.set()
+
+    def resume(self):
+        """Resume a paused sampler."""
+        self._pause_evt.clear()
+
+    def abort(self):
+        """Abort sampling and return the partial trace (None if no draws)."""
+        self._abort_evt.set()
+        self._pause_evt.clear()
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        raw = self._collect()
+        if raw is None and (self._zarr_store is None or self._draws_done == 0):
+            return None
+        return self._extract(raw)
+
+    def cancel(self):
+        """Abort sampling and discard all draws."""
+        self._abort_evt.set()
+        self._pause_evt.clear()
+        self._thread.join()
+
+    def inspect(self):
+        """Snapshot the current partial trace while sampling continues."""
+        return self._extract(self._collect())
+
+    @property
+    def is_finished(self) -> bool:
+        return self._finished_evt.is_set()
+
+    @property
+    def transfer(self) -> Optional[ChunkTransfer]:
+        """The run's device-to-host copies (pinned bytes, allocation and
+        wait seconds), once the loop has started."""
+        return self._transfer
+
+    def __del__(self):
+        try:
+            self._abort_evt.set()
+            self._pause_evt.clear()
+        except Exception:
+            pass
 
 
 def sample(
@@ -312,24 +705,23 @@ def sample(
     """Sample the posterior of a compiled model.
 
     Parameters mirror ``nutpie_tpu.sample``; ``cores`` is ignored (chains
-    run batched on the device) and ``progress_bar`` draws nothing in this
-    slice.  Extra keyword settings include ``precision``, ``chunk_size``,
-    ``pool_mass_matrix`` and ``pool_step_size``.  ``device`` defaults to
-    CUDA.  Not yet ported (each raises ``NotImplementedError``):
-    non-blocking runs and progress callbacks, Zarr storage, checkpoints,
-    MCLMC and flow adaptation.  ``store_transformed`` stores nothing
-    without flow adaptation, as in the JAX package.
+    run batched on the device).  Every call runs in a background thread
+    (``_BackgroundSampler``): ``blocking=False`` returns its handle
+    (``wait``, ``pause``, ``resume``, ``abort``, ``cancel``, ``inspect``,
+    ``is_finished``); otherwise the call waits for the trace, and
+    ``KeyboardInterrupt`` aborts with the partial trace.  Progress goes to
+    ``progress_callback`` and, with ``progress_bar``, to a terminal bar on
+    stderr (HTML in Jupyter or marimo).  ``zarr_store`` streams the trace
+    into a Zarr store (``zarr_store.LocalStore``, or any store with a
+    transport) and returns a trace backed by it; ``checkpoint`` saves the
+    chains' state every ``checkpoint_every`` chunks and at the end, and
+    ``resume_from`` continues from such a file.  Extra keyword settings
+    include ``precision``, ``chunk_size``, ``pool_mass_matrix`` and
+    ``pool_step_size``.  ``device`` defaults to CUDA.  MCLMC and flow
+    adaptation are not ported yet (each raises ``NotImplementedError``).
+    ``store_transformed`` stores nothing without flow adaptation, as in the
+    JAX package.
     """
-    if not blocking or progress_callback is not None or progress_template \
-            or progress_style:
-        raise NotImplementedError(
-            f"non-blocking runs and progress rendering: {_CONTROL_ITEM}"
-        )
-    if zarr_store is not None:
-        raise NotImplementedError(f"zarr_store: {_STORAGE_ITEM}")
-    if checkpoint is not None or resume_from is not None:
-        raise NotImplementedError(f"checkpoint/resume_from: {_CHECKPOINT_ITEM}")
-
     updates = dict(kwargs)
     if "use_grad_based_mass_matrix" in updates:
         if not updates.pop("use_grad_based_mass_matrix"):
@@ -348,64 +740,27 @@ def sample(
     settings.update(updates)
     if store_unconstrained:
         settings.store_unconstrained = True
-    if settings.seed is None:
-        settings.seed = int(np.random.default_rng().integers(0, 2**63 - 1))
-
-    cfg = nuts_config_from_settings(settings)
-    model = compiled_model._make_model(int(settings.seed))
-    runner = route(cfg, model)
-    device = resolve_device(device)
-    dtype = resolve_dtype(settings.precision, device)
     # HMC energies need full-precision products: TF32 would inject O(1e-3)
     # relative error into logp and its gradient (the JAX package forces
     # "highest" matmul precision for the same reason)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if init_mean is None:
-        init_mean = np.zeros(model.ndim)
-    chunks = run_chains(model, cfg, settings, init_mean, dtype, device, runner)
-    raw = {
-        "position": np.concatenate([c["position"] for c in chunks], axis=1),
-        "stats": {k: np.concatenate([c["stats"][k] for c in chunks], axis=1)
-                  for k in chunks[0]["stats"]},
-        "expanded": {k: np.concatenate([c["expanded"][k] for c in chunks], axis=1)
-                     for k in chunks[0]["expanded"]},
-    }
-    if return_raw_trace:
-        return raw
-    return _assemble(compiled_model, model, settings, raw, save_warmup,
-                     store_unconstrained)
-
-
-def _assemble(compiled_model, model: ModelDef, settings, raw: dict,
-              save_warmup: bool, store_unconstrained: bool):
-    dims_map = {v.name: tuple(v.dims or ()) for v in model.expanded_variables}
-    coords = dict(model.coords)
-    coords.update(compiled_model.coords)
-    coords["unconstrained_parameter"] = np.asarray(
-        model.unconstrained_labels, dtype=object
+    background = _BackgroundSampler(
+        compiled_model, settings, init_mean, device=device,
+        progress_bar=progress_bar, progress_callback=progress_callback,
+        save_warmup=save_warmup, return_raw_trace=return_raw_trace,
+        progress_template=progress_template, progress_style=progress_style,
+        progress_rate=progress_rate, store=zarr_store,
+        store_unconstrained=store_unconstrained, checkpoint=checkpoint,
+        checkpoint_every=checkpoint_every, resume_from=resume_from,
     )
-    unconstrained = None
-    if store_unconstrained:
-        unconstrained = {}
-        for v in model.param_variables:
-            arr = raw["position"][:, :, v.start_idx : v.end_idx]
-            unconstrained[v.name] = arr.reshape(arr.shape[:2] + v.shape)
-            dims_map.setdefault(v.name, tuple(v.dims or ()))
-    attrs = {
-        "inference_library": "nutpie_tpu_torch",
-        "inference_library_version": _version,
-        "inference_library_settings": settings.as_json(),
-    }
-    return assemble_trace(
-        expanded=raw["expanded"],
-        stats=raw["stats"],
-        unconstrained=unconstrained,
-        num_tune=settings.num_tune,
-        save_warmup=save_warmup,
-        dims_map=dims_map,
-        coords=coords,
-        attrs=attrs,
-        reparameterized_names=tuple(model.reparameterized_names),
-    )
+    if not blocking:
+        return background
+    try:
+        return background.wait()
+    except KeyboardInterrupt:
+        return background.abort()
+    except BaseException:
+        background.cancel()
+        raise

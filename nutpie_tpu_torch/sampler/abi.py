@@ -140,10 +140,21 @@ def raise_on(lib, code: int, what: str) -> None:
 
 
 def schedule_tensor(chunk_start: int, limit: int, sched: Schedule, device) -> torch.Tensor:
-    """The six int32 schedule scalars, on the device (depth_cap may be a tensor)."""
-    head = torch.tensor(
-        [chunk_start, limit, sched.num_tune, sched.early_end, sched.freeze_start],
-        dtype=torch.int32, device=device,
-    )
-    cap = torch.as_tensor(sched.depth_cap, dtype=torch.int32, device=device).reshape(1)
-    return torch.cat([head, cap])
+    """The six int32 schedule scalars, on the device.
+
+    The host's scalars go up from pinned memory without waiting for the
+    device, and a ``depth_cap`` that is a device tensor (``fleet_depth_cap``)
+    is joined there, so launching a chunk makes no host sync.
+    """
+    device = torch.device(device)
+    cap = sched.depth_cap
+    head = [chunk_start, limit, sched.num_tune, sched.early_end, sched.freeze_start]
+    if not isinstance(cap, torch.Tensor):
+        head.append(int(cap))
+    host = torch.tensor(head, dtype=torch.int32)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    out = host.to(device, non_blocking=True)
+    if isinstance(cap, torch.Tensor):
+        out = torch.cat([out, cap.to(device=device, dtype=torch.int32).reshape(1)])
+    return out

@@ -199,16 +199,19 @@ def fleet_depth_cap(cfg: NutsConfig, bufs, limit: int) -> torch.Tensor:
     """Fleet-relative tree-depth cap from one warmup chunk's step counts.
 
     ``ceil(log2(factor * median steps/draw))`` clipped to ``[4, maxdepth]``,
-    a 0-d int32 tensor on the buffers' device (no host round trip).
+    the median over the chunk's non-NaN step counts averaging the two middle
+    values (``2**30`` where there is none), as ``jnp.nanmedian`` in the JAX
+    package.  A 0-d int32 tensor on the buffers' device, computed there
+    without a host round trip: the counts are sorted with NaN last and the
+    middle ones gathered at indices taken from the device's count.
     """
     ns = bufs.scalars[:, :limit, SCALAR_SLOTS["n_steps"]].reshape(-1)
-    ns = ns[~torch.isnan(ns)]
-    if ns.numel():
-        med = _median(ns)
-        med = torch.where(torch.isfinite(med), med, torch.full_like(med, 2.0 ** 30))
-    else:
-        med = torch.tensor(2.0 ** 30, dtype=bufs.scalars.dtype,
-                           device=bufs.scalars.device)
+    s, _ = torch.sort(ns)  # NaN sorts last
+    n = (~torch.isnan(ns)).sum().reshape(1)
+    lo = torch.clamp((n - 1) // 2, min=0)
+    med = 0.5 * (torch.gather(s, 0, lo) + torch.gather(s, 0, n // 2))
+    med = torch.where((n > 0) & torch.isfinite(med), med,
+                      torch.full_like(med, 2.0 ** 30)).reshape(())
     return torch.clamp(
         _ceil_log2(cfg.depth_cap_factor * torch.clamp(med, min=1.0)), 4, cfg.maxdepth
     )
@@ -241,7 +244,9 @@ def rescue_trapped(states: NutsMachineState, chunk_start: int, limit: int,
     donor = torch.argsort(logp, stable=True)[n_chains // 2]
 
     def teleport(leaf):
-        return where(trapped, leaf[donor][None].expand_as(leaf), leaf)
+        # index_select with the device index: indexing by a 0-d tensor
+        # would read it on the host
+        return where(trapped, leaf.index_select(0, donor.reshape(1)).expand_as(leaf), leaf)
 
     names = ("vecs", "flts", "adapt_vecs", "adapt_flts", "lr_basis", "lr_log_eigs")
     return states.replace(**{name: teleport(t) for name, t in states.tensors().items()

@@ -481,7 +481,9 @@ class StepGraph:
         side.wait_stream(torch.cuda.current_stream(self.device))
         before = self.owner.captured
         with torch.cuda.device(self.device), torch.cuda.stream(side):
-            self.graph.capture_begin(pool=pool)
+            # thread-local: CUDA work of another thread (the caller of a
+            # non-blocking sample()) neither breaks nor joins the capture
+            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 fn()
             finally:

@@ -1,7 +1,9 @@
 """The torch port stands alone and never falls back.
 
 - No module of ``nutpie_tpu_torch`` imports ``jax`` or ``nutpie_tpu``
-  (AST scan), and a CPU sample in a fresh interpreter loads neither.
+  (AST scan), and a fresh interpreter that imports every module of the
+  package and runs a CPU sample in the background with progress, Zarr
+  storage and a checkpoint loads neither.
 - ``sample(device="cuda")`` without CUDA raises instead of running on the
   CPU; configurations neither CUDA kernel runs raise
   ``NotImplementedError`` before anything runs, and a model without a
@@ -59,23 +61,33 @@ def test_no_jax_or_reference_imports():
                 if root in ("jax", "jaxlib", "nutpie_tpu"):
                     offenders.append(f"{path.relative_to(REPO)}: {name}")
     assert not offenders, offenders
-    assert len(list(PKG.rglob("*.py"))) >= 15
+    scanned = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"progress.py", "checkpoint.py", "zarr_store.py", "storage/native.py",
+            "storage/sink.py", "storage/stores.py", "storage/transport.py",
+            "storage/zarr_writer.py"} <= scanned, scanned
+    assert len(scanned) >= 24
 
 
-def test_cpu_sample_loads_no_jax():
+def test_cpu_sample_loads_no_jax(tmp_path):
     code = (
-        "import sys, torch\n"
+        "import importlib, pkgutil, sys, torch\n"
         "torch.set_num_threads(1)\n"
         "import nutpie_tpu_torch as nt\n"
+        "for mod in pkgutil.walk_packages(nt.__path__, 'nutpie_tpu_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "from nutpie_tpu_torch.storage.stores import MemoryStore\n"
         "m = nt.from_pyfunc(2, lambda: (lambda x: -0.5 * torch.sum(x * x, dim=1)))\n"
-        "tr = nt.sample(m, chains=2, tune=10, draws=10, seed=1, device='cpu')\n"
+        "h = nt.sample(m, chains=2, tune=10, draws=10, seed=1, device='cpu', blocking=False,\n"
+        "              progress_bar=False, progress_callback=lambda p: None,\n"
+        "              zarr_store=MemoryStore(), checkpoint=sys.argv[1])\n"
+        "tr = h.wait(timeout=200)\n"
         "assert tr.posterior['x'].shape == (2, 10, 2)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'nutpie_tpu'))\n"
         "print('LOADED', bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env=env, timeout=300, cwd=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "state.npz")],
+                         capture_output=True, text=True, env=env, timeout=300, cwd=str(REPO))
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
 
@@ -138,11 +150,20 @@ def test_model_without_kernel_raises_on_card_path():
 
 
 def test_unported_options_raise():
+    """The refusals that remain, each naming its ROADMAP item: the MCLMC
+    sampler, flow adaptation and a fixed mass matrix (which only flow
+    reaches through ``sample``, so it is asked of the route)."""
+    from nutpie_tpu_torch.sample import route
+
     m = compile_model_def(radon())
-    for kwargs in (dict(blocking=False), dict(zarr_store=object()),
-                   dict(checkpoint="x"), dict(progress_callback=print)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kwargs, item in ((dict(sampler="mclmc"), "MCLMC"),
+                         (dict(adaptation="flow"), "flow adaptation")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1: {item}"):
             nutpie_tpu_torch.sample(m, chains=2, tune=2, draws=2, device="cpu", **kwargs)
+    cfg = NutsConfig(adapt=AdaptConfig(num_tune=8, update_mass_matrix=False))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1: a fixed mass matrix on the card"):
+        route(cfg, radon())
 
 
 def test_launches_stay_zero_on_cpu_tensors():
