@@ -8,10 +8,11 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases (each prints one JSON line):
 
 1. ``build``: torch version, the card's name and power limit, and the
-   build of the chunk kernel (``nutpie_tpu_torch/csrc/megakernel.cu``) and
-   the step kernel (``csrc/step_kernel.cu``) from the sources in the
-   checkout with ``nvcc``, one process each, together; their registers
-   and spill bytes (any spill of either in either dtype fails), and the
+   build of the chunk kernel (``nutpie_tpu_torch/csrc/megakernel.cu``), the
+   step kernel (``csrc/step_kernel.cu``) and the MCLMC kernel
+   (``csrc/mclmc.cu``) from the sources in the checkout with ``nvcc``, one
+   process each, together; their registers and spill bytes (any spill of
+   K1 or K2 in either dtype fails, and of K3 in float32), and the
    step kernel's low-rank plan at the low-rank path's shapes in both
    dtypes, whose shared memory must be what the kernel lays out.
 2. ``parity``: the kernel against its plain torch version on the card, on
@@ -108,7 +109,7 @@ from a CUDA graph) at the logistic GLM's width from ``bench_glm.py``
    CUDA graphs at ``unroll`` 1, 4, 8 and 16 (host wall, and the machine
    steps each ran).  Then the
    same for K2's low-rank branch at the low-rank path's shapes (below):
-   one frozen 16-draw chunk of the float32 parity fleet, K2 with R = 32
+   one frozen 8-draw chunk of the float32 parity fleet, K2 with R = 32
    and with R = 0 (the same fleet without its metric), the logp+grad
    call by CUDA events (and over the first ``LR_DEVICE_STEPS`` steps by
    device time under ``torch.profiler``, reported beside them), the plain
@@ -132,11 +133,11 @@ BASELINE's 1000-d target) at 1024 chains, max_rank 32, chunk 80:
     this target keeps none (the branch's arithmetic on an all-padded
     metric); dim 500, R 32 (staged by TMA); dim 33, R 5 with two slots
     padded (660 bytes a basis, not 16-byte aligned: staged by loads).  Each
-    runs a warmup window from draw 0 (8 draws; 4 for the last two, whose
-    trees stop at depth 6; ints, step counts and Welford counts exact,
-    floats to 1e-3), then a frozen chunk (16 draws; 8 for the last two)
-    (ints exact, floats and the stored gradients to rtol 1e-6 / atol
-    1e-8).  Float32 at the main shapes, one frozen 16-draw chunk: at least
+    runs a warmup window from draw 0 (4 draws; the last two's trees stop
+    at depth 6; ints, step counts and Welford counts exact, floats to
+    1e-3), then a frozen chunk (8 draws) (ints exact, floats and the
+    stored gradients to rtol 1e-6 / atol 1e-8).  Float32 at the main
+    shapes, one frozen 8-draw chunk: at least
     99.9% of step counts equal and 99% of draws within 1e-3 (relative to 1
     + abs x).
 11. ``lowrank``: ``sample(adaptation="low_rank")``, 1024 chains x (300
@@ -157,11 +158,60 @@ BASELINE's 1000-d target) at 1024 chains, max_rank 32, chunk 80:
     (boundary updates at draws 2, 4 and 6): K2, the matrix products,
     the boundary's QR and eigendecompositions, copies and idle.
 
+MCLMC and the microcanonical kinetic (the MCLMC kernel K3,
+``csrc/mclmc.cu``: a ``begin`` launch a chunk, then a ``kick`` after each
+step's midpoint log density and a ``settle`` after its end's, one draw's
+launches captured in a CUDA graph and replayed; and K2's MICRO
+instantiations for NUTS with ``microcanonical_trajectory=True``):
+
+12a. ``mclmc_parity``: K3 against its plain version
+    (``mclmc.PlainMclmcSteps``) on the card.  Float64 on the GLM at full
+    width, 64 chains, under a 16-draw tuning schedule with early switches
+    every 4 draws (``MCLMC_CASES``: each trajectory kind, three steps a
+    draw, a forced divergence at ``max_energy_error`` 0.05): an 8-draw
+    warmup window from draw 0 across the switch at draw 3 (ints and
+    ``diverging`` exact, floats to rtol 1e-3), the kernel's own run to the
+    end of tuning, then a 16-draw frozen chunk (ints and ``diverging``
+    exact, floats to rtol 1e-6 / atol 1e-8).  Float64 low-rank at the
+    Gaussian's shapes (dim 1000, R 32, 16 chains, a frozen chunk).
+    Float32 at the GLM's main shapes, one frozen 32-draw chunk: at least
+    99.9% of ``diverging`` flags equal and 99% of draws within 1e-3
+    (relative to 1 + abs x); the same chunk replayed from its graph
+    bitwise equal to its launches made one by one.
+12b. ``mclmc``: ``sample(sampler="mclmc")`` on the GLM, 10,240 chains x
+    (``MCLMC_GLM_TUNE`` 1200 + 300; see there why 1200), chunk 32, float32,
+    seed 42: K3 launched exactly once a
+    chunk and twice a step (every draw from a graph replay), K1 and K2
+    never; the glm phase's posterior bars.  Then ``adaptation="low_rank"``
+    on ``tests/test_mclmc.py``'s correlated Gaussian (dim 8, factor 40) at
+    1024 chains with its variance-ratio bar [0.5, 1.5]; then low-rank
+    MCLMC on the 1000-d Gaussian, 1024 chains x (300 + 100), cutoff
+    ``LR_CUTOFF``: after the boundary updates at least 90% of chains keep
+    a slot; its variance ratios and R-hat are readings.
+12c. ``micro``: K2's microcanonical instantiations against the plain
+    halves: float64 on the GLM (64 chains; a ``MICRO_GLM_WARM``-draw
+    warmup window, see there, and an 8-draw frozen chunk, with the CPU's
+    plain version over the window beside; a second warmup window of
+    ``MICRO_GLM_LATE_WARM`` draws from draw ``MICRO_GLM_LATE``, where the
+    trees have left the depth cap, its integers held and its floats read,
+    see there), the low-rank cases dim 33 at R
+    5 and dim 1000 at R 32 (``MICRO_LR_CASES``) and radon through the step
+    route (16 chains), at the parity bars; float32 shares at the GLM's
+    main shapes, from the step_parity phase's warmed fleet.
+    Then ``sample(microcanonical_trajectory=True)`` on the GLM, 10,240 x
+    (300 + ``MICRO_GLM_DRAWS``): K2 launched once a chunk and once a
+    machine step, K1 and K3 never, the glm phase's posterior bars, and
+    posterior divergences below 1%.
+    ``step_timing`` then times K3's kick and settle per step (CUDA events
+    and device time) at the GLM's main shapes and the low-rank Gaussian's,
+    beside its byte bound (``mclmc_bytes``) and its plain pieces, and K2's
+    micro ``advance`` at the GLM's.
+
 The options path (every NUTS step-size and depth option and the
 divergence rows on the card):
 
 12. ``options_parity``: each kernel against its plain version with the
-    options on, float64, 16 chains, maxdepth 6, an 8-draw warmup window then an 8-draw
+    options on, float64, 16 chains, maxdepth 6, a 4-draw warmup window then a 4-draw
     frozen chunk at the parity bars: K1 on radon under Adam, a fixed step,
     a target integration time with an extra doubling, and the four
     settings of ``SETTINGS``; K2 on the GLM under Adam, a fixed step and a
@@ -222,8 +272,9 @@ Every phase that reads split R-hat and bulk ESS (``column_diagnostics``)
 also computes them on the card with ``diagnostics_device`` and holds
 them to the host's to rtol ``DIAG_RTOL``.
 
-Then the script's seconds, the kernels line (K1, and K2 with its
-low-rank branch), the card line, and the last line
+Then the script's seconds, the kernels line (K1; K2 with its low-rank
+branch and its microcanonical instantiations; K3), the card line, and the
+last line
 
 ``{"ok": true, "device": {...}}``.  Every phase runs even after one
 fails; any failed phase makes the script exit non-zero with no result
@@ -235,6 +286,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -251,12 +303,16 @@ CHAINS, TUNE, DRAWS, CHUNK = 2048, 300, 300, 128
 # 300; draw 384 is a chunk boundary of radon's run (128) and the GLM's (32)
 RESUME_DRAWS = 84
 # the control phase's Zarr run: the main configuration with its posterior
-# cut to 100 draws and no warmup stored.  The layout (the JAX package's) is
+# cut to 50 draws and no warmup stored.  The layout (the JAX package's) is
 # one file per chain, array and 16 draws: the main run's 600 draws would be
 # 1.7 M files, and a first cut to 128 posterior draws (311 k files) took 194
 # s to read back twice; 100 posterior draws over two device chunks (84 + 16
-# rows, re-buffered across them) are 272 k files
-ZARR_DRAWS = 100
+# rows, re-buffered across them), 272 k files, took 20.37 s to write and
+# 44.47 s to read back (chip_smoke, PR 8).  Cut to 50 when the MCLMC and
+# microcanonical phases joined the script (its time limit): the draws lie in
+# one device chunk, and the last Zarr chunk (2 draws) is still flushed
+# partial
+ZARR_DRAWS = 50
 # 8 draws a parity chunk keep the whole run near ten minutes
 PARITY_CHAINS, PARITY_CHUNK = 64, 8
 # a chain count that divides neither the chains per block nor the card's
@@ -319,8 +375,10 @@ GLM_N_DATA, GLM_DIM = 2048, 64
 GLM_MONITORED = list(range(0, GLM_DIM, max(1, GLM_DIM // 24)))
 # the GLM profile's cut of tune and draws (the trace of every launch of the
 # whole path would be too large, and the profiler's processing grows with
-# its events: 64 + 64 until the low-rank path joined the script)
-GLM_PROFILE_TUNE, GLM_PROFILE_DRAWS = 32, 32
+# its events: 64 + 64 until the low-rank path joined the script, 32 + 32
+# until the MCLMC and microcanonical phases did); the control phase's busy
+# caller runs the same cut
+GLM_PROFILE_TUNE, GLM_PROFILE_DRAWS = 16, 16
 STEP_PARITY_CHAINS, ILL_DIM, ILL_CHAINS = 64, 1000, 16
 # posterior means of the GLM against the Laplace approximation, in
 # posterior sd: catches a wrong gradient, not a subtle bias
@@ -367,14 +425,18 @@ LR_PARITY_CHAINS, LR_WINDOW, LR_CUTOFF_ALL = 16, 80, 1.0 + 1e-6
 # at rank 5, whose 660-byte bases are not 16-byte aligned and stage by
 # loads, with two slots padded.  The last two keep the script's time: their
 # trees stop at depth 6 (every code path of the step still runs: checks,
-# merges, draws ended by a U-turn and by the depth limit) over 4 + 8 draws
+# merges, draws ended by a U-turn and by the depth limit) over 4 + 8 draws.
+# The first two ran 8 + 16 draws until the MCLMC and microcanonical phases
+# joined the script; cut to 4 + 8 for its time limit
 LR_F64_CASES = (
-    ("all_slots", LR_DIM, LR_RANK, LR_CUTOFF_ALL, 0, None, (8, 16)),
-    ("default_cutoff", LR_DIM, LR_RANK, 100.0, 0, None, (8, 16)),
+    ("all_slots", LR_DIM, LR_RANK, LR_CUTOFF_ALL, 0, None, (4, 8)),
+    ("default_cutoff", LR_DIM, LR_RANK, 100.0, 0, None, (4, 8)),
     ("dim500", 500, LR_RANK, LR_CUTOFF_ALL, 0, 6, (4, 8)),
     ("dim33_rank5", 33, 5, LR_CUTOFF_ALL, 2, 6, (4, 8)),
 )
-LR_F32_CHUNK = 16
+# the float32 low-rank parity chunk and the low-rank step timing's chunk
+# (16 draws until PR 9, cut for the script's time limit)
+LR_F32_CHUNK = 8
 # plain machine steps timed at the low-rank shapes (each is a few ms), and
 # the kernel's steps timed by device time under the profiler (reported
 # beside the CUDA-event times the kernels line and its share of bound use)
@@ -495,11 +557,18 @@ def phase_build(ctx):
     from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
     from nutpie_tpu_torch.sampler.step_kernel import DIAG_FORM_TAGS, step_kernel
 
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+
     t0 = time.perf_counter()
-    libs = build.build_all(["megakernel", "step_kernel"])  # one nvcc each, together
+    # one nvcc each, together (K2's float32 and float64 instantiations
+    # in two, its device query in a third)
+    libs = build.build_all(["megakernel", "step_kernel_f32", "step_kernel_f64", "step_device",
+                            "mclmc"])
     lib_path = libs["megakernel"]
     chunk_kernel.library()
-    step_kernel.library()
+    step_kernel.library(torch.float32)
+    step_kernel.library(torch.float64)
+    mclmc_kernel.library()
     seconds = time.perf_counter() - t0
     ctx["card"] = card_line()
     # what was compiled, at the main path's configuration
@@ -523,6 +592,9 @@ def phase_build(ctx):
         plans[name] = dataclasses.asdict(step_kernel.plan(LR_CHAINS, LR_DIM, LR_RANK, dt, DEVICE))
         diag[name] = _diag_plan_reading(step_kernel, k2[name], GLM_CHAINS, GLM_DIM, dt)
     ctx["k2_geometry"], ctx["glm_plan"] = k2, diag
+    k3 = {str(dt).removeprefix("torch."): mclmc_kernel.geometry(dt)
+          for dt in (torch.float32, torch.float64)}
+    ctx["k3_geometry"] = k3
     emit({
         "phase": "build", "torch": torch.__version__,
         "cuda": torch.version.cuda, "card": ctx["card"],
@@ -531,12 +603,19 @@ def phase_build(ctx):
         "build_seconds": round(seconds, 3),
         "geometry": geometry,
         "step_kernel": {
-            "library": os.path.relpath(str(libs["step_kernel"]), ROOT),
+            "library": [os.path.relpath(str(libs[f"step_kernel_{sfx}"]), ROOT)
+                        for sfx in ("f32", "f64")],
             "geometry": k2,
             "low_rank_plan": plans,
             "glm_diag_plan": diag,
         },
+        "mclmc_kernel": {
+            "library": os.path.relpath(str(libs["mclmc"]), ROOT),
+            "geometry": k3,
+        },
     })
+    assert k3["float32"]["local_bytes"] == 0 and k3["float32"]["lr_local_bytes"] == 0, \
+        f"the MCLMC kernel spills in float32: {k3['float32']}"
     for tag in ("float32", "float32_adam"):
         g32 = geometry[tag]
         assert g32["resident_chains_per_sm"] >= 10 and g32["local_bytes_per_thread"] == 0, g32
@@ -606,12 +685,9 @@ def _run_both(model, cfg, sched, states, start, chunk_len, limit, frozen):
     return (s_k, b_k), (s_p, b_p)
 
 
-def _check_warmup_f64(tag, limit, s_k, b_k, s_p, b_p) -> float:
-    """Warmup chunk in float64: integer decisions and Welford counts exact.
-
-    Floats to rtol 1e-3: adaptation feeds rounding differences back
-    through the step size and mass matrix every draw.
-    """
+def _check_warmup_ints(tag, limit, s_k, b_k, s_p, b_p) -> bool:
+    """Warmup chunk: integer decisions, step counts and Welford counts
+    exact."""
     import torch
 
     from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
@@ -624,6 +700,16 @@ def _check_warmup_f64(tag, limit, s_k, b_k, s_p, b_p) -> float:
     for name in ("draws_cur_count", "grads_cur_count", "draws_bg_count", "grads_bg_count"):
         slot = ADAPT_FLT_SLOTS[name]
         assert torch.equal(s_k.adapt_flts[:, slot], s_p.adapt_flts[:, slot]), f"{tag}: {name}"
+    return True
+
+
+def _check_warmup_f64(tag, limit, s_k, b_k, s_p, b_p) -> float:
+    """Warmup chunk in float64: integer decisions and Welford counts exact.
+
+    Floats to rtol 1e-3: adaptation feeds rounding differences back
+    through the step size and mass matrix every draw.
+    """
+    _check_warmup_ints(tag, limit, s_k, b_k, s_p, b_p)
     for name, a, b in (("position", b_k.position[:, :limit], b_p.position[:, :limit]),
                        ("adapt_vecs", s_k.adapt_vecs, s_p.adapt_vecs),
                        ("adapt_flts", s_k.adapt_flts, s_p.adapt_flts)):
@@ -1791,6 +1877,207 @@ def phase_step_timing(ctx):
         "card": ctx["card"],
     })
     lowrank_step_timing(ctx)
+    mclmc_step_timing(ctx)
+
+
+def mclmc_bytes(n_chains: int, draws: int, steps_per_draw: int, dim: int, itemsize: int,
+                rank: int = 0, stored_rows: int = 0) -> dict:
+    """Bytes K3's kicks and settles must move over ``draws`` frozen draws of
+    one chunk (no adaptation), counted from csrc/mclmc.cu as what passes
+    between launches: each input read once and each output written once,
+    however often a launch reads it again, so neither the work row nor the
+    state rows a draw's end writes and the next draw's start reads in the
+    same launch.  A kick reads the gradient, the inverse mass, the velocity
+    and z and writes the velocity and z (6 rows); a settle reads the
+    normals, the velocity, z and the inverse mass and writes the velocity
+    and z (6 rows); a draw's end also reads the gradient and writes the
+    state's position, gradient and velocity, the draw and ``stored_rows``
+    more buffers (5 + stored_rows rows), save that the chunk's last draw
+    starts no next one (no inverse mass read, no velocity or z written).
+    Scalars: a kick reads the draw counter and the step size and writes the
+    kinetic change; a settle reads the log density, the step within the
+    draw and the chain's state and running scalars and writes the last two;
+    a draw's end writes its scalar row; every launch reads the schedule
+    once.  Under a low-rank metric of rank ``rank`` each launch that
+    applies it must read the chain's basis and log eigenvalues once (every
+    kick and every settle but the chunk's last); ``lr_basis_bytes_as_read``
+    counts the basis as the kernel reads it, twice an application (A^T g
+    and A u in a kick, A u in a settle)."""
+    T, row = itemsize, dim * itemsize
+    steps = draws * steps_per_draw
+    state = 3 * 4 + 2 * T + 4 * T + 4                # ints, flts, running, step
+    kick = 6 * row + 4 + T + T
+    settle = 6 * row + T + 2 * state
+    per_draw = (5 + stored_rows) * row + 4 * T
+    last = 3 * row                                    # the chunk's last settle
+    schedule = 6 * 4 * 2 * steps                      # per launch, not per chain
+    out = {"steps": steps, "draws": draws}
+    total = n_chains * (steps * (kick + settle) + draws * per_draw - last) + schedule
+    if rank:
+        metric = (rank * dim + rank) * T
+        total += n_chains * (2 * steps - 1) * metric
+        out["lr_basis_bytes_as_read"] = n_chains * (6 * steps - 2) * rank * dim * T
+    out["bytes"] = total
+    return out
+
+
+def _k3_chunk(cfg, sched, states, start: int, chunk: int, plain: bool = False):
+    """One MCLMC chunk prepared as the runner prepares it: the state's copy,
+    the normals, buffers and scratch, and its pieces (K3's, or the plain
+    version's)."""
+    from nutpie_tpu_torch.sampler.mclmc import (
+        PlainMclmcSteps,
+        draw_normals,
+        init_buffers,
+        init_scratch,
+    )
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+
+    st = states.clone()
+    C, _, dim = st.vecs.shape
+    dtype = st.vecs.dtype
+    normals = draw_normals(st.key, start, chunk, cfg.steps_per_draw, dim, dtype)
+    bufs = init_buffers(cfg, chunk, C, dim, dtype, DEVICE)
+    scratch = init_scratch(C, dim, dtype, DEVICE)
+    args = (cfg, sched, start, chunk, st, normals, bufs, scratch)
+    return st, bufs, PlainMclmcSteps(*args) if plain else mclmc_kernel.chunk(*args)
+
+
+def _k3_timed(model, cfg, sched, states, start: int, draws: int, plain_draws: int) -> dict:
+    """K3's kick and settle and the logp+grad calls per draw (one step a
+    draw) over ``draws`` frozen draws, by CUDA events around each call and
+    by device time under ``torch.profiler``; the plain pieces over
+    ``plain_draws`` draws by CUDA events after a synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    st, bufs, steps = _k3_chunk(cfg, sched, states, start, draws)
+    z = steps.begin(st)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(draws)]
+    torch.cuda.synchronize()
+    for ev in marks:
+        ev[0].record()
+        _, g = model.logp_and_grad(z)
+        ev[1].record()
+        z = steps.kick(st, z, g)
+        ev[2].record()
+        logp, g = model.logp_and_grad(z)
+        ev[3].record()
+        z = steps.settle(st, z, logp, g)
+        ev[4].record()
+    torch.cuda.synchronize()
+    parts = ("logp_grad_mid", "kick", "logp_grad_end", "settle")
+    ms = {p: sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / draws
+          for i, p in enumerate(parts)}
+    # device time
+    dst, _, dsteps = _k3_chunk(cfg, sched, states, start, draws)
+    z = dsteps.begin(dst)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(draws):
+            _, g = model.logp_and_grad(z)
+            z = dsteps.kick(dst, z, g)
+            logp, g = model.logp_and_grad(z)
+            z = dsteps.settle(dst, z, logp, g)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    k3_s = sum(r[0] for r in rows if "mclmc_kick" in r[1] or "mclmc_settle" in r[1])
+    # the plain pieces
+    pst, _, plain = _k3_chunk(cfg, sched, states, start, draws, plain=True)
+    z = plain.begin(pst)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    plain_ms = {"kick": 0.0, "settle": 0.0}
+    for _ in range(plain_draws):
+        _, g = model.logp_and_grad(z)
+        torch.cuda.synchronize()
+        ev[0].record()
+        z = plain.kick(pst, z, g)
+        ev[1].record()
+        logp, g = model.logp_and_grad(z)
+        torch.cuda.synchronize()
+        ev[2].record()
+        z = plain.settle(pst, z, logp, g)
+        ev[3].record()
+        torch.cuda.synchronize()
+        plain_ms["kick"] += ev[0].elapsed_time(ev[1]) / plain_draws
+        plain_ms["settle"] += ev[2].elapsed_time(ev[3]) / plain_draws
+    return {"draws": draws, **{f"{k}_ms": v for k, v in ms.items()},
+            "k3_ms_per_step": ms["kick"] + ms["settle"],
+            "k3_device_ms_per_step": 1e3 * k3_s / draws,
+            "plain_kick_ms": plain_ms["kick"], "plain_settle_ms": plain_ms["settle"],
+            "plain_ms_per_step": plain_ms["kick"] + plain_ms["settle"],
+            "plain_draws": plain_draws}
+
+
+def mclmc_step_timing(ctx):
+    """K3 by the step at the GLM's main shapes and the low-rank Gaussian's,
+    beside its byte bound and its plain version; K2's micro advance at the
+    GLM's."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+
+    out = {}
+    model = _glm_model()
+    cfg, sched = _mclmc_cfg(MCLMC_PARITY_TUNE)
+    states = _mclmc_init(model, cfg, GLM_CHAINS, torch.float32, 43)
+    states = states.replace(ints=states.ints.clone().index_fill_(
+        1, torch.tensor([0], device=DEVICE), MCLMC_PARITY_TUNE))
+    glm = _k3_timed(model, cfg, sched, states, MCLMC_PARITY_TUNE, GLM_CHUNK, 8)
+    work = mclmc_bytes(GLM_CHAINS, GLM_CHUNK, 1, GLM_DIM, 4)
+    glm["bytes_bound_ms_per_step"] = 1e3 * work["bytes"] / PEAK_BYTES / work["steps"]
+    glm["share_of_bound"] = glm["bytes_bound_ms_per_step"] / glm["k3_ms_per_step"]
+    glm["share_of_bound_device"] = glm["bytes_bound_ms_per_step"] / glm["k3_device_ms_per_step"]
+    out["glm"] = {"chains": GLM_CHAINS, "dim": GLM_DIM, **glm}
+    ctx.update(mclmc_ms=glm["k3_ms_per_step"], mclmc_device_ms=glm["k3_device_ms_per_step"],
+               mclmc_plain_ms=glm["plain_ms_per_step"],
+               mclmc_bound_ms=glm["bytes_bound_ms_per_step"])
+    # the low-rank metric at the Gaussian's shapes: K3 does the same work
+    # whatever the metric's values, so every chain takes one random
+    # orthonormal basis of rank 32 (no estimate to wait for)
+    from nutpie_tpu_torch.models import ill_conditioned_gaussian
+    from nutpie_tpu_torch.sampler.nuts import LowRankConfig
+
+    lmodel = ill_conditioned_gaussian(dim=LR_DIM)
+    lcfg, lsched = _mclmc_cfg(MCLMC_PARITY_TUNE, low_rank=LowRankConfig(max_rank=LR_RANK))
+    lstates = _mclmc_init(lmodel, lcfg, LR_CHAINS, torch.float32, 44)
+    gen = torch.Generator(device=DEVICE).manual_seed(44)
+    q, _ = torch.linalg.qr(torch.randn((LR_DIM, LR_RANK), generator=gen, device=DEVICE))
+    lstates = lstates.replace(
+        ints=lstates.ints.clone().index_fill_(1, torch.tensor([0], device=DEVICE),
+                                              MCLMC_PARITY_TUNE),
+        lr_basis=q.expand(LR_CHAINS, LR_DIM, LR_RANK).contiguous(),
+        lr_log_eigs=torch.linspace(-2.0, 2.0, LR_RANK, device=DEVICE).expand(
+            LR_CHAINS, LR_RANK).contiguous())
+    lr = _k3_timed(lmodel, lcfg, lsched, lstates, MCLMC_PARITY_TUNE, 16, 4)
+    lwork = mclmc_bytes(LR_CHAINS, 16, 1, LR_DIM, 4, rank=LR_RANK)
+    lr["bytes_bound_ms_per_step"] = 1e3 * lwork["bytes"] / PEAK_BYTES / lwork["steps"]
+    lr["basis_bytes_as_read_per_step"] = lwork["lr_basis_bytes_as_read"] / lwork["steps"]
+    lr["share_of_bound"] = lr["bytes_bound_ms_per_step"] / lr["k3_ms_per_step"]
+    out["lowrank"] = {"chains": LR_CHAINS, "dim": LR_DIM, "rank": LR_RANK, **lr}
+    ctx["mclmc_lr"] = out["lowrank"]
+    # K2's microcanonical advance at the GLM's main shapes
+    mmodel, mcfg, msched, mstates = ctx["micro_fleet"]
+    ms, n_steps, mbufs = _timed_steps(mmodel, mcfg, msched, mstates, GLM_CHUNK)
+    dev = _device_step_ms(mmodel, mcfg, msched, mstates, GLM_CHUNK, min(n_steps, 64))
+    plain = _plain_step_ms(mmodel, mcfg, msched, mstates, GLM_CHUNK, 16)
+    work = step_bytes(mbufs.scalars, GLM_CHUNK, GLM_CHAINS, n_steps, GLM_DIM,
+                      mstates.ckpt_p.shape[1], 4)
+    # the micro rows: the first half's velocity and its kinetic change,
+    # written by one launch and read by the next, a leapfrog (the second
+    # half writes the new velocity to the edge's momentum row, which
+    # advance_bytes counts)
+    micro_bytes = work["advance_bytes"] + work["leapfrogs"] * (2 * GLM_DIM * 4 + 2 * 4)
+    bound = 1e3 * micro_bytes / PEAK_BYTES / n_steps
+    out["k2_micro"] = {"machine_steps": n_steps, "advance_ms": ms["advance"],
+                       "logp_grad_ms": ms["logp_grad"], "advance_device_ms": dev["advance"],
+                       "plain_advance_ms": plain["advance"],
+                       "bytes_bound_ms_per_step": bound,
+                       "share_of_bound": bound / ms["advance"]}
+    ctx.update(micro_ms=ms["advance"], micro_device_ms=dev["advance"],
+               micro_plain_ms=plain["advance"], micro_bound_ms=bound)
+    emit({"phase": "step_timing_mclmc", **out, "geometry": mclmc_kernel.geometry(torch.float32),
+          "card": ctx["card"]})
 
 
 # ---------------------------------------------------------------- low-rank path
@@ -2166,7 +2453,7 @@ def _bmm_metric_ms(basis, reps: int = 50) -> float:
 
 def lowrank_step_timing(ctx):
     """K2 at the low-rank path's shapes (1024 chains, dim 1000, float32,
-    one frozen 16-draw chunk from the float32 parity fleet) with R = 32 and
+    one frozen 8-draw chunk from the float32 parity fleet) with R = 32 and
     with R = 0 (the same fleet without its low-rank metric), beside the
     logp+grad call, the byte bound, the plain halves and the library
     yardstick of the metric part: two ``torch.bmm`` calls per application
@@ -2247,7 +2534,10 @@ K2_GLM_OPTIONS = {
     "fixed_step": ({}, {"method": 0.05}),
     "target_time": ({"target_time": 0.5, "extra_doublings": 1}, {}),
 }
-OPTIONS_CHAINS, OPTIONS_DRAWS = 16, 8
+# 8 + 8 draws until the MCLMC and microcanonical phases joined the script;
+# cut to 4 + 4 for its time limit (every option's branch still runs in
+# both windows)
+OPTIONS_CHAINS, OPTIONS_DRAWS = 16, 4
 DIV_STATS = ("divergence_start", "divergence_end", "divergence_momentum",
              "divergence_start_gradient")
 # the options phase's fixed step size for radon: the main phase's final
@@ -2332,7 +2622,7 @@ def _init(model, cfg, n_chains, dtype, seed):
 
 def phase_options_parity(ctx):
     """Each kernel against its plain version with the options on (float64,
-    16 chains, maxdepth 6, an 8-draw warmup window then an 8-draw frozen
+    16 chains, maxdepth 6, a 4-draw warmup window then a 4-draw frozen
     chunk): K1 on
     radon in ``K1_OPTIONS``; K2 on the GLM in ``K2_GLM_OPTIONS``, on the
     centered eight schools with the divergence rows (their buffers too)
@@ -2946,6 +3236,618 @@ def phase_control(ctx):
     assert not failed, failed
 
 
+# ---------------------------------------------------------------- MCLMC (K3)
+
+# the MCLMC parity cases (MclmcConfig fields) on the GLM in float64: the
+# three trajectory kinds, three steps a draw, a forced divergence
+MCLMC_CASES = {
+    "microcanonical": {},
+    "euclidean": {"trajectory": "euclidean"},
+    "euclidean_then_microcanonical": {"trajectory": "euclidean_then_microcanonical"},
+    "steps3": {"steps_per_draw": 3},
+    "divergence": {"max_energy_error": 0.05},
+}
+# the parity schedule: 16 tuning draws with early switches every 4 draws
+# (the early phase ends at draw 4), so the 8-draw warmup window from draw 0
+# crosses the switch at draw 3, and the frozen chunk starts at draw 16
+MCLMC_PARITY_TUNE, MCLMC_EARLY_SWITCH = 16, 4
+MCLMC_WARM_DRAWS, MCLMC_FROZEN_DRAWS, MCLMC_F32_DRAWS = 8, 16, 32
+MCLMC_LR_CHAINS = 16
+
+
+def _mclmc_cfg(tune: int, low_rank=None, **fields):
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.mclmc import MclmcConfig
+
+    cfg = MclmcConfig(adapt=AdaptConfig(num_tune=tune, early_switch_freq=MCLMC_EARLY_SWITCH),
+                      low_rank=low_rank, **fields)
+    return cfg, make_schedule(cfg.adapt, tune)
+
+
+def _mclmc_init(model, cfg, n_chains, dtype, seed):
+    import numpy as np
+
+    from nutpie_tpu_torch.sampler.mclmc import init_mclmc_chains
+
+    states, ok = init_mclmc_chains(model, cfg, seed, n_chains, np.zeros(model.ndim), dtype,
+                                   device=DEVICE)
+    assert bool(ok.all()), "chain initialization failed"
+    return states
+
+
+def _k3_eager(model, cfg, sched, states, start: int, chunk: int):
+    """One chunk through K3 with its launches made one by one, no graph,
+    then the runner's low-rank update: (state, buffers)."""
+    from nutpie_tpu_torch.sampler.mclmc import update_low_rank
+
+    st, bufs, steps = _k3_chunk(cfg, sched, states, start, chunk)
+    z = steps.begin(st)
+    for _ in range(chunk * cfg.steps_per_draw):
+        _, g = model.logp_and_grad(z)
+        z = steps.kick(st, z, g)
+        logp, g = model.logp_and_grad(z)
+        z = steps.settle(st, z, logp, g)
+    return update_low_rank(cfg, st, bufs, start, chunk, sched), bufs
+
+
+def _mclmc_both(model, cfg, sched, states, start: int, chunk: int, graph: bool = False):
+    """K3 (launched one by one, or from the runner's graph) and its plain
+    version on one chunk from one state: ((state, buffers) of each)."""
+    from nutpie_tpu_torch.sampler.mclmc import MclmcChunkRunner
+
+    dtype = states.vecs.dtype
+    if graph:
+        k = MclmcChunkRunner(model, cfg, chunk, dtype)(states, start, chunk, sched)
+    else:
+        k = _k3_eager(model, cfg, sched, states, start, chunk)
+    p = MclmcChunkRunner(model, cfg, chunk, dtype, plain=True)(states, start, chunk, sched)
+    return k, p
+
+
+def _check_mclmc(tag, sk, bk, sp, bp, rtol, atol) -> float:
+    """K3 against its plain version: ints, the Welford counts and the
+    divergence flags exact, floats to the given tolerance."""
+    import torch
+
+    assert torch.equal(sk.ints, sp.ints), f"{tag}: ints differ"
+    assert torch.equal(bk.diverging, bp.diverging), f"{tag}: diverging differs"
+    for name, a, b in (("position", bk.position, bp.position),
+                       ("scalars", bk.scalars, bp.scalars),
+                       ("vecs", sk.vecs, sp.vecs), ("flts", sk.flts, sp.flts),
+                       ("adapt_vecs", sk.adapt_vecs, sp.adapt_vecs),
+                       ("adapt_flts", sk.adapt_flts, sp.adapt_flts)):
+        assert_close(f"{tag} {name}", a, b, rtol, atol)
+    for name in ("gradient", "mass_matrix_inv"):
+        if getattr(bk, name) is not None:
+            assert_close(f"{tag} {name}", getattr(bk, name), getattr(bp, name), rtol, atol)
+    return max_abs(bk.position, bp.position)
+
+
+def _mclmc_glm_case(tag: str, fields: dict) -> dict:
+    """One float64 GLM case: the warmup window from draw 0 (rtol 1e-3), the
+    kernel's own run to the end of tuning, then a frozen chunk (rtol 1e-6,
+    atol 1e-8)."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.mclmc import MclmcChunkRunner
+
+    model = _glm_model()
+    cfg, sched = _mclmc_cfg(MCLMC_PARITY_TUNE, **fields)
+    states = _mclmc_init(model, cfg, STEP_PARITY_CHAINS, torch.float64, 5)
+    (sk, bk), (sp, bp) = _mclmc_both(model, cfg, sched, states, 0, MCLMC_WARM_DRAWS)
+    warm = _check_mclmc(f"{tag} warmup", sk, bk, sp, bp, 1e-3, 1e-3)
+    run = MclmcChunkRunner(model, cfg, MCLMC_PARITY_TUNE - MCLMC_WARM_DRAWS, torch.float64)
+    sk, _ = run(sk, MCLMC_WARM_DRAWS, MCLMC_PARITY_TUNE - MCLMC_WARM_DRAWS, sched)
+    (fk, fbk), (fp, fbp) = _mclmc_both(model, cfg, sched, sk, MCLMC_PARITY_TUNE,
+                                       MCLMC_FROZEN_DRAWS)
+    frozen = _check_mclmc(f"{tag} frozen", fk, fbk, fp, fbp, 1e-6, 1e-8)
+    return {"warmup_max_abs": warm, "frozen_max_abs": frozen,
+            "divergences": int(bk.diverging.sum()) + int(fbk.diverging.sum())}
+
+
+def _mclmc_lr_fleet(n_chains: int, dtype, seed: int, cutoff: float, tune: int,
+                    dim: int = LR_DIM):
+    """An MCLMC fleet of the 1000-d Gaussian at exact posterior draws with
+    the diagonal and low-rank estimates of ``_lr_fleet``, past tuning."""
+    import torch
+
+    from nutpie_tpu_torch.models import ill_conditioned_gaussian
+    from nutpie_tpu_torch.sampler.low_rank import estimate_low_rank
+    from nutpie_tpu_torch.sampler.mclmc import M_INT, M_VEC
+    from nutpie_tpu_torch.sampler.nuts import LowRankConfig
+    from nutpie_tpu_torch.sampler.state import ADAPT_VEC_SLOTS
+
+    model = ill_conditioned_gaussian(dim=dim)
+    cfg, sched = _mclmc_cfg(tune, low_rank=LowRankConfig(eigval_cutoff=cutoff,
+                                                         max_rank=LR_RANK))
+    states = _mclmc_init(model, cfg, n_chains, dtype, seed)
+    x, g = _lr_posterior(n_chains, LR_WINDOW + 1, seed, dim)
+    win_x, win_g = x[:, :LR_WINDOW], g[:, :LR_WINDOW]
+    inv_mass = torch.sqrt(win_x.var(dim=1) / win_g.var(dim=1))
+    valid = torch.ones((n_chains, LR_WINDOW), dtype=torch.bool, device=DEVICE)
+    lr = cfg.low_rank
+    metric = estimate_low_rank(win_x, win_g, valid, inv_mass, lr.max_rank, lr.eigval_cutoff,
+                               lr.gamma)
+    pos = x[:, -1].to(dtype)
+    logp, grad = model.logp_and_grad(pos)
+    vecs = states.vecs.clone()
+    vecs[:, M_VEC["position"]] = pos
+    vecs[:, M_VEC["gradient"]] = grad.to(dtype)
+    flts = states.flts.clone()
+    flts[:, 0] = logp.to(dtype)
+    ints = states.ints.clone()
+    ints[:, M_INT["draw_idx"]] = tune
+    adapt_vecs = states.adapt_vecs.clone()
+    adapt_vecs[:, ADAPT_VEC_SLOTS["inv_mass"]] = inv_mass.to(dtype)
+    states = states.replace(vecs=vecs, flts=flts, ints=ints, adapt_vecs=adapt_vecs,
+                            lr_basis=metric.basis.to(dtype).contiguous(),
+                            lr_log_eigs=metric.log_eigs.to(dtype).contiguous())
+    return model, cfg, sched, states
+
+
+def phase_mclmc_parity(ctx):
+    """K3 against its plain version on the card (see the docstring)."""
+    import torch
+
+    failed, out = [], {"glm_f64": {}}
+    for tag, fields in MCLMC_CASES.items():
+        out["glm_f64"][tag] = _held(failed, _mclmc_glm_case, tag, fields)
+    # the low-rank metric at the Gaussian's shapes, a frozen chunk
+    model, cfg, sched, states = _mclmc_lr_fleet(MCLMC_LR_CHAINS, torch.float64, 9,
+                                                LR_CUTOFF_ALL, MCLMC_PARITY_TUNE)
+    (sk, bk), (sp, bp) = _mclmc_both(model, cfg, sched, states, MCLMC_PARITY_TUNE,
+                                     MCLMC_FROZEN_DRAWS)
+    out["lowrank_f64"] = _held(failed, lambda: {"max_abs": _check_mclmc(
+        "lowrank frozen", sk, bk, sp, bp, 1e-6, 1e-8),
+        "divergences": int(bk.diverging.sum())})
+    # float32 at the GLM's main shapes: a fresh fleet past tuning, one
+    # frozen chunk; then the graph's replays against the launches made one
+    # by one, bitwise
+    model = _glm_model()
+    cfg, sched = _mclmc_cfg(MCLMC_PARITY_TUNE)
+    states = _mclmc_init(model, cfg, GLM_CHAINS, torch.float32, 42)
+    states = states.replace(ints=states.ints.clone().index_fill_(
+        1, torch.tensor([0], device=DEVICE), MCLMC_PARITY_TUNE))
+    (sk, bk), (sp, bp) = _mclmc_both(model, cfg, sched, states, MCLMC_PARITY_TUNE,
+                                     MCLMC_F32_DRAWS)
+    pk, pp = bk.position, bp.position
+    f32 = {
+        "share_equal_diverging": float((bk.diverging == bp.diverging).double().mean()),
+        "share_draws_within_tol": float(((pk - pp).abs() <= F32_TOL * (1.0 + pp.abs()))
+                                        .all(-1).double().mean()),
+        "max_rel_diff_position": max_rel(pk, pp),
+        "divergences": int(bk.diverging.sum()),
+    }
+    out["glm_f32"] = f32
+    (gk, gbk), _ = _mclmc_both(model, cfg, sched, states, MCLMC_PARITY_TUNE, MCLMC_F32_DRAWS,
+                               graph=True)
+    replay_bitwise = all(bitwise_equal(a, b) for a, b in (
+        (gbk.position, bk.position), (gbk.scalars, bk.scalars), (gk.vecs, sk.vecs),
+        (gk.flts, sk.flts), (gk.ints, sk.ints)))
+    out["graph_replay_bitwise"] = replay_bitwise
+    ctx["mclmc_max_abs_err"] = max(
+        [v["frozen_max_abs"] for v in out["glm_f64"].values() if isinstance(v, dict)
+         and "frozen_max_abs" in v] + [0.0])
+    emit({"phase": "mclmc_parity", **out})
+    if f32["share_equal_diverging"] < F32_MIN_SHARE_STEPS:
+        failed.append(f"float32 diverging share {f32['share_equal_diverging']}")
+    if f32["share_draws_within_tol"] < F32_MIN_SHARE_DRAWS:
+        failed.append(f"float32 draws share {f32['share_draws_within_tol']}")
+    if not replay_bitwise:
+        failed.append("graph replay not bitwise the launches one by one")
+    assert not failed, failed
+
+
+# ------------------------------------------- K2's microcanonical kinetic
+
+# the float64 low-rank cases of K2's microcanonical instantiations (as
+# LR_F64_CASES): dim 33 at rank 5 (staged by loads) and the path's dim
+# 1000 at rank 32 (streamed), trees to depth 6
+MICRO_LR_CASES = (
+    ("dim33_rank5", 33, 5, LR_CUTOFF_ALL, 2, 6, (4, 8)),
+    ("dim1000_rank32", LR_DIM, LR_RANK, LR_CUTOFF_ALL, 0, 6, (2, 4)),
+)
+MICRO_RADON_CHAINS, MICRO_F32_DRAWS = 16, 16
+# the GLM's warmup window from a fresh fleet: the isokinetic trees of the
+# first draws run to the depth cap (255 leapfrogs), over which rounding
+# grows fast: two plain versions that round differently (the card's and
+# the CPU's, read beside the window) part by about 2e-3 in a position over
+# the first 4 draws, and over 8 K2 and the card's plain version parted past
+# the 1e-3 bar in one chain's gradient Welford rows with every tree
+# decision equal, so the window takes 4 draws, as K1's fresh-fleet windows
+# do (WINDOWS)
+MICRO_GLM_WARM = 4
+# a second GLM warmup window later in tuning, where the trees have left the
+# depth cap (3 to 63 leapfrogs a draw from draw 5 on, by the plain version
+# on four chains of the same fleet): K2 carries the fleet to draw
+# MICRO_GLM_LATE, then K2 and the plain halves run MICRO_GLM_LATE_WARM
+# draws from its state, each through the Welford adds and the inverse-mass
+# estimate.  Its integers (tree decisions, step counts, Welford counts) are
+# held exact; its floats are read, not held: from one state nudged by one
+# ulp, the plain version parts from itself past the 1e-3 bar in the
+# gradient Welford rows by the window's 6th draw, with every integer equal
+# (scripts/micro_warmup_sensitivity.py, from draws 24 and 120).  Radon's
+# 8-draw window (below) holds K2's micro Welford and estimate path at the
+# float bars
+MICRO_GLM_LATE, MICRO_GLM_LATE_WARM = 24, 8
+# chains of the warmup window the CPU's plain version also runs (the
+# yardstick: how far two plain versions that round differently part)
+MICRO_YARD_CHAINS = 4
+# the micro phase's sample() run: the GLM with its posterior cut to 100
+# draws, and its posterior divergence bar (tests/test_sample.py:234-235)
+MICRO_GLM_DRAWS, MICRO_MAX_DIV_SHARE = 100, 0.01
+
+
+def _micro_cfg(tune: int, **fields):
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.nuts import NutsConfig
+
+    cfg = NutsConfig(kinetic="microcanonical", adapt=AdaptConfig(num_tune=tune), **fields)
+    return cfg, make_schedule(cfg.adapt, tune, cfg.initial_depth_cap)
+
+
+def _micro_pair(failed, tag, model, cfg, sched, states, n_warm, n_frozen, lowrank=False,
+                yardstick=False):
+    """K2's micro instantiations against the plain halves: a warmup window
+    from draw 0, then a frozen chunk from the kernel's state; with
+    ``yardstick``, the plain version on the CPU against the card's over the
+    warmup window too."""
+    import torch
+
+    (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, states, 0, n_warm, n_warm, False)
+    warm = _held(failed, _check_warmup_f64, f"micro {tag} warmup", n_warm, s_k, b_k, s_p, b_p)
+    yard = None
+    if yardstick:
+        # the CPU's plain version on the first MICRO_YARD_CHAINS chains
+        # (each chain runs on its own: the same draws as in the fleet)
+        from nutpie_tpu_torch.sampler.state import NutsMachineState
+
+        few = NutsMachineState(**{k: v[:MICRO_YARD_CHAINS] for k, v in
+                                  states.tensors().items()})
+        s_few = NutsMachineState(**{k: v[:MICRO_YARD_CHAINS] for k, v in
+                                    s_p.tensors().items()})
+        b_few = b_p._replace(**{k: v[:MICRO_YARD_CHAINS] for k, v in b_p._asdict().items()
+                                if v is not None})
+        yard = _yardstick(n_warm, (s_few, b_few),
+                          _plain_on_cpu(model, cfg, sched, few, 0, n_warm, n_warm, False))
+    (f_k, fb_k), (f_p, fb_p) = _steps_both(model, cfg, sched, s_k, n_warm, n_frozen, n_frozen,
+                                           True)
+    check = _check_lowrank_frozen_f64 if lowrank else _check_frozen_f64
+    frozen = _held(failed, check, f"micro {tag} frozen", f_k, fb_k, f_p, fb_p)
+    return {"warmup": {"draws": n_warm, "max_abs_err_position": warm,
+                       "ints_equal": bool(torch.equal(s_k.ints, s_p.ints)),
+                       **({"plain_card_vs_cpu": yard} if yard else {})},
+            "frozen": {"draws": n_frozen, "max_abs_err_position": frozen,
+                       "ints_equal": bool(torch.equal(f_k.ints, f_p.ints))}}
+
+
+def micro_parity(ctx) -> list:
+    """K2's microcanonical instantiations against the plain halves on the
+    card: float64 on the GLM, the low-rank cases and radon through the step
+    route; float32 shares at the GLM's main shapes."""
+    import dataclasses as dc
+
+    import torch
+
+    from nutpie_tpu_torch.models import radon
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+    from nutpie_tpu_torch.sampler.run import make_chunk_runner
+
+    failed, out = [], {}
+    model = _glm_model()
+    cfg, sched = _micro_cfg(GLM_TUNE)
+    states = _init(model, cfg, STEP_PARITY_CHAINS, torch.float64, 21)
+    out["glm_f64"] = _micro_pair(failed, "GLM", model, cfg, sched, states, MICRO_GLM_WARM, 8,
+                                 yardstick=True)
+    carry = make_chunk_runner(model, cfg, MICRO_GLM_LATE, torch.float64, adapt_frozen=False)
+    late, _ = carry(states, 0, MICRO_GLM_LATE, sched)
+    (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, late, MICRO_GLM_LATE,
+                                         MICRO_GLM_LATE_WARM, MICRO_GLM_LATE_WARM, False)
+    ints_held = _held(failed, _check_warmup_ints, "micro GLM late warmup",
+                      MICRO_GLM_LATE_WARM, s_k, b_k, s_p, b_p)
+    leapfrogs = b_k.scalars[:, :MICRO_GLM_LATE_WARM, SCALAR_SLOTS["n_steps"]]
+    out["glm_f64"]["late_warmup"] = {
+        "from_draw": MICRO_GLM_LATE, "draws": MICRO_GLM_LATE_WARM,
+        "ints_held": bool(ints_held),
+        "max_abs_err_position": max_abs(b_k.position[:, :MICRO_GLM_LATE_WARM],
+                                        b_p.position[:, :MICRO_GLM_LATE_WARM]),
+        "max_abs_err_adapt_vecs": max_abs(s_k.adapt_vecs, s_p.adapt_vecs),
+        "leapfrogs_mean": float(leapfrogs.mean()), "leapfrogs_max": int(leapfrogs.max())}
+    del late, s_k, b_k, s_p, b_p
+    ctx["micro_max_abs_err"] = out["glm_f64"]["frozen"]["max_abs_err_position"]
+    for tag, dim, rank, cutoff, padded, maxdepth, (n_warm, n_frozen) in MICRO_LR_CASES:
+        lmodel, lcfg, lsched, lstates, _ = _lr_fleet(LR_PARITY_CHAINS, torch.float64, 31,
+                                                     cutoff, dim, rank, padded, maxdepth)
+        lcfg = dc.replace(lcfg, kinetic="microcanonical")
+        out[f"lowrank_{tag}"] = _micro_pair(failed, f"low-rank {tag}", lmodel, lcfg, lsched,
+                                            lstates, n_warm, n_frozen, lowrank=True)
+    rmodel = radon()
+    rcfg, rsched = _micro_cfg(TUNE, maxdepth=6)
+    rstates = _init(rmodel, rcfg, MICRO_RADON_CHAINS, torch.float64, 23)
+    out["radon_f64"] = _micro_pair(failed, "radon", rmodel, rcfg, rsched, rstates, 8, 8)
+    # float32 at the GLM's main shapes: the step_parity phase's fleet
+    # warmed through tuning (by the exact-normal kinetic) and one frozen
+    # chunk under the microcanonical one
+    wmodel, wcfg, wsched, warm32 = ctx["glm_warm"]
+    wcfg = dc.replace(wcfg, kinetic="microcanonical")
+    (s_k, b_k), (_, b_p) = _steps_both(wmodel, wcfg, wsched, warm32, GLM_TUNE,
+                                       MICRO_F32_DRAWS, MICRO_F32_DRAWS, True)
+    f32 = _f32_shares(MICRO_F32_DRAWS, s_k, b_k, b_p)
+    out["glm_f32"] = f32
+    # the step timing's fleet: the same, its draw counter at 0 (the timing
+    # helpers run a chunk from draw 0; the adaptation stays frozen)
+    ctx["micro_fleet"] = (wmodel, wcfg, wsched, warm32.replace(
+        ints=warm32.ints.clone().index_fill_(1, torch.tensor([0], device=DEVICE), 0)))
+    emit({"phase": "micro_parity", **out, "failed": failed})
+    if f32["share_equal_n_steps"] < F32_MIN_SHARE_STEPS:
+        failed.append(f"micro float32 n_steps share {f32['share_equal_n_steps']}")
+    if f32["share_draws_within_tol"] < F32_MIN_SHARE_DRAWS:
+        failed.append(f"micro float32 draws share {f32['share_draws_within_tol']}")
+    return failed
+
+
+def _glm_posterior_bars(post) -> dict:
+    """The glm phase's posterior bars on ``post [C, N, dim]`` (float32
+    draws): R-hat over the monitored columns, means against the Laplace
+    mode and the importance-sampled mean.  Returns the readings; the first
+    bar missed raises."""
+    import numpy as np
+
+    from nutpie_tpu_torch.models.analytic import glm_data
+
+    assert np.isfinite(post).all(), "non-finite draws"
+    ess, rhat = column_diagnostics(post, GLM_MONITORED)
+    X, y = glm_data(GLM_N_DATA, GLM_DIM)
+    mode, cov = laplace(X, y)
+    sd = np.sqrt(np.diag(cov))
+    mean = post.reshape(-1, GLM_DIM).mean(axis=0, dtype=np.float64)
+    dev = np.abs(mean - mode) / sd
+    is_mean, _ = importance_mean(X, y, mode, cov)
+    is_dev = np.abs(mean - is_mean) / sd
+    out = {"min_bulk_ess": float(np.min(ess)), "max_rhat": float(max(rhat)),
+           "laplace_max_dev_sd": float(dev.max()), "laplace_tol_sd": LAPLACE_SD_TOL,
+           "importance_mean_max_dev_sd": float(is_dev.max()),
+           "importance_tol_sd": IMPORTANCE_SD_TOL}
+    return out
+
+
+def _assert_glm_bars(r: dict) -> None:
+    assert math.isfinite(r["min_bulk_ess"]) and r["min_bulk_ess"] > 0, r
+    assert r["max_rhat"] < 1.05, f"split R-hat {r['max_rhat']} on a monitored column"
+    assert r["importance_mean_max_dev_sd"] <= IMPORTANCE_SD_TOL, \
+        f"posterior mean {r['importance_mean_max_dev_sd']} sd from the importance-sampled mean"
+    assert r["laplace_max_dev_sd"] <= LAPLACE_SD_TOL, \
+        f"posterior mean {r['laplace_max_dev_sd']} sd from the Laplace mode"
+
+
+# the MCLMC path: the GLM at bench_glm.py's width (as the glm phase); the
+# correlated Gaussian of tests/test_mclmc.py (dim 8, factor 40) under
+# low-rank MCLMC at 1024 chains with tests/test_mclmc.py's tuning and its
+# variance-ratio bar; low-rank MCLMC on the 1000-d Gaussian (1024 chains x
+# (300 + 100), cutoff LR_CUTOFF), whose slots are held and whose variance
+# ratios and R-hat are readings (the reference holds MCLMC on it nowhere)
+MCLMC_CORR_CHAINS, MCLMC_CORR_TUNE, MCLMC_CORR_DRAWS = 1024, 1200, 300
+# the GLM under MCLMC tunes for 1200 draws: one step a draw does not reach
+# this posterior in 300, in the JAX package as in the port
+# (scripts/mclmc_glm_reference.py, CPU, 64 chains, seed 42: max R-hat 8.24
+# and posterior means 8.2 sd from the Laplace mode after 300 tuning draws,
+# both packages; after 1200, R-hat 1.041 and 0.219 sd; the JAX package at
+# 1024 chains after 1200: R-hat 1.030, 0.229 sd from the mode and 0.034 sd
+# from the importance-sampled mean, within the glm phase's bars)
+MCLMC_GLM_TUNE = 1200
+MCLMC_CORR_BAND = (0.5, 1.5)
+MCLMC_LR_TUNE, MCLMC_LR_DRAWS = 300, 100
+
+
+def _k3_launches(chunks: int, draws: int, steps_per_draw: int) -> int:
+    """K3's launches for a run: one begin a chunk, a kick and a settle a step."""
+    return chunks + 2 * steps_per_draw * draws
+
+
+def _zero_all(*kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+        if hasattr(k, "replays"):
+            k.replays = 0
+            k.capture_s = 0.0
+
+
+def _correlated_gaussian(dim: int = 8, factor: float = 40.0, seed: int = 0):
+    """tests/test_mclmc.py:_correlated_gaussian, batched in torch."""
+    import numpy as np
+    import torch
+
+    from nutpie_tpu_torch.model import make_model
+
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((dim, 1))
+    u /= np.linalg.norm(u)
+    cov = np.eye(dim) + factor * (u @ u.T)
+    prec = np.linalg.inv(cov)
+    cache = {}
+
+    def logp(x):
+        key = (x.device, x.dtype)
+        if key not in cache:
+            cache[key] = torch.as_tensor(prec, dtype=x.dtype, device=x.device)
+        return -0.5 * torch.sum((x @ cache[key]) * x, dim=1)
+
+    return make_model(dim, logp, param_vars=[("x", np.float64, (dim,),
+                                              ("unconstrained_parameter",))]), cov
+
+
+def phase_mclmc(ctx):
+    """``sample(sampler="mclmc")`` on the card (see the docstring)."""
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.models import ill_conditioned_gaussian
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    # the GLM: every chunk through K3, no K1 or K2
+    compiled = compile_model_def(_glm_model())
+    torch.cuda.synchronize()
+    _zero_all(mclmc_kernel, step_kernel, chunk_kernel)
+    t0 = time.perf_counter()
+    raw = nt.sample(compiled, sampler="mclmc", progress_bar=False, chains=GLM_CHAINS,
+                    tune=MCLMC_GLM_TUNE, draws=GLM_DRAWS, seed=42, chunk_size=GLM_CHUNK,
+                    precision="float32", device=DEVICE, return_raw_trace=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3, k2, k1 = mclmc_kernel.launches, step_kernel.launches, chunk_kernel.launches
+    total = MCLMC_GLM_TUNE + GLM_DRAWS
+    chunks = math.ceil(total / GLM_CHUNK)
+    want = _k3_launches(chunks, total, 1)
+    assert k1 == 0 and k2 == 0, f"K1 launched {k1}, K2 {k2} times on the MCLMC path"
+    assert k3 == want, f"K3 launched {k3} times, the design gives {want}"
+    assert mclmc_kernel.replays == total, (mclmc_kernel.replays, total)
+    pos = raw["position"]
+    assert pos.shape == (GLM_CHAINS, total, GLM_DIM) and pos.dtype == np.float32, pos.shape
+    n_steps = raw["stats"]["n_steps"]
+    grads = 2 * int(n_steps.astype(np.int64).sum())
+    post = pos[:, MCLMC_GLM_TUNE:]
+    bars = _glm_posterior_bars(post)
+    ctx["mclmc_launches"] = k3
+    ctx["mclmc_graphs"] = {"graph_replays": mclmc_kernel.replays,
+                           "capture_s": mclmc_kernel.capture_s}
+    glm = {"chains": GLM_CHAINS, "tune": MCLMC_GLM_TUNE, "draws": GLM_DRAWS,
+           "chunk_len": GLM_CHUNK,
+           "mclmc_kernel_launches": k3, "step_kernel_launches": k2,
+           "chunk_kernel_launches": k1, "chunks": chunks, **ctx["mclmc_graphs"],
+           "wall_s": wall, "gradients": grads, "grads_per_s": grads / wall,
+           "host_wall_ms_per_step": 1e3 * wall / total,
+           "min_ess_per_s": bars["min_bulk_ess"] / wall,
+           "min_ess_per_grad": bars["min_bulk_ess"] / grads,
+           "posterior_divergences": int(raw["stats"]["diverging"][:, MCLMC_GLM_TUNE:].sum()),
+           "final_step_size_median": float(np.median(raw["stats"]["step_size"][:, -1])),
+           **bars}
+    failed = []
+    _held(failed, _assert_glm_bars, bars)
+
+    # low-rank MCLMC on the correlated Gaussian: tests/test_mclmc.py's bar
+    model_def, cov = _correlated_gaussian()
+    torch.cuda.synchronize()
+    _zero_all(mclmc_kernel)
+    t0 = time.perf_counter()
+    tr = nt.sample(compile_model_def(model_def), sampler="mclmc", adaptation="low_rank",
+                   chains=MCLMC_CORR_CHAINS, tune=MCLMC_CORR_TUNE, draws=MCLMC_CORR_DRAWS,
+                   seed=11, progress_bar=False, device=DEVICE, return_raw_trace=True)
+    torch.cuda.synchronize()
+    x = tr["position"][:, MCLMC_CORR_TUNE:].reshape(-1, 8)
+    ratio = np.var(x.astype(np.float64), axis=0) / np.diag(cov)
+    corr = {"chains": MCLMC_CORR_CHAINS, "tune": MCLMC_CORR_TUNE, "draws": MCLMC_CORR_DRAWS,
+            "wall_s": time.perf_counter() - t0, "launches": mclmc_kernel.launches,
+            "variance_ratio_min": float(ratio.min()), "variance_ratio_max": float(ratio.max()),
+            "band": MCLMC_CORR_BAND}
+    if not (MCLMC_CORR_BAND[0] < ratio.min() and ratio.max() < MCLMC_CORR_BAND[1]):
+        failed.append(f"correlated Gaussian variance ratios {ratio}")
+
+    # low-rank MCLMC on the 1000-d Gaussian: the slots kept after each
+    # boundary update are read
+    import nutpie_tpu_torch.sampler.mclmc as mclmc_module
+
+    updates = []
+    update_low_rank = mclmc_module.update_low_rank
+
+    def read_update(cfg, states, bufs, chunk_start, limit, sched):
+        out = update_low_rank(cfg, states, bufs, chunk_start, limit, sched)
+        if out is not states:
+            kept = (out.lr_log_eigs != 0).sum(dim=1)
+            updates.append({"end": chunk_start + limit,
+                            "chains_with_a_kept_slot": int((kept > 0).sum()),
+                            "mean_kept_slots": float(kept.double().mean())})
+        return out
+
+    model = compile_model_def(ill_conditioned_gaussian(dim=LR_DIM))
+    mclmc_module.update_low_rank = read_update
+    try:
+        torch.cuda.synchronize()
+        _zero_all(mclmc_kernel)
+        t0 = time.perf_counter()
+        raw_lr = nt.sample(model, sampler="mclmc", adaptation="low_rank", chains=LR_CHAINS,
+                           tune=MCLMC_LR_TUNE, draws=MCLMC_LR_DRAWS, seed=42,
+                           progress_bar=False, device=DEVICE, precision="float32",
+                           mass_matrix_eigval_cutoff=LR_CUTOFF, return_raw_trace=True)
+        torch.cuda.synchronize()
+        lr_wall = time.perf_counter() - t0
+    finally:
+        mclmc_module.update_low_rank = update_low_rank
+    x = raw_lr["position"][:, MCLMC_LR_TUNE:]
+    q, eigs = _lr_truth(LR_DIM)
+    var = x.astype(np.float64).reshape(-1, LR_DIM).var(axis=0)
+    ratio = var / np.diag((q * eigs) @ q.T)
+    ess, rhat = column_diagnostics(x, LR_MONITORED)
+    lr = {"chains": LR_CHAINS, "tune": MCLMC_LR_TUNE, "draws": MCLMC_LR_DRAWS,
+          "wall_s": lr_wall, "launches": mclmc_kernel.launches, "eigval_cutoff": LR_CUTOFF,
+          "updates": updates, "max_rhat": float(max(rhat)),
+          "min_bulk_ess": float(np.min(ess)), "variance_ratio_min": float(ratio.min()),
+          "variance_ratio_max": float(ratio.max()),
+          "posterior_divergences": int(raw_lr["stats"]["diverging"][:, MCLMC_LR_TUNE:].sum())}
+    if not updates or updates[-1]["chains_with_a_kept_slot"] < 0.9 * LR_CHAINS:
+        failed.append(f"low-rank MCLMC on the 1000-d Gaussian: slots kept {updates}")
+    emit({"phase": "mclmc", "glm": glm, "correlated_gaussian_low_rank": corr,
+          "gaussian_1000_low_rank": lr, "failed": failed, "card": ctx["card"]})
+    assert not failed, failed
+
+
+def phase_micro(ctx):
+    """K2's microcanonical instantiations: parity, then ``sample(
+    microcanonical_trajectory=True)`` on the GLM (see the docstring)."""
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.run import CUDA_UNROLL
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    failed = micro_parity(ctx)
+    compiled = compile_model_def(_glm_model())
+    torch.cuda.synchronize()
+    _zero_all(mclmc_kernel, step_kernel, chunk_kernel)
+    t0 = time.perf_counter()
+    raw = nt.sample(compiled, progress_bar=False, chains=GLM_CHAINS, tune=GLM_TUNE,
+                    draws=MICRO_GLM_DRAWS, seed=42, chunk_size=GLM_CHUNK,
+                    precision="float32", device=DEVICE, return_raw_trace=True,
+                    microcanonical_trajectory=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, k1, k3 = step_kernel.launches, chunk_kernel.launches, mclmc_kernel.launches
+    n_steps = raw["stats"]["n_steps"]
+    steps = machine_steps(n_steps, GLM_CHUNK, CUDA_UNROLL)
+    chunks = math.ceil((GLM_TUNE + MICRO_GLM_DRAWS) / GLM_CHUNK)
+    assert k1 == 0 and k3 == 0, f"K1 launched {k1}, K3 {k3} times on the micro NUTS path"
+    _assert_step_launches(step_kernel, chunks, steps, CUDA_UNROLL)
+    pos = raw["position"]
+    assert pos.shape == (GLM_CHAINS, GLM_TUNE + MICRO_GLM_DRAWS, GLM_DIM), pos.shape
+    grads = int(n_steps.astype(np.int64).sum())
+    bars = _glm_posterior_bars(pos[:, GLM_TUNE:])
+    div = float(raw["stats"]["diverging"][:, GLM_TUNE:].mean())
+    ctx["micro_launches"] = k2
+    ctx["micro_graphs"] = {"launches_per_machine_step": k2 / steps,
+                           "graph_replays": step_kernel.replays,
+                           "capture_s": step_kernel.capture_s}
+    emit({"phase": "micro", "chains": GLM_CHAINS, "tune": GLM_TUNE,
+          "draws": MICRO_GLM_DRAWS, "chunk_len": GLM_CHUNK, "step_kernel_launches": k2,
+          "chunk_kernel_launches": k1, "mclmc_kernel_launches": k3, "machine_steps": steps,
+          "chunks": chunks, **ctx["micro_graphs"], "wall_s": wall,
+          "host_wall_ms_per_machine_step": 1e3 * wall / steps, "gradients": grads,
+          "grads_per_s": grads / wall, "min_ess_per_s": bars["min_bulk_ess"] / wall,
+          "min_ess_per_grad": bars["min_bulk_ess"] / grads,
+          "posterior_divergence_share": div, "max_divergence_share": MICRO_MAX_DIV_SHARE,
+          **bars, "failed": failed, "card": ctx["card"]})
+    _held(failed, _assert_glm_bars, bars)
+    if div >= MICRO_MAX_DIV_SHARE:
+        failed.append(f"posterior divergence share {div}")
+    assert not failed, failed
+
+
 PHASES = {
     "build": phase_build,
     "parity": phase_parity,
@@ -2954,6 +3856,9 @@ PHASES = {
     "main": phase_main,
     "glm": phase_glm,
     "lowrank": phase_lowrank,
+    "mclmc_parity": phase_mclmc_parity,
+    "mclmc": phase_mclmc,
+    "micro": phase_micro,
     "warmup": phase_warmup,
     "timing": phase_timing,
     "step_timing": phase_step_timing,
@@ -2963,7 +3868,8 @@ PHASES = {
     "profile": phase_profile,
 }
 # phases whose results a later phase reads
-NEEDS = {"timing": ("warmup",), "step_timing": ("step_parity", "lowrank_parity"),
+NEEDS = {"timing": ("warmup",), "micro": ("step_parity",),
+         "step_timing": ("step_parity", "lowrank_parity", "micro"),
          "options_parity": ("warmup", "step_parity"), "options": ("main", "options_parity", "warmup", "step_parity"),
          "control": ("main", "glm")}
 
@@ -2997,7 +3903,7 @@ def main() -> int:
     asked |= {"build"} | {n for p in asked for n in NEEDS.get(p, ())}
     phases = [p for p in PHASES if p in asked]
     # every phase runs, so one call reads them all; any failure fails the run
-    failed, seconds = [], {}
+    failed, seconds, memory = [], {}, {}
     for name in phases:
         t0 = time.perf_counter()
         try:
@@ -3007,15 +3913,23 @@ def main() -> int:
             print(f"chip_smoke: phase {name} failed", file=sys.stderr, flush=True)
             failed.append(name)
         seconds[name] = round(time.perf_counter() - t0, 1)
-    emit({"phase_seconds": seconds, "total_s": round(time.perf_counter() - start, 1)})
+        # what a phase leaves on the card, before and after the garbage
+        # collector and the allocator's cache release (a finished run's
+        # background sampler and its graphs are freed by the collector)
+        memory[name] = [round(torch.cuda.memory_reserved() / 2**30, 2)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        memory[name].append(round(torch.cuda.memory_reserved() / 2**30, 2))
+    emit({"phase_seconds": seconds, "total_s": round(time.perf_counter() - start, 1),
+          "reserved_gib_after_phase": memory})
     if failed:
         print(f"chip_smoke: failed phases {failed}; no result line", file=sys.stderr)
         return 1
 
     full = len(phases) == len(PHASES)
     if full:
+        from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
         from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
-
         from nutpie_tpu_torch.sampler.step_kernel import step_kernel
 
         emit({"kernels": [{
@@ -3070,6 +3984,39 @@ def main() -> int:
                            "a step (the metric part only)",
                 "parity": "ok",
             },
+            "microcanonical": {
+                "shapes": f"{GLM_CHAINS} chains, dim {GLM_DIM}, float32 (the GLM)",
+                "launches": ctx["micro_launches"],
+                **ctx["micro_graphs"],
+                "max_abs_err": ctx["micro_max_abs_err"],
+                "ms": ctx["micro_ms"],
+                "device_ms": ctx["micro_device_ms"],
+                "plain_ms": ctx["micro_plain_ms"],
+                "bound_ms": ctx["micro_bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": None,
+                "parity": "ok",
+            },
+        }, {
+            "name": mclmc_kernel.name,
+            "route": "cuda",
+            "source": mclmc_kernel.source,
+            "replaces": mclmc_kernel.replaces,
+            "launches": ctx["mclmc_launches"],
+            "max_abs_err": ctx["mclmc_max_abs_err"],
+            "ms": ctx["mclmc_ms"],
+            "plain_ms": ctx["mclmc_plain_ms"],
+            "bound_ms": ctx["mclmc_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "ms_per_step": ctx["mclmc_ms"],
+            "device_ms": ctx["mclmc_device_ms"],
+            **ctx["mclmc_graphs"],
+            "geometry": ctx["k3_geometry"]["float32"],
+            "low_rank": {k: ctx["mclmc_lr"][k] for k in (
+                "k3_ms_per_step", "k3_device_ms_per_step", "plain_ms_per_step",
+                "bytes_bound_ms_per_step", "share_of_bound")},
+            "parity": "ok",
         }]})
     print(ctx["card"], flush=True)
     if not full:

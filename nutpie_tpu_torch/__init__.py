@@ -6,7 +6,8 @@ first slice covers the main path: NUTS with the gradient-based diagonal
 mass-matrix adaptation over a fleet of chains on the radon model, where
 every chunk of draws on the card runs through one hand-written CUDA kernel
 (``csrc/megakernel.cu``); every other model runs through the step kernel
-(``csrc/step_kernel.cu``).  On the CPU the same paths run the kernels'
+(``csrc/step_kernel.cu``), and ``sampler="mclmc"`` through the MCLMC
+kernel (``csrc/mclmc.cu``).  On the CPU the same paths run the kernels'
 plain torch versions.  ``sample`` runs in the background with the JAX
 package's control surface, progress, checkpoints and Zarr storage.
 """
@@ -18,7 +19,7 @@ from .frontends.pyfunc import from_pyfunc
 from .model import CompiledModel
 from .progress import ChainProgress
 from .sample import sample
-from .settings import NutsSettings
+from .settings import MclmcSettings, NutsSettings
 
 __all__ = [
     "__version__",
@@ -26,6 +27,7 @@ __all__ = [
     "from_pyfunc",
     "CompiledModel",
     "NutsSettings",
+    "MclmcSettings",
     "ChainProgress",
     "models",
     "zarr_store",

@@ -2,10 +2,10 @@
 
 Every piece of sampler state (positions, the adaptation state, the low-rank
 metric where there is one, the raw Threefry key data, the draw counters) is
-a field of the chains' ``NutsMachineState``, so a checkpoint is one ``.npz``
-file: each field under its own name (``key`` as the raw int64 ``[C, 2]``
-key data it is), the draws done, and the fleet's tree-depth cap that the
-next chunk runs under.  ``sample(..., checkpoint=path)`` saves one at chunk
+a field of the chains' ``NutsMachineState`` (or ``MclmcState``), so a
+checkpoint is one ``.npz`` file: each field under its own name (``key`` as
+the raw int64 ``[C, 2]`` key data it is), the draws done, and under NUTS
+the fleet's tree-depth cap that the next chunk runs under (MCLMC has none).  ``sample(..., checkpoint=path)`` saves one at chunk
 boundaries and at the end; ``sample(..., resume_from=path)`` continues from
 it.
 
@@ -28,21 +28,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .sampler.mclmc import MclmcState
 from .sampler.state import NutsMachineState
 
 _FORMAT_VERSION = 1
 _MANIFEST = "__manifest__"
 
 
-def save_state(path, states: NutsMachineState, draws_done: int, depth_cap,
-               meta: dict) -> None:
-    """Snapshot ``states`` (and the schedule's ``depth_cap``, an int or a
-    0-d tensor) to ``path``, written to a temporary name and renamed."""
+def save_state(path, states, draws_done: int, depth_cap, meta: dict) -> None:
+    """Snapshot ``states`` (a ``NutsMachineState`` or an ``MclmcState``, and
+    the schedule's ``depth_cap``, an int, a 0-d tensor or None) to
+    ``path``, written to a temporary name and renamed."""
     arrays = {name: t.detach().cpu().numpy() for name, t in states.tensors().items()}
     manifest = {
         "format_version": _FORMAT_VERSION,
         "draws_done": int(draws_done),
-        "depth_cap": int(depth_cap),
+        "depth_cap": None if depth_cap is None else int(depth_cap),
         "fields": sorted(arrays),
         "state_class": type(states).__name__,
         "meta": meta,
@@ -55,12 +56,12 @@ def save_state(path, states: NutsMachineState, draws_done: int, depth_cap,
     tmp.replace(path)
 
 
-def load_state(path, template: NutsMachineState):
+def load_state(path, template):
     """Restore a snapshot into the fields, dtypes and device of
     ``template`` (a freshly initialized state with the same settings).
 
-    Shapes must match, which refuses a resume with another model, chain
-    count or configuration.  Returns ``(states, draws_done, depth_cap,
+    Shapes and the state's class must match, which refuses a resume with
+    another model, chain count, sampler or configuration.  Returns ``(states, draws_done, depth_cap,
     meta)``.
     """
     with np.load(Path(path), allow_pickle=False) as data:
@@ -70,7 +71,8 @@ def load_state(path, template: NutsMachineState):
                 f"checkpoint format {manifest['format_version']} not supported"
             )
         fields = template.tensors()
-        if sorted(fields) != manifest["fields"]:
+        if (sorted(fields) != manifest["fields"]
+                or manifest["state_class"] != type(template).__name__):
             raise ValueError(
                 "checkpoint does not match the sampler configuration (fields "
                 f"{manifest['fields']} vs {sorted(fields)})"
@@ -84,5 +86,6 @@ def load_state(path, template: NutsMachineState):
                     f"{tuple(tmpl.shape)} (different model, chain count, or settings?)"
                 )
             restored[name] = torch.as_tensor(arr, device=tmpl.device).to(tmpl.dtype)
-    return (NutsMachineState(**restored), manifest["draws_done"],
+    state_class = {cls.__name__: cls for cls in (NutsMachineState, MclmcState)}
+    return (state_class[manifest["state_class"]](**restored), manifest["draws_done"],
             manifest["depth_cap"], manifest["meta"])

@@ -14,6 +14,15 @@ rows after the 14) and is carried as it is, both ways.
 ``state_from_arrays`` packs such a dict into :class:`NutsMachineState`;
 ``state_to_arrays`` unpacks it again, so both packages can step the same
 state and be compared array by array.
+
+The JAX ``MclmcState`` flattens to ``rng_key``, ``position``,
+``gradient``, ``logp``, ``velocity``, ``draw_idx``, ``log_eps``,
+``total_steps``, ``divergence_count``, ``adapt.inv_mass`` and the four
+Welford accumulators ``adapt.{draws,grads}_{cur,bg}.{mean,m2,count}``
+(the NUTS leaf names, so the same packing serves), and under low-rank
+adaptation ``adapt.metric.basis`` / ``adapt.metric.log_eigs``;
+``mclmc_state_from_arrays`` and ``mclmc_state_to_arrays`` carry it into
+the port's :class:`MclmcState` and back.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .sampler.mclmc import M_FLT, M_INT, M_VEC, MclmcState
 from .sampler.state import (
     ADAPT_FLT_SLOTS,
     ADAPT_VEC_SLOTS,
@@ -52,11 +62,14 @@ METRIC_LEAVES = {"adapt.metric.basis": "lr_basis", "adapt.metric.log_eigs": "lr_
 
 
 def adapt_from_arrays(arrays: dict, device="cpu", dtype=torch.float64):
-    """Pack the ``adapt.*`` leaves into ``(adapt_vecs, adapt_flts)``."""
+    """Pack the ``adapt.*`` leaves into ``(adapt_vecs, adapt_flts)`` (those
+    absent, the step size's under MCLMC, stay 0)."""
     n, dim = np.shape(arrays["adapt.inv_mass"])
     adapt_vecs = torch.zeros((n, N_ADAPT_VEC, dim), dtype=dtype, device=device)
     adapt_flts = torch.zeros((n, N_ADAPT_FLT), dtype=dtype, device=device)
     for name, (kind, slot) in ADAPT_LEAVES.items():
+        if name not in arrays:
+            continue
         value = torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
         (adapt_vecs if kind == "vecs" else adapt_flts)[:, slot] = value
     return adapt_vecs, adapt_flts
@@ -99,6 +112,47 @@ def state_to_arrays(state: NutsMachineState) -> dict:
     for name in STATE_LEAVES:
         out[name] = a(getattr(state, name))
     out.update(adapt_to_arrays(state.adapt_vecs, state.adapt_flts))
+    for leaf, field in METRIC_LEAVES.items():
+        if getattr(state, field) is not None:
+            out[leaf] = a(getattr(state, field))
+    return out
+
+
+# the MCLMC state's welford and metric leaves (the NUTS adaptation's names)
+MCLMC_ADAPT_LEAVES = tuple(name for name in ADAPT_LEAVES
+                           if not name.startswith(("adapt.da.", "adapt.adam.")))
+
+
+def mclmc_state_from_arrays(arrays: dict, device="cpu", dtype=None) -> MclmcState:
+    """Pack the JAX package's flattened ``MclmcState`` into a port state."""
+    pos = np.asarray(arrays["position"])
+    dtype = dtype or (torch.float64 if pos.dtype == np.float64 else torch.float32)
+    t = lambda a, dt=dtype: torch.as_tensor(np.array(a), dtype=dt, device=device)
+    adapt_vecs, adapt_flts = adapt_from_arrays(arrays, device, dtype)
+    metric = {field: t(arrays[leaf]) for leaf, field in METRIC_LEAVES.items()
+              if leaf in arrays}
+    vecs = torch.stack([t(arrays[name]) for name in M_VEC], dim=1)
+    flts = torch.stack([t(arrays[name]) for name in M_FLT], dim=1)
+    ints = torch.stack([t(arrays[name], torch.int32) for name in M_INT], dim=1)
+    return MclmcState(
+        key=t(np.asarray(arrays["rng_key"]).astype(np.int64), torch.int64),
+        vecs=vecs.contiguous(), flts=flts.contiguous(), ints=ints.contiguous(),
+        adapt_vecs=adapt_vecs, adapt_flts=adapt_flts, **metric,
+    )
+
+
+def mclmc_state_to_arrays(state: MclmcState) -> dict:
+    """Unpack a port MCLMC state into the JAX package's flattened leaf names."""
+    a = lambda x: x.detach().cpu().numpy()
+    out = {"rng_key": a(state.key).astype(np.uint32)}
+    for name, row in M_VEC.items():
+        out[name] = a(state.vecs[:, row])
+    for name, slot in M_FLT.items():
+        out[name] = a(state.flts[:, slot])
+    for name, slot in M_INT.items():
+        out[name] = a(state.ints[:, slot])
+    adapt = adapt_to_arrays(state.adapt_vecs, state.adapt_flts)
+    out.update({name: adapt[name] for name in MCLMC_ADAPT_LEAVES})
     for leaf, field in METRIC_LEAVES.items():
         if getattr(state, field) is not None:
             out[leaf] = a(getattr(state, field))

@@ -202,6 +202,9 @@ struct LowRank {
   __device__ __forceinline__ T momentum_factor() const {
     return exp(T(-0.5) * log_eig) - T(1);
   }
+  // (lambda_r^{1/2} - 1), that of A and A^T (the microcanonical kinetic:
+  // A = D^{1/2}(I + U (Lambda^{1/2} - I) U^T))
+  __device__ __forceinline__ T root_factor() const { return exp(T(0.5) * log_eig) - T(1); }
 
   __device__ __forceinline__ int rows(int t) const {
     const int n = dim - t * kTileRows;

@@ -165,6 +165,11 @@ struct StepPtrs {
   void* div_end_out;
   void* div_mom_out;
   void* div_grad_out;
+  // the microcanonical kinetic (micro): the chain's velocity after the
+  // first half-update, then the new point's, and the pulled-back gradient
+  // (low-rank), [C, 2, dim]; the first half-update's kinetic change, [C]
+  void* mc_rows;
+  void* mc_dke;
 };
 
 template <typename T>
@@ -205,6 +210,8 @@ struct StepArgs {
   T* div_end_out;
   T* div_mom_out;
   T* div_grad_out;
+  T* mc_rows;
+  T* mc_dke;
 
   StepArgs(const MkConfig& c, const StepPtrs& p, bool adv)
       : cfg(c), advance(adv ? 1 : 0), scal(p.scal), key(p.key),
@@ -224,7 +231,8 @@ struct StepArgs {
         div_start_out(static_cast<T*>(p.div_start_out)),
         div_end_out(static_cast<T*>(p.div_end_out)),
         div_mom_out(static_cast<T*>(p.div_mom_out)),
-        div_grad_out(static_cast<T*>(p.div_grad_out)) {}
+        div_grad_out(static_cast<T*>(p.div_grad_out)),
+        mc_rows(static_cast<T*>(p.mc_rows)), mc_dke(static_cast<T*>(p.mc_dke)) {}
 
   // The block's view of the low-rank metric (its barriers initialized).
   template <typename G>
@@ -282,13 +290,112 @@ struct NextDrift {
   bool moved = false, valid = false;
 };
 
+// The microcanonical kinetic (MICRO instantiations): the isokinetic
+// velocity update of one chain (isokinetic.py:update_velocity) for time
+// `step`, from the velocity row `u` under the pulled-back gradient gt_of(c)
+// (chunk c), written normalized into the row `out` (which may be `u`);
+// returns the kinetic-energy change.  Three sums in the group's order: the
+// gradient's norm, <u, e>, the new velocity's norm.
+template <typename T, int N, int KC, typename G, typename GT>
+__device__ __forceinline__ T iso_update(const G& g, int dim, const T* u, GT&& gt_of, T* out,
+                                        T step) {
+  using V = Vec<T, N>;
+  const int n_chunks = dim / N;
+  T part[1][N] = {};
+  each_chunk<KC>(g, n_chunks, [&](int, int c) {
+    const V gt = gt_of(c);
+#pragma unroll
+    for (int k = 0; k < N; ++k) part[0][k] += gt[k] * gt[k];
+  });
+  T sum[1];
+  g.sum(part, sum);
+  const T g_norm = jmax(sqrt(sum[0]), T(1e-30));
+#pragma unroll
+  for (int k = 0; k < N; ++k) part[0][k] = T(0);
+  each_chunk<KC>(g, n_chunks, [&](int, int c) {
+    const V gt = gt_of(c), uu = ld<N>(u, c);
+#pragma unroll
+    for (int k = 0; k < N; ++k) part[0][k] += uu[k] * (-gt[k] / g_norm);
+  });
+  g.sum(part, sum);
+  const T ue = sum[0];
+  const T delta = step * g_norm / T(dim - 1);
+  const T ch = cosh(delta);
+  const T sh = sinh(delta);
+  const T denom = ch + ue * sh;
+  const T kk = sh + (ch - T(1)) * ue;
+#pragma unroll
+  for (int k = 0; k < N; ++k) part[0][k] = T(0);
+  each_chunk<KC>(g, n_chunks, [&](int, int c) {
+    const V gt = gt_of(c), uu = ld<N>(u, c);
+    V un;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      un[k] = (uu[k] + (-gt[k] / g_norm) * kk) / denom;
+      part[0][k] += un[k] * un[k];
+    }
+    st<N>(out, c, un);
+  });
+  g.sum(part, sum);
+  const T norm = sqrt(sum[0]);
+  each_chunk<KC>(g, n_chunks, [&](int, int c) {
+    V un = ld<N>(out, c);
+#pragma unroll
+    for (int k = 0; k < N; ++k) un[k] = un[k] / norm;
+    st<N>(out, c, un);
+  });
+  return T(dim - 1) * log(denom);
+}
+
+// The low-rank metric's pulled-back gradient -A^T g = -(w + U c), w = s g,
+// c = (sqrt(L) - 1) (U^T w), of the gradient row `gr` into the row `gt`:
+// two passes over the basis.
+template <typename T, typename G>
+__device__ __forceinline__ void lr_pull_back(const G& g, LowRank<T>& m, int dim, const T* im,
+                                             const T* gr, T* gt) {
+  const int lane = g.lane();
+  T acc[kHalf] = {};
+  m.pass();
+  for (int base = g.warp() * kLanes; base < dim; base += G::kThreads) {
+    const int t = base / kLanes;
+    const int i = base + lane;
+    m.project(m.tile(t), t, i < dim ? sqrt(im[i]) * gr[i] : T(0), acc);
+    m.release(t);
+  }
+  m.pass();
+  m.set_coefficients(g, acc, m.root_factor());
+  for (int base = g.warp() * kLanes; base < dim; base += G::kThreads) {
+    const int t = base / kLanes;
+    const int i = base + lane;
+    const T uc = m.expand(m.tile(t), t, i);
+    m.release(t);
+    if (i < dim) gt[i] = -(sqrt(im[i]) * gr[i] + uc);
+  }
+}
+
+// The velocity the U-turn checks dot with: M^{-1} p under the
+// exact-normal kinetic (the diagonal forms' mi p), p itself under the
+// microcanonical one.
+template <bool MICRO, typename T>
+__device__ __forceinline__ T turn_v(T mi, T p) {
+  if constexpr (MICRO) {
+    return p;
+  } else {
+    return mi * p;
+  }
+}
+
 // Refresh momentum and reset the trajectory for a new draw (start_draw in
 // nuts.py): every state row from the committed position and gradient.
 // Low-rank: p0 = (z + U c) / s (its coefficients in a first pass over the
 // basis), whose velocity coefficients the second pass gathers while it
 // writes the rows, and in a third the velocity v(p0), kept for both edges
 // (ev), and the kinetic energy p0 . v(p0).
-template <typename T, bool LR, int N, int KC, bool DIV, typename G>
+//
+// The microcanonical kinetic (MICRO): p0 = gauss / |gauss|, a unit velocity
+// whose kinetic weight starts at 0, so h0 = -logp; no metric is applied,
+// and under the low-rank metric the kept velocities are p0 itself.
+template <typename T, bool LR, int N, int KC, bool DIV, bool MICRO, typename G>
 __device__ __forceinline__ void start_draw_strided(const G& g, T* fl, int* in,
                                                    const MkConfig& cfg, const Sched& s, T* v,
                                                    const T* im, const T* af, const T* gauss,
@@ -296,7 +403,35 @@ __device__ __forceinline__ void start_draw_strided(const G& g, T* fl, int* in,
   using V = Vec<T, N>;
   const int dim = cfg.dim;
   T ke_part[1][N] = {};
-  if constexpr (LR) {
+  if constexpr (MICRO) {
+    each_chunk<KC>(g, dim / N, [&](int, int c) {
+      const V gs = ld<N>(gauss, c);
+#pragma unroll
+      for (int k = 0; k < N; ++k) ke_part[0][k] += gs[k] * gs[k];
+    });
+    T nn[1];
+    g.sum(ke_part, nn);
+    const T norm = jmax(sqrt(nn[0]), T(1e-30));
+    each_chunk<KC>(g, dim / N, [&](int, int c) {
+      const V gs = ld<N>(gauss, c);
+      const V z = ld<N>(v + V_POSITION * dim, c), gr = ld<N>(v + V_GRADIENT * dim, c);
+      V p0;
+#pragma unroll
+      for (int k = 0; k < N; ++k) p0[k] = gs[k] / norm;
+      reset_rows<N>(v, dim, c, z, p0, gr);
+      if constexpr (DIV) {
+        for (int row = V_DIV_START; row < N_VEC_DIV; ++row) {
+          st<N>(v + row * dim, c, splat<N>(T(NAN)));
+        }
+      }
+      if constexpr (LR) {
+        st<N>(ev, c, p0);
+        st<N>(ev + dim, c, p0);
+      }
+    });
+#pragma unroll
+    for (int k = 0; k < N; ++k) ke_part[0][k] = T(0);
+  } else if constexpr (LR) {
     const int lane = g.lane();
     T acc[kHalf] = {};
     m.use(m.chain);
@@ -370,7 +505,7 @@ __device__ __forceinline__ void start_draw_strided(const G& g, T* fl, int* in,
     eps = eps * (T(1) + T(cfg.step_size_jitter) * (T(2) * jitter_u - T(1)));
   }
   const T logp = fl[F_LOGP];
-  const T h0 = -logp + T(0.5) * ke[0];
+  const T h0 = MICRO ? -logp : -logp + T(0.5) * ke[0];
   fl[F_EPS] = eps;
   fl[F_H0] = h0;
   fl[F_LOGW_TRAJ] = T(0);
@@ -398,7 +533,13 @@ __device__ __forceinline__ void start_draw_strided(const G& g, T* fl, int* in,
 // The second half of a step (leapfrog_finish in nuts.py) of one chain,
 // whose scalars are in `fl` and `in`; a held form leaves in `drift` the
 // next step's drift along the edge it extended.
-template <typename T, bool LR, int N, int KC, bool DIV, bool ADAM, typename G>
+//
+// The microcanonical kinetic (MICRO): the second velocity half-update of
+// the first half's velocity (the chain's first mc row) under the new
+// point's pulled-back gradient gives the new momentum, written over it;
+// the leaf's energy is -logp plus the edge's accumulated kinetic weight
+// (flts ke_plus / ke_minus), and the U-turn checks dot with the momenta.
+template <typename T, bool LR, int N, int KC, bool DIV, bool ADAM, bool MICRO, typename G>
 __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, const G& g,
                                             LowRank<T>& m, T* fl, int* in,
                                             NextDrift<T, N, KC>& drift) {
@@ -439,13 +580,44 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
   T* sg = v + V_SPROP_G * dim;
   T* ve = ev + (fwd ? 1 : 0) * dim;        // LR: the new point's velocity
   const T* v_far = ev + (fwd ? 0 : 1) * dim;
+  // MICRO: the velocity (first half's, then the new point's) and the
+  // pulled-back gradient
+  T* uh = a.mc_rows + size_t(chain) * 2 * dim;
+  T* gtr = uh + dim;
+  T dke2 = T(0);
+  if constexpr (MICRO) {
+    if constexpr (LR) {
+      lr_pull_back(g, m, dim, im, gn, gtr);
+      dke2 = iso_update<T, 1, 0>(g, dim, uh, [&](int c) { return ld<1>(gtr, c); }, uh,
+                                 half_eps);
+    } else {
+      dke2 = iso_update<T, N, KC>(g, dim, uh, [&](int c) {
+        const V gi = ld<N>(gn, c), mi = ld<N>(im, c);
+        V r;
+#pragma unroll
+        for (int k = 0; k < N; ++k) r[k] = -(sqrt(mi[k]) * gi[k]);
+        return r;
+      }, uh, half_eps);
+    }
+  }
 
   // ---------------------------------------------- second half-kick; the
   // extended edge becomes the new point
   T ke_part[1][N] = {};
   // held forms: the new point's z, p, gradient and rho_sub for the pushes
   V z_held[S], p_held[S], g_held[S], rs_held[S];
-  if constexpr (LR) {
+  if constexpr (LR && MICRO) {
+    // the new momentum is its own kept velocity
+    for (int i = g.rank; i < dim; i += G::kThreads) {
+      const T p = uh[i];
+      if constexpr (!DIV) {
+        ze[i] = zn[i];
+        pe[i] = p;
+        ge[i] = gn[i];
+      }
+      ve[i] = p;
+    }
+  } else if constexpr (LR) {
     // v_new = s (w + U c), w = s p_new, kept as the edge's velocity
     const int lane = g.lane();
     T acc[kHalf] = {};
@@ -492,11 +664,15 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
       const V mi = ld<N>(im, c), z = ld<N>(zn, c);
       if constexpr (KC > 0) rs_held[j] = ld<N>(rho_sub, c);
       V p;
+      if constexpr (MICRO) {
+        p = ld<N>(uh, c);
+      } else {
 #pragma unroll
-      for (int k = 0; k < N; ++k) {
-        const T p_half = p_e[k] + half_eps * g_e[k];
-        p[k] = p_half + half_eps * gi[k];
-        ke_part[0][k] += p[k] * (mi[k] * p[k]);
+        for (int k = 0; k < N; ++k) {
+          const T p_half = p_e[k] + half_eps * g_e[k];
+          p[k] = p_half + half_eps * gi[k];
+          ke_part[0][k] += p[k] * (mi[k] * p[k]);
+        }
       }
       // with the divergence rows the edge keeps its old values until the
       // leaf is judged (below)
@@ -511,23 +687,37 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
         g_held[j] = gi;
         // the next step's drift along this edge (the first half's
         // arithmetic on the same values: eps and the inverse mass change
-        // only at a draw's start)
+        // only at a draw's start); MICRO's needs the group's sums
+        if constexpr (!MICRO) {
 #pragma unroll
-        for (int k = 0; k < N; ++k) {
-          const T p_half = p[k] + half_eps * gi[k];
-          drift.z[j][k] = z[k] + eps_s * (mi[k] * p_half);
-          moved = moved || (drift.z[j][k] != z[k]);
+          for (int k = 0; k < N; ++k) {
+            const T p_half = p[k] + half_eps * gi[k];
+            drift.z[j][k] = z[k] + eps_s * (mi[k] * p_half);
+            moved = moved || (drift.z[j][k] != z[k]);
+          }
         }
       }
     });
     drift.moved = moved;
-    drift.valid = KC > 0;
+    drift.valid = KC > 0 && !MICRO;
   }
   T ke[1];
   g.sum(ke_part, ke);
 
   // ---------------------------------------------- leaf processing
-  const T h = -logp_new + T(0.5) * ke[0];
+  T h;
+  if constexpr (MICRO) {
+    // the slots by constant index, so the scalars stay in registers
+    const T ke_edge = ((fwd ? fl[F_KE_PLUS] : fl[F_KE_MINUS]) + a.mc_dke[chain]) + dke2;
+    if (fwd) {
+      fl[F_KE_PLUS] = ke_edge;
+    } else {
+      fl[F_KE_MINUS] = ke_edge;
+    }
+    h = -logp_new + ke_edge;
+  } else {
+    h = -logp_new + T(0.5) * ke[0];
+  }
   const int n = in[I_N_LEAF] + 1;
   const T e_err = h - fl[F_H0];
   const bool finite = isfinite(e_err);
@@ -545,13 +735,17 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
         p = p_held[j];
         gi = g_held[j];
       } else {
-        const V p_e = ld<N>(pe, c), g_e = ld<N>(ge, c);
         z = ld<N>(zn, c);
         gi = ld<N>(gn, c);
+        if constexpr (MICRO) {
+          p = ld<N>(uh, c);
+        } else {
+          const V p_e = ld<N>(pe, c), g_e = ld<N>(ge, c);
 #pragma unroll
-        for (int k = 0; k < N; ++k) {
-          const T p_half = p_e[k] + half_eps * g_e[k];
-          p[k] = p_half + half_eps * gi[k];
+          for (int k = 0; k < N; ++k) {
+            const T p_half = p_e[k] + half_eps * g_e[k];
+            p[k] = p_half + half_eps * gi[k];
+          }
         }
       }
       if (div_leaf) {
@@ -637,8 +831,8 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
 #pragma unroll
           for (int k = 0; k < N; ++k) {
             const T rho_ab = rsn[k] - cs_c[k];
-            part[0][k] += rho_ab * (cp_c[k] * mi[k]);
-            part[1][k] += rho_ab * (mi[k] * p[k]);
+            part[0][k] += rho_ab * (MICRO ? cp_c[k] : cp_c[k] * mi[k]);
+            part[1][k] += rho_ab * turn_v<MICRO>(mi[k], p[k]);
           }
         });
       }
@@ -701,10 +895,10 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
             v_edge_old = cv[(D - 1) * dim + i];
             v_new = ve[i];
           } else {
-            vf = mi[k] * p_f[k];
-            v_first_new = mi[k] * first_new_p[k];
-            v_edge_old = mi[k] * edge_old_p[k];
-            v_new = mi[k] * p[k];
+            vf = turn_v<MICRO>(mi[k], p_f[k]);
+            v_first_new = turn_v<MICRO>(mi[k], first_new_p[k]);
+            v_edge_old = turn_v<MICRO>(mi[k], edge_old_p[k]);
+            v_new = turn_v<MICRO>(mi[k], p[k]);
           }
           const T r2 = r[k] + first_new_p[k];
           const T r3 = rsn[k] + edge_old_p[k];
@@ -817,8 +1011,8 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
     if (!done) {
       const int nidx = idx + 1 > L - 1 ? L - 1 : (idx + 1 < 0 ? 0 : idx + 1);
       const size_t r = size_t(chain) * L + nidx;
-      start_draw_strided<T, LR, N, KC, DIV>(g, fl, in, cfg, s, v, im, af, a.mom + r * dim, a.jit[r],
-                                       m, ev);
+      start_draw_strided<T, LR, N, KC, DIV, MICRO>(g, fl, in, cfg, s, v, im, af, a.mom + r * dim,
+                                                   a.jit[r], m, ev);
     }
   }
 }
@@ -827,7 +1021,11 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
 // whose scalars are in `fl` and `in`: its uniforms, direction, stash,
 // first half-kick and drift into z_new; where the step extends the edge
 // the last one did, the drift `drift` holds (held forms).
-template <typename T, bool LR, int N, int KC, bool DIV, typename G>
+//
+// The microcanonical kinetic (MICRO): the first velocity half-update of the
+// edge's momentum under its pulled-back gradient, into the chain's first mc
+// row (its kinetic change into mc_dke), and the drift along A of it.
+template <typename T, bool LR, int N, int KC, bool DIV, bool MICRO, typename G>
 __device__ __forceinline__ void begin_half(const StepArgs<T>& a, int chain, const G& g,
                                            LowRank<T>& m, const T* fl, int* in,
                                            const NextDrift<T, N, KC>& drift) {
@@ -863,7 +1061,67 @@ __device__ __forceinline__ void begin_half(const StepArgs<T>& a, int chain, cons
   // slot D-1 stashes the old edge momentum for the cross U-turn checks
   T* stash = a.ckpt_p + (size_t(chain) * D + (D - 1)) * dim;
   bool moved = false;
-  if constexpr (LR) {
+  if constexpr (MICRO) {
+    T* uh = a.mc_rows + size_t(chain) * 2 * dim;
+    T* gtr = uh + dim;
+    T dke1;
+    if constexpr (LR) {
+      if (at_start) {
+        const T* ev = a.edge_v + (size_t(chain) * 2 + (fwd ? 1 : 0)) * dim;
+        T* stash_v = a.ckpt_v + (size_t(chain) * D + (D - 1)) * dim;
+        for (int i = g.rank; i < dim; i += G::kThreads) {
+          stash[i] = pe[i];
+          stash_v[i] = ev[i];
+        }
+      }
+      lr_pull_back(g, m, dim, im, ge, gtr);
+      dke1 = iso_update<T, 1, 0>(g, dim, pe, [&](int c) { return ld<1>(gtr, c); }, uh,
+                                 half_eps);
+      // the drift along A u = s (u + U c), c = (sqrt(L) - 1) (U^T u)
+      T acc[kHalf] = {};
+      m.pass();
+      for (int base = g.warp() * kLanes; base < dim; base += G::kThreads) {
+        const int t = base / kLanes;
+        const int i = base + lane;
+        m.project(m.tile(t), t, i < dim ? uh[i] : T(0), acc);
+        m.release(t);
+      }
+      m.pass();
+      m.set_coefficients(g, acc, m.root_factor());
+      for (int base = g.warp() * kLanes; base < dim; base += G::kThreads) {
+        const int t = base / kLanes;
+        const int i = base + lane;
+        const T uc = m.expand(m.tile(t), t, i);
+        m.release(t);
+        if (i < dim) {
+          const T z_e = ze[i];
+          const T z = z_e + eps_s * (sqrt(im[i]) * (uh[i] + uc));
+          zn[i] = z;
+          moved = moved || (z != z_e);
+        }
+      }
+    } else {
+      if (at_start) each_chunk<KC>(g, dim / N, [&](int, int c) { st<N>(stash, c, ld<N>(pe, c)); });
+      dke1 = iso_update<T, N, KC>(g, dim, pe, [&](int c) {
+        const V gi = ld<N>(ge, c), mi = ld<N>(im, c);
+        V r;
+#pragma unroll
+        for (int k = 0; k < N; ++k) r[k] = -(sqrt(mi[k]) * gi[k]);
+        return r;
+      }, uh, half_eps);
+      each_chunk<KC>(g, dim / N, [&](int, int c) {
+        const V z_e = ld<N>(ze, c), u = ld<N>(uh, c), mi = ld<N>(im, c);
+        V z;
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          z[k] = z_e[k] + eps_s * (sqrt(mi[k]) * u[k]);
+          moved = moved || (z[k] != z_e[k]);
+        }
+        st<N>(zn, c, z);
+      });
+    }
+    if (g.leader()) a.mc_dke[chain] = dke1;
+  } else if constexpr (LR) {
     // the drift's velocity: its coefficients from w = s * p_half, then
     // z_new = z_e + eps * s (w + U c); the stash keeps its edge's velocity
     const T* ev = a.edge_v + (size_t(chain) * 2 + (fwd ? 1 : 0)) * dim;
@@ -931,7 +1189,7 @@ __device__ __forceinline__ void begin_half(const StepArgs<T>& a, int chain, cons
 // One launch of one chain: the second half of its step and the first half
 // of its next (advance), or a first half alone.  A chain done before the
 // launch is left alone (a first half hands its committed position).
-template <typename T, bool LR, int N, int KC, bool DIV, bool ADAM, typename G>
+template <typename T, bool LR, int N, int KC, bool DIV, bool ADAM, bool MICRO, typename G>
 __device__ __forceinline__ void step_chain(const StepArgs<T>& a, int chain, const G& g,
                                            LowRank<T>& m) {
   const MkConfig& cfg = a.cfg;
@@ -956,11 +1214,11 @@ __device__ __forceinline__ void step_chain(const StepArgs<T>& a, int chain, cons
 #pragma unroll
   for (int k = 0; k < N_FLT; ++k) fl[k] = a.flts[size_t(chain) * N_FLT + k];
   NextDrift<T, N, KC> drift;
-  if (a.advance) finish_half<T, LR, N, KC, DIV, ADAM>(a, chain, g, m, fl, in, drift);
+  if (a.advance) finish_half<T, LR, N, KC, DIV, ADAM, MICRO>(a, chain, g, m, fl, in, drift);
   // every thread has read this step's uniforms and stagnant flag, which
   // the first half overwrites
   g.sync();
-  if (!in[I_DONE]) begin_half<T, LR, N, KC, DIV>(a, chain, g, m, fl, in, drift);
+  if (!in[I_DONE]) begin_half<T, LR, N, KC, DIV, MICRO>(a, chain, g, m, fl, in, drift);
   // every thread has read the chain's scalars; one writes them back
   g.sync();
   if (g.leader()) {
@@ -977,7 +1235,7 @@ __device__ __forceinline__ void step_chain(const StepArgs<T>& a, int chain, cons
 
 // The diagonal forms run one chain per group of W lanes; the low-rank one
 // runs persistent blocks, block b the chains b, b + gridDim.x, ... in turn.
-template <typename T, bool LR, int W, int N, int KC, bool DIV, bool ADAM>
+template <typename T, bool LR, int W, int N, int KC, bool DIV, bool ADAM, bool MICRO>
 __global__ void __launch_bounds__(GroupOf<LR, W>::type::kBlockThreads, min_blocks<T, LR>())
     step_advance(StepArgs<T> a) {
   using G = typename GroupOf<LR, W>::type;
@@ -985,21 +1243,21 @@ __global__ void __launch_bounds__(GroupOf<LR, W>::type::kBlockThreads, min_block
     const G g(step_smem + lr_layout<T>(a.cfg).red);
     LowRank<T> m = a.metric(g);
     for (int chain = blockIdx.x; chain < a.cfg.n_chains; chain += gridDim.x) {
-      step_chain<T, true, 1, 0, DIV, ADAM>(a, chain, g, m);
+      step_chain<T, true, 1, 0, DIV, ADAM, MICRO>(a, chain, g, m);
     }
   } else {
     const G g;
     const int chain = G::chain();
     if (chain >= a.cfg.n_chains) return;  // the whole group
     LowRank<T> m;
-    step_chain<T, false, N, KC, DIV, ADAM>(a, chain, g, m);
+    step_chain<T, false, N, KC, DIV, ADAM, MICRO>(a, chain, g, m);
   }
 }
 
 // Raise the low-rank kernel's dynamic shared-memory cap to `bytes` before
 // the first launch that needs them (every launch of a run asks for the same
 // bytes, so once per instantiation and device).
-template <typename T, bool DIV, bool ADAM>
+template <typename T, bool DIV, bool ADAM, bool MICRO>
 cudaError_t allow_smem(size_t bytes) {
   constexpr int kMaxDevices = 64;
   static size_t cap[kMaxDevices] = {};
@@ -1007,7 +1265,7 @@ cudaError_t allow_smem(size_t bytes) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && bytes <= cap[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(step_advance<T, true, 0, 1, 0, DIV, ADAM>,
+  err = cudaFuncSetAttribute(step_advance<T, true, 0, 1, 0, DIV, ADAM, MICRO>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err == cudaSuccess && dev < kMaxDevices) cap[dev] = bytes;
   return err;
@@ -1066,36 +1324,57 @@ int diag_form(const MkConfig& cfg, const StepPtrs& p) {
   return form;
 }
 
-template <typename T, int W, int N, int KC, bool ADAM>
+template <typename T, int W, int N, int KC, bool ADAM, bool MICRO>
 void launch_diag_rows(const StepArgs<T>& a, cudaStream_t s) {
   if (a.cfg.store_divergences) {
-    step_advance<T, false, W, N, KC, true, ADAM><<<a.cfg.step_grid, kLaneBlockThreads, 0, s>>>(a);
+    step_advance<T, false, W, N, KC, true, ADAM, MICRO>
+        <<<a.cfg.step_grid, kLaneBlockThreads, 0, s>>>(a);
   } else {
-    step_advance<T, false, W, N, KC, false, ADAM><<<a.cfg.step_grid, kLaneBlockThreads, 0, s>>>(a);
+    step_advance<T, false, W, N, KC, false, ADAM, MICRO>
+        <<<a.cfg.step_grid, kLaneBlockThreads, 0, s>>>(a);
+  }
+}
+
+template <typename T, int W, int N, int KC, bool MICRO>
+void launch_diag_method(const StepArgs<T>& a, cudaStream_t s) {
+  if (a.cfg.step_method == STEP_ADAM) {
+    launch_diag_rows<T, W, N, KC, true, MICRO>(a, s);
+  } else {
+    launch_diag_rows<T, W, N, KC, false, MICRO>(a, s);
   }
 }
 
 // The diagonal form's instantiation with the divergence rows or without,
-// for Adam or the other step-size methods.
+// for Adam or the other step-size methods, for the kinetic.
 template <typename T, int W, int N, int KC>
 cudaError_t launch_diag(const StepArgs<T>& a, cudaStream_t s) {
-  if (a.cfg.step_method == STEP_ADAM) {
-    launch_diag_rows<T, W, N, KC, true>(a, s);
+  if (a.cfg.micro) {
+    launch_diag_method<T, W, N, KC, true>(a, s);
   } else {
-    launch_diag_rows<T, W, N, KC, false>(a, s);
+    launch_diag_method<T, W, N, KC, false>(a, s);
   }
   return cudaGetLastError();
 }
 
 // The low-rank instantiation with the divergence rows or without, for Adam
-// or the other step-size methods: persistent blocks, each running its
-// share of the chains.
-template <typename T, bool DIV, bool ADAM>
+// or the other step-size methods, for the kinetic: persistent blocks, each
+// running its share of the chains.
+template <typename T, bool DIV, bool ADAM, bool MICRO>
 cudaError_t launch_lr(const StepArgs<T>& a, size_t smem, cudaStream_t s) {
-  const cudaError_t err = allow_smem<T, DIV, ADAM>(smem);
+  const cudaError_t err = allow_smem<T, DIV, ADAM, MICRO>(smem);
   if (err != cudaSuccess) return err;
-  step_advance<T, true, 0, 1, 0, DIV, ADAM><<<a.cfg.lr_grid, kLrThreads, smem, s>>>(a);
+  step_advance<T, true, 0, 1, 0, DIV, ADAM, MICRO><<<a.cfg.lr_grid, kLrThreads, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, bool MICRO>
+cudaError_t launch_lr_kinetic(const StepArgs<T>& a, size_t smem, cudaStream_t s) {
+  const bool adam = a.cfg.step_method == STEP_ADAM;
+  return a.cfg.store_divergences
+             ? (adam ? launch_lr<T, true, true, MICRO>(a, smem, s)
+                     : launch_lr<T, true, false, MICRO>(a, smem, s))
+             : (adam ? launch_lr<T, false, true, MICRO>(a, smem, s)
+                     : launch_lr<T, false, false, MICRO>(a, smem, s));
 }
 
 template <typename T>
@@ -1105,7 +1384,8 @@ int launch(bool advance, const MkConfig* cfg, const StepPtrs* p, void* stream) {
       R > kMaxRank || (advance && (!p->logp || !p->grad)) ||
       (R > 0 && (!p->lr_basis || !p->lr_log_eigs || !p->edge_v || !p->ckpt_v)) ||
       (cfg->store_divergences &&
-       (!p->div_start_out || !p->div_end_out || !p->div_mom_out || !p->div_grad_out))) {
+       (!p->div_start_out || !p->div_end_out || !p->div_mom_out || !p->div_grad_out)) ||
+      (cfg->micro && (!p->mc_rows || !p->mc_dke || cfg->dim < 2))) {
     return int(cudaErrorInvalidValue);
   }
   const StepArgs<T> a(*cfg, *p, advance);
@@ -1121,13 +1401,8 @@ int launch(bool advance, const MkConfig* cfg, const StepPtrs* p, void* stream) {
   const int code = check_lr_plan<T>(*cfg, p->lr_basis);
   if (code != 0) return code;
   const size_t smem = lr_layout<T>(*cfg).bytes;
-  const bool adam = cfg->step_method == STEP_ADAM;
-  const cudaError_t err = cfg->store_divergences
-                              ? (adam ? launch_lr<T, true, true>(a, smem, s)
-                                      : launch_lr<T, true, false>(a, smem, s))
-                              : (adam ? launch_lr<T, false, true>(a, smem, s)
-                                      : launch_lr<T, false, false>(a, smem, s));
-  return int(err);
+  return int(cfg->micro ? launch_lr_kinetic<T, true>(a, smem, s)
+                        : launch_lr_kinetic<T, false>(a, smem, s));
 }
 
 template <typename K>
@@ -1145,18 +1420,43 @@ cudaError_t diag_geometry(K kernel, int32_t* out) {
 }
 
 // The held and strided forms, without and with the divergence rows.
-template <typename T, bool ADAM>
+template <typename T, bool ADAM, bool MICRO>
 cudaError_t diag_forms_geometry(int32_t (*d)[3]) {
   cudaError_t err = diag_geometry(
-      step_advance<T, false, kLanes / kVec<T>, kVec<T>, kHeld, false, ADAM>, d[0]);
+      step_advance<T, false, kLanes / kVec<T>, kVec<T>, kHeld, false, ADAM, MICRO>, d[0]);
   if (err == cudaSuccess) {
-    err = diag_geometry(step_advance<T, false, kLanes, 1, 0, false, ADAM>, d[1]);
+    err = diag_geometry(step_advance<T, false, kLanes, 1, 0, false, ADAM, MICRO>, d[1]);
   }
   if (err == cudaSuccess) {
-    err = diag_geometry(step_advance<T, false, kLanes / kVec<T>, kVec<T>, kHeld, true, ADAM>,
-                        d[2]);
+    err = diag_geometry(
+        step_advance<T, false, kLanes / kVec<T>, kVec<T>, kHeld, true, ADAM, MICRO>, d[2]);
   }
-  if (err == cudaSuccess) err = diag_geometry(step_advance<T, false, kLanes, 1, 0, true, ADAM>, d[3]);
+  if (err == cudaSuccess) {
+    err = diag_geometry(step_advance<T, false, kLanes, 1, 0, true, ADAM, MICRO>, d[3]);
+  }
+  return err;
+}
+
+// The low-rank instantiations' registers and local bytes: plain, Adam,
+// with the rows, Adam with the rows.
+template <typename T, bool MICRO>
+cudaError_t lr_geometry(int32_t* out) {
+  cudaFuncAttributes f[4];
+  cudaError_t err =
+      cudaFuncGetAttributes(&f[0], step_advance<T, true, 0, 1, 0, false, false, MICRO>);
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&f[1], step_advance<T, true, 0, 1, 0, false, true, MICRO>);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&f[2], step_advance<T, true, 0, 1, 0, true, false, MICRO>);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&f[3], step_advance<T, true, 0, 1, 0, true, true, MICRO>);
+  }
+  for (int k = 0; k < 4; ++k) {
+    out[2 * k] = err == cudaSuccess ? f[k].numRegs : 0;
+    out[2 * k + 1] = err == cudaSuccess ? int32_t(f[k].localSizeBytes) : 0;
+  }
   return err;
 }
 
@@ -1167,25 +1467,19 @@ cudaError_t diag_forms_geometry(int32_t (*d)[3]) {
 // local bytes and threads, the registers and local bytes of its Adam
 // instantiation, of the one with the rows and of Adam's with the rows, and
 // for the low-rank plan in `cfg` (lr_rank > 0; zeros otherwise) the dynamic
-// shared-memory bytes of a block and the blocks an SM holds.
+// shared-memory bytes of a block and the blocks an SM holds; then the
+// microcanonical kinetic's instantiations: the eight diagonal ones in the
+// same order, and the four low-rank ones' registers and local bytes.
 template <typename T>
 int geometry(const MkConfig* cfg, int32_t* out) {
-  int32_t d[8][3];
-  cudaError_t err = diag_forms_geometry<T, false>(d);
-  if (err == cudaSuccess) err = diag_forms_geometry<T, true>(d + 4);
-  cudaFuncAttributes lr, lr_adam, lr_div, lr_adam_div;
-  if (err == cudaSuccess) {
-    err = cudaFuncGetAttributes(&lr, step_advance<T, true, 0, 1, 0, false, false>);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncGetAttributes(&lr_adam, step_advance<T, true, 0, 1, 0, false, true>);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncGetAttributes(&lr_div, step_advance<T, true, 0, 1, 0, true, false>);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncGetAttributes(&lr_adam_div, step_advance<T, true, 0, 1, 0, true, true>);
-  }
+  int32_t d[16][3];
+  cudaError_t err = diag_forms_geometry<T, false, false>(d);
+  if (err == cudaSuccess) err = diag_forms_geometry<T, true, false>(d + 4);
+  if (err == cudaSuccess) err = diag_forms_geometry<T, false, true>(d + 8);
+  if (err == cudaSuccess) err = diag_forms_geometry<T, true, true>(d + 12);
+  int32_t lr[8], lr_micro[8];
+  if (err == cudaSuccess) err = lr_geometry<T, false>(lr);
+  if (err == cudaSuccess) err = lr_geometry<T, true>(lr_micro);
   if (err != cudaSuccess) return int(err);
   out[0] = d[0][0]; out[1] = d[0][1]; out[2] = d[0][2];
   out[3] = d[1][0]; out[4] = d[1][1]; out[5] = d[1][2];
@@ -1196,16 +1490,28 @@ int geometry(const MkConfig* cfg, int32_t* out) {
   out[18] = d[6][0]; out[19] = d[6][1]; out[20] = d[6][2];
   out[21] = d[7][0]; out[22] = d[7][1]; out[23] = d[7][2];
   out[24] = kLaneBlockThreads;
-  out[25] = lr.numRegs;
-  out[26] = int32_t(lr.localSizeBytes);
+  out[25] = lr[0];
+  out[26] = lr[1];
   out[27] = kLrThreads;
-  out[28] = lr_adam.numRegs;
-  out[29] = int32_t(lr_adam.localSizeBytes);
-  out[30] = lr_div.numRegs;
-  out[31] = int32_t(lr_div.localSizeBytes);
-  out[32] = lr_adam_div.numRegs;
-  out[33] = int32_t(lr_adam_div.localSizeBytes);
+  out[28] = lr[2];
+  out[29] = lr[3];
+  out[30] = lr[4];
+  out[31] = lr[5];
+  out[32] = lr[6];
+  out[33] = lr[7];
   out[34] = out[35] = 0;
+  out[36] = d[8][0]; out[37] = d[8][1]; out[38] = d[8][2];
+  out[39] = d[9][0]; out[40] = d[9][1]; out[41] = d[9][2];
+  out[42] = d[10][0]; out[43] = d[10][1]; out[44] = d[10][2];
+  out[45] = d[11][0]; out[46] = d[11][1]; out[47] = d[11][2];
+  out[48] = d[12][0]; out[49] = d[12][1]; out[50] = d[12][2];
+  out[51] = d[13][0]; out[52] = d[13][1]; out[53] = d[13][2];
+  out[54] = d[14][0]; out[55] = d[14][1]; out[56] = d[14][2];
+  out[57] = d[15][0]; out[58] = d[15][1]; out[59] = d[15][2];
+  out[60] = lr_micro[0]; out[61] = lr_micro[1];
+  out[62] = lr_micro[2]; out[63] = lr_micro[3];
+  out[64] = lr_micro[4]; out[65] = lr_micro[5];
+  out[66] = lr_micro[6]; out[67] = lr_micro[7];
   if (cfg == nullptr || cfg->lr_rank < 1) return 0;
   // the plan as a launch checks it, without a basis to align
   MkConfig c = *cfg;
@@ -1214,10 +1520,10 @@ int geometry(const MkConfig* cfg, int32_t* out) {
   if (code != 0) return code;
   const size_t smem = lr_layout<T>(c).bytes;
   int blocks = 0;
-  err = allow_smem<T, false, false>(smem);
+  err = allow_smem<T, false, false, false>(smem);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, step_advance<T, true, 0, 1, 0, false, false>, kLrThreads, smem);
+        &blocks, step_advance<T, true, 0, 1, 0, false, false, false>, kLrThreads, smem);
   }
   if (err != cudaSuccess) return int(err);
   out[34] = int32_t(smem);
@@ -1232,14 +1538,13 @@ extern "C" {
 // Launch a first half (begin) or a second half with the next first half
 // (advance) for every chain on `stream`; returns the CUDA error code of the
 // launch (0 = queued).
+// A library built with NUTPIE_STEP_F32 (NUTPIE_STEP_F64) holds the float32
+// (float64) instantiations alone; built with both, it holds neither, only
+// the device query below (ops/build.py:VARIANTS).
+#ifndef NUTPIE_STEP_F64
 int nutpie_step_begin_f32(const nutpie::MkConfig* cfg, const nutpie::StepPtrs* p,
                           void* stream) {
   return nutpie::launch<float>(false, cfg, p, stream);
-}
-
-int nutpie_step_begin_f64(const nutpie::MkConfig* cfg, const nutpie::StepPtrs* p,
-                          void* stream) {
-  return nutpie::launch<double>(false, cfg, p, stream);
 }
 
 int nutpie_step_advance_f32(const nutpie::MkConfig* cfg, const nutpie::StepPtrs* p,
@@ -1247,18 +1552,26 @@ int nutpie_step_advance_f32(const nutpie::MkConfig* cfg, const nutpie::StepPtrs*
   return nutpie::launch<float>(true, cfg, p, stream);
 }
 
+int nutpie_step_geometry_f32(const nutpie::MkConfig* cfg, int32_t* out) {
+  return nutpie::geometry<float>(cfg, out);
+}
+#endif
+
+#ifndef NUTPIE_STEP_F32
+int nutpie_step_begin_f64(const nutpie::MkConfig* cfg, const nutpie::StepPtrs* p,
+                          void* stream) {
+  return nutpie::launch<double>(false, cfg, p, stream);
+}
+
 int nutpie_step_advance_f64(const nutpie::MkConfig* cfg, const nutpie::StepPtrs* p,
                             void* stream) {
   return nutpie::launch<double>(true, cfg, p, stream);
 }
 
-int nutpie_step_geometry_f32(const nutpie::MkConfig* cfg, int32_t* out) {
-  return nutpie::geometry<float>(cfg, out);
-}
-
 int nutpie_step_geometry_f64(const nutpie::MkConfig* cfg, int32_t* out) {
   return nutpie::geometry<double>(cfg, out);
 }
+#endif
 
 // The current device's shared memory a block may opt in to, shared memory
 // per SM, the SMs, and the shared memory the system keeps per block, in

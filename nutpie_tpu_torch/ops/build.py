@@ -25,11 +25,19 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # against the plain version from a semantic one
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
-# the step kernel is bound by bytes, so contraction buys it nothing; built
-# without it, it rounds each product and sum as its plain version does,
-# and in float64 follows it to the rounding of its sums, even through the
-# warmup's adaptation, which amplifies any difference
-KERNEL_FLAGS = {"step_kernel": ("-fmad=false",)}
+# the step kernels (K2, and K3 for MCLMC) are bound by bytes, so
+# contraction buys them nothing; built without it, they round each product
+# and sum as their plain versions do, and in float64 follow them to the
+# rounding of their sums, even through the warmup's adaptation, which
+# amplifies any difference
+KERNEL_FLAGS = {"step_kernel": ("-fmad=false",), "mclmc": ("-fmad=false",)}
+# libraries built from another source with a macro: the step kernel's
+# float32 and float64 instantiations, each in a library of its own, so that
+# two nvcc processes compile them side by side, and its device query alone
+# (which plans a launch whatever its dtype)
+VARIANTS = {"step_kernel_f32": ("step_kernel", ("-DNUTPIE_STEP_F32",)),
+            "step_kernel_f64": ("step_kernel", ("-DNUTPIE_STEP_F64",)),
+            "step_device": ("step_kernel", ("-DNUTPIE_STEP_F32", "-DNUTPIE_STEP_F64"))}
 
 _LOADED: dict = {}
 
@@ -50,17 +58,19 @@ def _source_hash() -> str:
             h.update(path.read_bytes())
     h.update(" ".join(FLAGS).encode())
     h.update(repr(sorted(KERNEL_FLAGS.items())).encode())
+    h.update(repr(sorted(VARIANTS.items())).encode())
     return h.hexdigest()[:16]
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
+    """Compile library ``name`` unless an up-to-date one exists."""
     return build_all([name])[name]
 
 
 def build_all(names) -> dict:
-    """Compile every ``csrc/<name>.cu`` that lacks an up-to-date library,
-    one ``nvcc`` per source, all started together; ``{name: library}``."""
+    """Compile every library of ``names`` that lacks an up-to-date build,
+    ``csrc/<name>.cu`` or a ``VARIANTS`` entry's source with its macro, one
+    ``nvcc`` each, all started together; ``{name: library}``."""
     digest = _source_hash()
     outs = {name: BUILD_DIR / f"lib{name}-{digest}.so" for name in names}
     procs = {}
@@ -69,15 +79,16 @@ def build_all(names) -> dict:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, *KERNEL_FLAGS.get(name, ()), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        source, defines = VARIANTS.get(name, (name, ()))
+        cmd = [_nvcc(), *FLAGS, *KERNEL_FLAGS.get(source, ()), *defines, "-o", str(tmp),
+               str(CSRC / f"{source}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True), tmp)
     failed = []
     for name, (proc, tmp) in procs.items():
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu ({proc.returncode}):\n"
+            failed.append(f"nvcc failed for {name} ({proc.returncode}):\n"
                           f"{stdout}\n{stderr}")
         else:
             os.replace(tmp, outs[name])

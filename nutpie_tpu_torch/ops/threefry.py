@@ -10,6 +10,10 @@ from the same seed:
 - ``threefry2x32``: the 20-round hash.
 - ``fold_in_data``: ``jax.random.fold_in`` on raw key data (hash of the
   counts ``(0, data)``).
+- ``split``: ``jax.random.split`` under the partitionable counter layout
+  (``jax_threefry_partitionable``, the default since JAX 0.5): key ``i``
+  of ``n`` is the hash of the counts ``(0, i)``, so ``split(k, n)[i]``
+  equals ``fold_in(k, i)`` and ``split(k, 1)[0]`` is not ``k``.
 - ``random_bits32`` / ``random_bits64``: the partitionable bit generator
   (per element the hash of ``(0, flat_index)``; 32-bit words xor-fold the
   two halves, 64-bit words concatenate them).
@@ -81,6 +85,12 @@ def fold_in_data(kd: torch.Tensor, data) -> torch.Tensor:
         data = torch.full((), int(data) & MASK32, dtype=torch.int64, device=kd.device)
     y0, y1 = threefry2x32(kd[..., 0], kd[..., 1], torch.zeros_like(data), data)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def split(kd: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.split`` on raw key data ``kd [..., 2]``: ``[..., n, 2]``."""
+    i = torch.arange(int(n), dtype=torch.int64, device=kd.device)
+    return fold_in_data(kd[..., None, :], i)
 
 
 def _counts(kd: torch.Tensor, shape) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

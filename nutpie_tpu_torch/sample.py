@@ -19,9 +19,12 @@ with a ``kernel_model`` (radon) whose configuration the chunk kernel K1
 supports runs each chunk as one K1 launch; any other model whose
 configuration the step kernel K2 supports runs through the step runner
 (``sampler/run.py:make_chunk_runner``), one batched torch logp and one K2
-launch per machine step, replayed from a CUDA graph on the card; anything
-else raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item.  The route is the same on every device:
+launch per machine step, replayed from a CUDA graph on the card;
+``sampler="mclmc"`` runs through the MCLMC runner
+(``sampler/mclmc.py:make_mclmc_chunk_runner``), two batched torch logps
+and two launches of the MCLMC kernel K3 a step, one draw's steps replayed
+from a CUDA graph on the card; anything else raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.  The route is the same on every device:
 ``device=None`` means CUDA, where the kernels run, and ``device="cpu"``
 runs their plain versions.  ``precision="auto"`` is float32 on CUDA and
 float64 on the CPU.
@@ -46,35 +49,42 @@ from .progress import ChainProgress, make_progress_handlers
 from .sampler import megakernel, step_kernel
 from .sampler.adapt import AdaptConfig, make_schedule
 from .sampler.megakernel import make_megakernel_chunk_runner
+from .sampler.mclmc import (
+    MCLMC_SCALAR_SLOTS,
+    MclmcConfig,
+    init_mclmc_chains,
+    make_mclmc_chunk_runner,
+)
 from .sampler.nuts import (
     _FLOW_ITEM,
-    _MCLMC_ITEM,
     DIV_BUFFERS,
     SCALAR_SLOTS,
     LowRankConfig,
     NutsConfig,
 )
 from .sampler.run import fleet_depth_cap, init_chains, make_chunk_runner, resolve_dtype
-from .settings import NutsSettings
+from .settings import MclmcSettings, NutsSettings
 from .storage.sink import ZarrTraceSink
 from .trace import assemble_trace, open_zarr_trace
 
 __all__ = ["sample"]
 
 
-def _make_settings(sampler: str, adaptation: str, seed) -> NutsSettings:
-    if sampler == "mclmc":
-        raise NotImplementedError(f"the MCLMC sampler: {_MCLMC_ITEM}")
-    if sampler != "nuts":
+def _make_settings(sampler: str, adaptation: str, seed):
+    if sampler == "nuts":
+        cls = NutsSettings
+    elif sampler == "mclmc":
+        cls = MclmcSettings
+    else:
         raise ValueError(
             f"Unknown sampler '{sampler}'. Expected one of: 'nuts', 'mclmc'."
         )
     if adaptation == "low_rank":
-        return NutsSettings.LowRank(seed)
+        return cls.LowRank(seed)
     if adaptation == "flow":
-        return NutsSettings.Flow(seed)
+        return cls.Flow(seed)
     if adaptation in ("diag", "draw_diag"):
-        settings = NutsSettings.Diag(seed)
+        settings = cls.Diag(seed)
         if adaptation == "draw_diag":
             settings.use_grad_based_mass_matrix = False
         return settings
@@ -132,6 +142,48 @@ def nuts_config_from_settings(settings: NutsSettings) -> NutsConfig:
     )
 
 
+def mclmc_config_from_settings(settings: MclmcSettings) -> MclmcConfig:
+    """Settings tree -> MclmcConfig (``nutpie_tpu/sample.py:276-329``,
+    without its flow branch)."""
+    if settings.adaptation == "flow":
+        raise NotImplementedError(f"flow adaptation: {_FLOW_ITEM}")
+    ao = settings.adapt_options
+    ss = ao.step_size_settings
+    mm = getattr(ao, "mass_matrix_options", None)
+    low_rank = None
+    if settings.adaptation == "low_rank":
+        low_rank = LowRankConfig(eigval_cutoff=getattr(mm, "eigval_cutoff", 100.0),
+                                 gamma=getattr(mm, "gamma", 1e-5),
+                                 window=getattr(ao, "mass_matrix_switch_freq", 80))
+    adapt = AdaptConfig(
+        num_tune=settings.num_tune,
+        switch_freq=getattr(ao, "mass_matrix_switch_freq", 80),
+        early_switch_freq=getattr(ao, "early_mass_matrix_switch_freq", 10),
+        use_grad_based_estimate=getattr(mm, "use_grad_based_estimate", True),
+        target_accept=ss.target_accept,
+        initial_step=ss.initial_step,
+    )
+    return MclmcConfig(
+        step_size=settings.step_size,
+        momentum_decoherence_length=settings.momentum_decoherence_length,
+        steps_per_draw=max(1, int(round(settings.subsample_frequency))),
+        dynamic_step_size=settings.dynamic_step_size,
+        max_energy_error=settings.max_energy_error,
+        trajectory=settings.trajectory_kind,
+        store_gradient=settings.store_gradient,
+        store_mass_matrix=getattr(mm, "store_mass_matrix", False),
+        low_rank=low_rank,
+        adapt=adapt,
+    )
+
+
+def config_from_settings(settings):
+    """The sampler's configuration: ``NutsConfig`` or ``MclmcConfig``."""
+    if isinstance(settings, MclmcSettings):
+        return mclmc_config_from_settings(settings)
+    return nuts_config_from_settings(settings)
+
+
 def default_chunk_size(settings, n_chains: int, dim: int, itemsize: int) -> int:
     """Draws per chunk: ~256 MB of [dim]-row buffers (the draws and the
     stored gradients, mass matrices and divergence rows), clipped to
@@ -181,21 +233,31 @@ DIVERGENCE_MESSAGE = "energy error exceeded max_energy_error (or was non-finite)
 
 
 def chunk_to_host(bufs: dict, expanded: dict, limit: int,
-                  store_unconstrained: bool = False) -> dict:
-    """One chunk's host arrays (``ChunkBuffers`` fields and expanded
-    variables by name, ``[C, L, ...]``) cut to the draws produced and
-    copied out of the transfer's buffers.
+                  store_unconstrained: bool = False, mclmc_steps: Optional[int] = None) -> dict:
+    """One chunk's host arrays (``ChunkBuffers`` or ``MclmcBuffers`` fields
+    and expanded variables by name, ``[C, L, ...]``) cut to the draws
+    produced and copied out of the transfer's buffers.
 
     The optional buffers become statistics under the JAX trace's names.
     With the divergence buffers comes ``divergence_message``, as in
     ``nutpie_tpu/sample.py``: the message at a divergent draw, empty
-    elsewhere."""
+    elsewhere.  An MCLMC chunk (``mclmc_steps``: its steps a draw) has
+    MCLMC's statistics, in the JAX package's order and dtypes: ``logp``,
+    ``energy_error``, ``diverging``, ``step_size``, ``n_steps`` (int32),
+    then the optional buffers."""
     cut = lambda x: np.array(x[:, :limit])
     packed = cut(bufs["scalars"])
-    stats = {name: cut(bufs[name]) for name in _OPTIONAL_STATS if name in bufs}
+    if mclmc_steps is not None:
+        stats = {name: packed[..., slot] for name, slot in MCLMC_SCALAR_SLOTS.items()}
+        stats["diverging"] = stats["diverging"] > 0.5
+        stats["n_steps"] = np.full(packed.shape[:2], mclmc_steps, dtype=np.int32)
+        stats.update({name: cut(bufs[name]) for name in ("gradient", "mass_matrix_inv")
+                      if name in bufs})
+    else:
+        stats = {name: cut(bufs[name]) for name in _OPTIONAL_STATS if name in bufs}
     for name, slot in SCALAR_SLOTS.items():
-        if name == "fisher_distance":
-            continue  # flow adaptation only
+        if mclmc_steps is not None or name == "fisher_distance":
+            continue  # MCLMC has its own; the Fisher distance is flow adaptation's
         arr = packed[..., slot]
         dt = _SCALAR_DTYPES.get(name)
         if dt is bool:
@@ -297,15 +359,19 @@ class ChunkTransfer:
 
 
 # the chunk runner of each route
-RUNNERS = {"megakernel": make_megakernel_chunk_runner, "step": make_chunk_runner}
+RUNNERS = {"megakernel": make_megakernel_chunk_runner, "step": make_chunk_runner,
+           "mclmc": make_mclmc_chunk_runner}
 
 
-def route(cfg: NutsConfig, model: ModelDef) -> str:
+def route(cfg, model: ModelDef) -> str:
     """The chunk runner for this model and configuration, on every device:
-    ``"megakernel"`` (K1) or ``"step"`` (K2 around the model's torch logp).
-    Raises ``NotImplementedError`` naming the ``ROADMAP.md`` item of what
-    neither kernel runs (``step_kernel.unsupported``: each of its refusals
-    holds for whichever kernel the configuration would take)."""
+    ``"megakernel"`` (K1), ``"step"`` (K2 around the model's torch logp) or,
+    for an ``MclmcConfig``, ``"mclmc"`` (K3 around it).  Raises
+    ``NotImplementedError`` naming the ``ROADMAP.md`` item of what no
+    kernel runs (``step_kernel.unsupported``: each of its refusals holds
+    for whichever kernel the configuration would take)."""
+    if isinstance(cfg, MclmcConfig):
+        return "mclmc"
     why = step_kernel.unsupported(cfg)
     if why is not None:
         raise NotImplementedError(f"no kernel runs this configuration yet: {why}")
@@ -326,7 +392,7 @@ class _BackgroundSampler:
     default stream.
     """
 
-    def __init__(self, compiled_model: CompiledModel, settings: NutsSettings, init_mean,
+    def __init__(self, compiled_model: CompiledModel, settings, init_mean,
                  *, device=None, progress_bar: bool = True, progress_callback=None,
                  save_warmup: bool = True, return_raw_trace: bool = False,
                  progress_template=None, progress_style=None, progress_rate: int = 100,
@@ -347,7 +413,7 @@ class _BackgroundSampler:
         self._seed = int(settings.seed)
 
         # everything that can refuse the run does so here, before anything runs
-        self._cfg = nuts_config_from_settings(settings)
+        self._cfg = config_from_settings(settings)
         self._model: ModelDef = compiled_model._make_model(self._seed)
         self.route = route(self._cfg, self._model)
         self._device = resolve_device(device)
@@ -409,7 +475,9 @@ class _BackgroundSampler:
     def _run_inner(self) -> None:
         model, cfg, settings = self._model, self._cfg, self._settings
         n_chains, dtype, device = self._n_chains, self._dtype, self._device
-        states, ok = init_chains(
+        mclmc = self.route == "mclmc"
+        init = init_mclmc_chains if mclmc else init_chains
+        states, ok = init(
             model, cfg, self._seed, n_chains, self._init_mean, dtype, device=device,
             num_try_init=settings.num_try_init,
         )
@@ -419,16 +487,23 @@ class _BackgroundSampler:
                 f"Logp function returned error for initial positions of {bad} "
                 f"chains (tried {settings.num_try_init} points per chain)"
             )
-        pool = dict(pool_step_size=settings.pool_step_size,
-                    pool_mass_matrix=settings.pool_mass_matrix)
         make_runner = RUNNERS[self.route]
-        warm = make_runner(model, cfg, self._chunk_len, dtype, adapt_frozen=False, **pool)
-        post = make_runner(model, cfg, self._chunk_len, dtype, adapt_frozen=True, **pool)
-        # fleet-relative work cap: a static cap before the first measurement,
-        # then the fleet's, frozen with the mass matrix (>= 64 chains only:
-        # with few chains the median is noise)
+        if mclmc:
+            # one runner: MCLMC adapts while tuning, with no pooling
+            warm = post = make_runner(model, cfg, self._chunk_len, dtype)
+        else:
+            pool = dict(pool_step_size=settings.pool_step_size,
+                        pool_mass_matrix=settings.pool_mass_matrix)
+            warm = make_runner(model, cfg, self._chunk_len, dtype, adapt_frozen=False,
+                               **pool)
+            post = make_runner(model, cfg, self._chunk_len, dtype, adapt_frozen=True,
+                               **pool)
+        # fleet-relative work cap (NUTS only): a static cap before the first
+        # measurement, then the fleet's, frozen with the mass matrix (>= 64
+        # chains only: with few chains the median is noise)
+        capped = not mclmc and n_chains >= 64
         sched = make_schedule(
-            cfg.adapt, self._num_tune, cfg.initial_depth_cap if n_chains >= 64 else None
+            cfg.adapt, self._num_tune, cfg.initial_depth_cap if capped else None
         )
         cap_until = self._num_tune - int(cfg.adapt.freeze_share * self._num_tune)
 
@@ -438,7 +513,8 @@ class _BackgroundSampler:
         ckpt_meta = {"seed": self._seed, "settings": settings.as_dict()}
         if self._resume_from is not None:
             states, start, depth_cap, meta = load_state(self._resume_from, states)
-            sched = sched._replace(depth_cap=depth_cap)
+            if depth_cap is not None:
+                sched = sched._replace(depth_cap=depth_cap)
             self._resume_offset = start
             if meta.get("seed") != self._seed:
                 warnings.warn("resuming a run that was started with a different seed",
@@ -470,12 +546,12 @@ class _BackgroundSampler:
                     if (self._checkpoint_path is not None and chunk_idx > 0
                             and chunk_idx % self._checkpoint_every == 0):
                         # states holds exactly `start` draws
-                        save_state(self._checkpoint_path, states, start, sched.depth_cap,
-                                   ckpt_meta)
+                        save_state(self._checkpoint_path, states, start,
+                                   None if mclmc else sched.depth_cap, ckpt_meta)
                     limit = min(self._chunk_len, self._total - start)
                     run_chunk = warm if start < self._num_tune else post
                     states, bufs = run_chunk(states, start, limit, sched)
-                    if n_chains >= 64 and start + limit <= cap_until:
+                    if capped and start + limit <= cap_until:
                         sched = sched._replace(depth_cap=fleet_depth_cap(cfg, bufs, limit))
                     launched = (start, limit, transfer.start(self._chunk_tensors(states, bufs)))
                     start += limit
@@ -484,8 +560,8 @@ class _BackgroundSampler:
                 self._finish_chunk(*pending, sink, sink_dims, sink_coords)
             pending = launched
         if self._checkpoint_path is not None and self._draws_done > 0:
-            save_state(self._checkpoint_path, states, self._draws_done, sched.depth_cap,
-                       ckpt_meta)
+            save_state(self._checkpoint_path, states, self._draws_done,
+                       None if mclmc else sched.depth_cap, ckpt_meta)
         if sink is not None:
             sink.finalize(self._draws_done)
 
@@ -510,7 +586,8 @@ class _BackgroundSampler:
             group, name = key.split("/", 1)
             host[group][name] = arr
         chunk = chunk_to_host(host["bufs"], host["expanded"], p_limit,
-                              self._store_unconstrained)
+                              self._store_unconstrained,
+                              self._cfg.steps_per_draw if self.route == "mclmc" else None)
         with self._lock:
             # zarr runs stream to the store and return a store-backed trace;
             # holding every chunk on the host as well would defeat streaming
@@ -717,8 +794,9 @@ def sample(
     chains' state every ``checkpoint_every`` chunks and at the end, and
     ``resume_from`` continues from such a file.  Extra keyword settings
     include ``precision``, ``chunk_size``, ``pool_mass_matrix`` and
-    ``pool_step_size``.  ``device`` defaults to CUDA.  MCLMC and flow
-    adaptation are not ported yet (each raises ``NotImplementedError``).
+    ``pool_step_size``.  ``device`` defaults to CUDA.  ``sampler="mclmc"``
+    runs MCLMC (``MclmcSettings``); flow adaptation is not ported yet (it
+    raises ``NotImplementedError``).
     ``store_transformed`` stores nothing without flow adaptation, as in the
     JAX package.
     """

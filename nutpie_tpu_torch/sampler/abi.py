@@ -5,8 +5,9 @@ the static configuration both kernels take (the radon sizes are used by
 the chunk kernel only and stay 0 for the step kernel; the low-rank
 metric's rank ``lr_rank`` and its launch plan, ``lr_streamed`` to
 ``lr_grid``, and the diagonal plan, ``step_lanes`` to ``step_grid``, are
-the step kernel's and stay 0 for the chunk kernel; so does
-``store_divergences``, which only the step kernel takes).  The schedule
+the step kernel's and stay 0 for the chunk kernel; so do
+``store_divergences`` and ``micro``, the microcanonical kinetic, which
+only the step kernel takes).  The schedule
 scalars travel as one int32 tensor on the device, so a ``depth_cap`` that
 lives on the device needs no host round trip.
 """
@@ -68,6 +69,7 @@ class MkConfig(ctypes.Structure):
         ("step_vec", ctypes.c_int32),
         ("step_held", ctypes.c_int32),
         ("step_grid", ctypes.c_int32),
+        ("micro", ctypes.c_int32),
     ]
 
 
@@ -123,6 +125,7 @@ def sampler_config(cfg: NutsConfig, n_chains: int, dim: int, depth_slots: int,
         has_target_time=int(cfg.target_time is not None),
         extra_doublings=cfg.extra_doublings,
         store_divergences=int(cfg.store_divergences),
+        micro=int(cfg.kinetic == "microcanonical"),
         **model_sizes,
     )
 

@@ -16,7 +16,13 @@ which run the same steps for one chain per warp.  The metric is the
 diagonal one or, with ``NutsConfig.low_rank``, the low-rank modified one
 (``low_rank.py``), applied through ``metric_velocity``,
 ``metric_velocity_rows`` and ``metric_momentum`` at every site where the
-JAX machine step applies it.  The kinetic is the exact-normal one.  With
+JAX machine step applies it.  The kinetic is the exact-normal one or,
+with ``kinetic="microcanonical"``, the isokinetic one (MAMS-style): the
+momentum is a unit velocity in the whitened space, each leapfrog takes an
+isokinetic velocity half-update, a drift along ``A u`` and another
+half-update (``isokinetic.py``), the kinetic-energy weight accumulates per
+trajectory edge in ``flts`` slots 10/11, a draw starts from ``h0 =
+-logp``, and the U-turn checks use the velocity itself.  With
 ``store_divergences`` the state carries four more rows (``DIV_SLOTS``):
 the start, its gradient, the end and the momentum of a draw's divergent
 leapfrog, NaN until one diverges, committed with the draw.
@@ -32,6 +38,7 @@ import torch
 
 from ..ops import threefry
 from .adapt import AdaptConfig, Schedule, diag_adapt_init, diag_adapt_update
+from .isokinetic import apply_A, apply_At, iso_metric, update_velocity
 from .low_rank import identity_metric, lr_sample_momentum, lr_velocity, lr_velocity_rows
 from .state import (
     ADAPT_FLT_SLOTS,
@@ -49,7 +56,7 @@ from .state import (
 )
 
 _FLOW_ITEM = "ROADMAP.md queue 1: flow adaptation"
-_MCLMC_ITEM = "ROADMAP.md queue 1: MCLMC and the microcanonical kinetic"
+KINETICS = ("exact_normal", "microcanonical")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +101,12 @@ class NutsConfig:
     def __post_init__(self):
         if self.flow is not None:
             raise NotImplementedError(f"flow adaptation: {_FLOW_ITEM}")
-        if self.kinetic != "exact_normal":
-            raise NotImplementedError(f"{self.kinetic} kinetic: {_MCLMC_ITEM}")
+        if self.kinetic not in KINETICS:
+            raise ValueError(f"unknown kinetic {self.kinetic!r}; expected one of {KINETICS}")
+
+    @property
+    def micro(self) -> bool:
+        return self.kinetic == "microcanonical"
 
 
 def n_vec_rows(cfg: NutsConfig) -> int:
@@ -115,6 +126,17 @@ def metric_velocity_rows(cfg: NutsConfig, s, P: torch.Tensor) -> torch.Tensor:
     if cfg.low_rank is not None:
         return lr_velocity_rows(s.inv_mass, s.lr_basis, s.lr_log_eigs, P)
     return P * s.inv_mass[:, None, :]
+
+
+def turn_velocity(cfg: NutsConfig, s, p: torch.Tensor) -> torch.Tensor:
+    """The velocity of the U-turn dot products: ``metric_velocity``, or the
+    momentum itself under the microcanonical kinetic (a whitened unit
+    velocity already)."""
+    return p if cfg.micro else metric_velocity(cfg, s, p)
+
+
+def turn_velocity_rows(cfg: NutsConfig, s, P: torch.Tensor) -> torch.Tensor:
+    return P if cfg.micro else metric_velocity_rows(cfg, s, P)
 
 
 def metric_momentum(cfg: NutsConfig, s, gauss: torch.Tensor) -> torch.Tensor:
@@ -238,9 +260,16 @@ def start_draw(cfg: NutsConfig, sched: Schedule, state: NutsMachineState,
     eps = torch.exp(log_eps)
     if cfg.adapt.step_size_jitter is not None:
         eps = eps * (1.0 + cfg.adapt.step_size_jitter * (2.0 * jitter_u - 1.0))
-    p0 = metric_momentum(cfg, state, gauss)
-    ke = 0.5 * _dot(p0, metric_velocity(cfg, state, p0))
-    h0 = -logp + ke
+    if cfg.micro:
+        # a unit velocity, uniform on the whitened sphere; the kinetic
+        # weight starts at 0, so h0 is the potential alone
+        norm = torch.sqrt(_dot(gauss, gauss))
+        p0 = gauss / torch.clamp(norm, min=1e-30)[:, None]
+        h0 = -logp
+    else:
+        p0 = metric_momentum(cfg, state, gauss)
+        ke = 0.5 * _dot(p0, metric_velocity(cfg, state, p0))
+        h0 = -logp + ke
     zeros = torch.zeros_like(logp)
     zeros_i = torch.zeros_like(state.draw_idx)
     rows = [position, p0, gradient, position, p0, gradient, p0,
@@ -353,6 +382,8 @@ class LeapfrogCarry(NamedTuple):
     ckpt_p: torch.Tensor     # [C, D, dim] with slot D-1's stash
     p_half: torch.Tensor     # [C, dim] momentum after the first half-kick
     stagnant: torch.Tensor   # [C] bool: the step left the position unchanged
+    # microcanonical: the first velocity half-update's kinetic-energy change
+    dke: Optional[torch.Tensor] = None  # [C]
 
 
 def leapfrog_begin(cfg: NutsConfig, s: NutsMachineState,
@@ -393,13 +424,20 @@ def leapfrog_begin(cfg: NutsConfig, s: NutsMachineState,
     p_e = _w(fwd, in_p_plus, in_p_minus)
     g_e = _w(fwd, vec("g_plus"), vec("g_minus"))
     eps_s = (direction.to(dtype) * s.flts[:, FLT_SLOTS["eps"]])[:, None]
-    p_half = p_e + 0.5 * eps_s * g_e
-    z_new = z_e + eps_s * metric_velocity(cfg, s, p_half)
+    dke = None
+    if cfg.micro:
+        # isokinetic: a velocity half-update, the drift along A u
+        gt_e = -apply_At(*iso_metric(cfg, s), g_e)
+        p_half, dke = update_velocity(p_e, gt_e, 0.5 * eps_s[:, 0], p_e.shape[1])
+        z_new = z_e + eps_s * apply_A(*iso_metric(cfg, s), p_half)
+    else:
+        p_half = p_e + 0.5 * eps_s * g_e
+        z_new = z_e + eps_s * metric_velocity(cfg, s, p_half)
     # an unintegrable step (eps below the position's resolution) counts as
     # a divergence, as in the JAX package
     stagnant = torch.all(z_new == z_e, dim=1)
     z_new = _w(active, z_new, vec("position"))
-    return z_new, LeapfrogCarry(u3, direction, ckpt_p, p_half, stagnant)
+    return z_new, LeapfrogCarry(u3, direction, ckpt_p, p_half, stagnant, dke)
 
 
 def machine_step(cfg: NutsConfig, logp_and_grad, sched: Schedule,
@@ -459,10 +497,22 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
     eps_s = (direction.to(dtype) * in_eps)[:, None]
     logp_new = logp_new.to(dtype)
     g_new = g_new.to(dtype)
-    p_new = carry.p_half + 0.5 * eps_s * g_new
-    v_new = metric_velocity(cfg, s, p_new)
-    ke = 0.5 * _dot(p_new, v_new)
-    h = -logp_new + ke
+    ke_plus, ke_minus = flt("ke_plus"), flt("ke_minus")
+    if cfg.micro:
+        # the second velocity half-update; the edge's kinetic weight
+        gt_new = -apply_At(*iso_metric(cfg, s), g_new)
+        p_new, dke2 = update_velocity(carry.p_half, gt_new, 0.5 * eps_s[:, 0],
+                                      g_new.shape[1])
+        ke_edge = torch.where(fwd, ke_plus, ke_minus) + carry.dke + dke2
+        h = -logp_new + ke_edge
+        v_new = p_new
+        ke_plus = torch.where(active & fwd, ke_edge, ke_plus)
+        ke_minus = torch.where(active & ~fwd, ke_edge, ke_minus)
+    else:
+        p_new = carry.p_half + 0.5 * eps_s * g_new
+        v_new = metric_velocity(cfg, s, p_new)
+        ke = 0.5 * _dot(p_new, v_new)
+        h = -logp_new + ke
 
     # ------------------------------------------------ leaf processing
     n = in_n_leaf + 1
@@ -513,7 +563,7 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
             slots >= (top_after_push - tz)[:, None]
         )
         rho_ab = rho_sub_new[:, None, :] - ckpt_s                 # [C, D, dim]
-        d_a = torch.sum(rho_ab * metric_velocity_rows(cfg, s, ckpt_p), dim=2)
+        d_a = torch.sum(rho_ab * turn_velocity_rows(cfg, s, ckpt_p), dim=2)
         d_b = torch.sum(rho_ab * v_new[:, None, :], dim=2)
         turn_vec = (d_a <= 0) | (d_b <= 0)
         turning_here = torch.any(turn_vec & slot_mask, dim=1)
@@ -550,9 +600,9 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
         far_p = _w(fwd, in_p_minus, in_p_plus)
         first_new_p = ckpt_p[:, 0]
         edge_old_p = ckpt_p[:, D - 1]
-        v_far = metric_velocity(cfg, s, far_p)
-        v_first_new = metric_velocity(cfg, s, first_new_p)
-        v_edge_old = metric_velocity(cfg, s, edge_old_p)
+        v_far = turn_velocity(cfg, s, far_p)
+        v_first_new = turn_velocity(cfg, s, first_new_p)
+        v_edge_old = turn_velocity(cfg, s, edge_old_p)
 
         def turn(r, va, vb):
             return (_dot(r, va) <= 0) | (_dot(r, vb) <= 0)
@@ -695,7 +745,7 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
             eps=in_eps, h0=in_h0, logw_traj=logw_traj, prop_logp=prop_logp,
             prop_energy=prop_energy, logw_sub=logw_sub,
             sprop_logp=sprop_logp, sprop_energy=sprop_energy,
-            sum_acc=sum_acc, ke_minus=flt("ke_minus"), ke_plus=flt("ke_plus"),
+            sum_acc=sum_acc, ke_minus=ke_minus, ke_plus=ke_plus,
         ), dtype),
         ints=_pack(INT_SLOTS, N_INT, dict(
             draw_idx=draw_idx, prop_idx=prop_idx, depth=depth,

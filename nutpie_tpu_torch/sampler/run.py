@@ -4,7 +4,8 @@ Ported from ``nutpie_tpu/sampler/run.py``, batched over chains with host
 loops where the JAX package used ``while_loop``:
 
 - ``find_initial_step``: the reasonable-step-size search at the initial
-  position (4-leapfrog probes, crossing ``target_accept``).
+  position (4-leapfrog probes, crossing ``target_accept``; isokinetic
+  under the microcanonical kinetic).
 - ``make_init_fn`` / ``init_chains``: seeded jittered init points retried
   until logp and gradient are finite, then the init-quality retry that
   redraws pathological chains.
@@ -36,6 +37,7 @@ import torch
 from ..model import ModelDef
 from ..ops import threefry
 from .adapt import Schedule, flts_set, pool_adapt_state
+from .isokinetic import apply_A, apply_At, iso_metric, update_velocity
 from .low_rank import estimate_low_rank
 from .nuts import (
     SCALAR_SLOTS,
@@ -74,22 +76,41 @@ def find_initial_step(cfg: NutsConfig, logp_and_grad, state: NutsMachineState,
     """
     dtype = state.vecs.dtype
     key = threefry.fold_in_data(state.key, 6)
-    gauss = threefry.normal(key, (state.position.shape[1],), dtype)
-    p0 = metric_momentum(cfg, state, gauss)
-    h0 = -state.logp + 0.5 * torch.sum(p0 * metric_velocity(cfg, state, p0), dim=1)
+    dim = state.position.shape[1]
+    gauss = threefry.normal(key, (dim,), dtype)
+    if cfg.micro:
+        # the isokinetic probe: a unit velocity and h0 = -logp, the kinetic
+        # weight accumulated along the probe (nutpie_tpu/sampler/run.py:65-95)
+        metric = iso_metric(cfg, state)
+        p0 = gauss / torch.clamp(torch.sqrt(torch.sum(gauss * gauss, dim=1)),
+                                 min=1e-30)[:, None]
+        h0 = -state.logp
+    else:
+        p0 = metric_momentum(cfg, state, gauss)
+        h0 = -state.logp + 0.5 * torch.sum(p0 * metric_velocity(cfg, state, p0), dim=1)
 
     def accept_prob(log_eps, n_steps: int = 4):
         eps = torch.exp(log_eps)[:, None]
         z, p, g = state.position, p0, state.gradient
         worst = torch.zeros_like(log_eps)
+        ke = torch.zeros_like(log_eps)
         for _ in range(n_steps):
-            p_half = p + 0.5 * eps * g
-            z = z + eps * metric_velocity(cfg, state, p_half)
-            logp_new, g = logp_and_grad(z)
-            g = g.to(dtype)
-            p = p_half + 0.5 * eps * g
-            h = -logp_new.to(dtype) + 0.5 * torch.sum(
-                p * metric_velocity(cfg, state, p), dim=1)
+            if cfg.micro:
+                u_half, dke1 = update_velocity(p, -apply_At(*metric, g), 0.5 * eps[:, 0], dim)
+                z = z + eps * apply_A(*metric, u_half)
+                logp_new, g = logp_and_grad(z)
+                g = g.to(dtype)
+                p, dke2 = update_velocity(u_half, -apply_At(*metric, g), 0.5 * eps[:, 0], dim)
+                ke = ke + dke1 + dke2
+                h = -logp_new.to(dtype) + ke
+            else:
+                p_half = p + 0.5 * eps * g
+                z = z + eps * metric_velocity(cfg, state, p_half)
+                logp_new, g = logp_and_grad(z)
+                g = g.to(dtype)
+                p = p_half + 0.5 * eps * g
+                h = -logp_new.to(dtype) + 0.5 * torch.sum(
+                    p * metric_velocity(cfg, state, p), dim=1)
             a = h0 - h
             a = torch.where(torch.isfinite(a), a, torch.full_like(a, -math.inf))
             worst = torch.minimum(worst, a)

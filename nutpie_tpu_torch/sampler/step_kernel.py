@@ -29,6 +29,12 @@ first half alone.  The plain version is ``nuts.leapfrog_begin`` and, for
 - on CPU tensors, ``PlainSteps``: the plain halves, with the uniforms from
   a ``LeapfrogUniformTable``.
 
+Under the microcanonical kinetic (``NutsConfig.kinetic``) the kernel runs
+its MICRO instantiations: the isokinetic velocity half-updates around the
+drift along ``A u``, with the chunk's scratch rows ``mc_rows [C, 2, dim]``
+(the first half's velocity, carried to the second half, and the
+pulled-back gradient of the low-rank metric) and ``mc_dke [C]``.
+
 The diagonal metric runs ``diag_plan``'s form: held, 8 (float32) or 16
 (float64) lanes of a warp per chain, each thread owning at most two chunks
 of coordinates moved by 16-byte vector loads, where dim <= 64 allows; or
@@ -71,8 +77,8 @@ from .nuts import (
     NutsConfig,
     leapfrog_begin,
     leapfrog_finish,
-    metric_velocity_rows,
     n_vec_rows,
+    turn_velocity_rows,
 )
 from .state import N_ADAPT_FLT, N_ADAPT_VEC, N_FLT, N_INT, VEC_SLOTS, NutsMachineState
 
@@ -82,7 +88,7 @@ FIXED_METRIC_ITEM = "ROADMAP.md queue 1: a fixed mass matrix on the card"
 def unsupported(cfg: NutsConfig) -> Optional[str]:
     """What of this configuration the step kernel leaves out, with its
     ``ROADMAP.md`` item, or None.  (The port's ``NutsConfig`` already
-    refuses flow and microcanonical configurations.)"""
+    refuses flow.)"""
     if cfg.low_rank is not None and not 0 < cfg.low_rank.max_rank <= MAX_RANK:
         return f"low-rank max_rank {cfg.low_rank.max_rank}: the step kernel takes 1..{MAX_RANK}"
     if not cfg.adapt.update_mass_matrix:
@@ -248,7 +254,7 @@ class StepPtrs(ctypes.Structure):
         "adapt_flts", "mom", "jit", "pos_out", "scal_out", "z_new", "u3",
         "stagnant", "logp", "grad", "lr_basis", "lr_log_eigs", "edge_v", "ckpt_v",
         "grad_out", "minv_out", "eig_out", "div_start_out", "div_end_out", "div_mom_out",
-        "div_grad_out",
+        "div_grad_out", "mc_rows", "mc_dke",
     )]
 
 
@@ -262,26 +268,37 @@ class StepPtrs(ctypes.Structure):
 # its dynamic shared memory and the blocks an SM holds
 DIAG_FORM_TAGS = tuple(f"{method}{rows}{form}" for method in ("", "adam_")
                        for rows in ("", "div_") for form in ("held", "strided"))
+_DIAG_FIELDS = ("registers", "local_bytes", "blocks_per_sm")
+_LR_TAGS = ("lr", "adam_lr", "div_lr", "adam_div_lr")
+# then the microcanonical kinetic's instantiations ("micro_"): the eight
+# diagonal ones, and the four low-rank ones' registers and spill bytes
 GEOMETRY_FIELDS = tuple(f"{tag}_{field}" for tag in DIAG_FORM_TAGS
-                        for field in ("registers", "local_bytes", "blocks_per_sm")) + (
+                        for field in _DIAG_FIELDS) + (
     "threads_per_block", "lr_registers", "lr_local_bytes", "lr_threads_per_block",
     "adam_lr_registers", "adam_lr_local_bytes", "div_lr_registers", "div_lr_local_bytes",
-    "adam_div_lr_registers", "adam_div_lr_local_bytes", "lr_smem_bytes", "lr_blocks_per_sm")
+    "adam_div_lr_registers", "adam_div_lr_local_bytes", "lr_smem_bytes", "lr_blocks_per_sm",
+) + tuple(f"micro_{tag}_{field}" for tag in DIAG_FORM_TAGS for field in _DIAG_FIELDS) + tuple(
+    f"micro_{tag}_{field}" for tag in _LR_TAGS for field in ("registers", "local_bytes"))
 # what nutpie_step_device reports, in its order
 DEVICE_FIELDS = ("smem_per_block", "smem_per_sm", "sm_count", "reserved_per_block")
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C signatures of the kernel library's entry points."""
+def bind(lib: ctypes.CDLL, sfx: str) -> ctypes.CDLL:
+    """Set the C signatures of the entry points of the kernel library of
+    one dtype (``sfx``: "f32" or "f64")."""
     for half in ("begin", "advance"):
-        for sfx in ("f32", "f64"):
-            fn = getattr(lib, f"nutpie_step_{half}_{sfx}")
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    for sfx in ("f32", "f64"):
-        fn = getattr(lib, f"nutpie_step_geometry_{sfx}")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn = getattr(lib, f"nutpie_step_{half}_{sfx}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = getattr(lib, f"nutpie_step_geometry_{sfx}")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return bind_device(lib)
+
+
+def bind_device(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of the device query and the error string,
+    which every library built from the step kernel's source holds."""
     lib.nutpie_step_device.argtypes = [ctypes.c_void_p]
     lib.nutpie_step_device.restype = ctypes.c_int
     lib.nutpie_cuda_error_string.argtypes = [ctypes.c_int]
@@ -375,7 +392,7 @@ class KernelSteps:
         R = metric_rank(cfg, states)
         _check_chunk(cfg, states, mom, jit, bufs, R)
         self.owner = owner
-        self.lib = owner.library()
+        self.lib = owner.library(states.vecs.dtype)
         self.states = states
         self.dtype = states.vecs.dtype
         self.device = states.vecs.device
@@ -400,8 +417,14 @@ class KernelSteps:
         self.edge_v = self.ckpt_v = None
         if R:
             edges = states.vecs[:, [VEC_SLOTS["p_minus"], VEC_SLOTS["p_plus"]]]
-            self.edge_v = metric_velocity_rows(cfg, states, edges).contiguous()
-            self.ckpt_v = metric_velocity_rows(cfg, states, states.ckpt_p).contiguous()
+            self.edge_v = turn_velocity_rows(cfg, states, edges).contiguous()
+            self.ckpt_v = turn_velocity_rows(cfg, states, states.ckpt_p).contiguous()
+        # the microcanonical kinetic's rows (the first half's velocity, the
+        # pulled-back gradient) and the first half's kinetic change
+        self.mc_rows = self.mc_dke = None
+        if cfg.micro:
+            self.mc_rows = torch.empty((C, 2, dim), dtype=self.dtype, device=self.device)
+            self.mc_dke = torch.empty((C,), dtype=self.dtype, device=self.device)
         self.scal = schedule_tensor(chunk_start, limit, sched, self.device)
         self.keep = (mom, jit, bufs)
         ptr = lambda t: None if t is None else t.data_ptr()
@@ -419,6 +442,7 @@ class KernelSteps:
             div_start_out=ptr(bufs.divergence_start), div_end_out=ptr(bufs.divergence_end),
             div_mom_out=ptr(bufs.divergence_momentum),
             div_grad_out=ptr(bufs.divergence_start_gradient),
+            mc_rows=ptr(self.mc_rows), mc_dke=ptr(self.mc_dke),
         )
 
     def _launch(self, half: str, states: NutsMachineState) -> None:
@@ -519,15 +543,19 @@ class StepKernel:
         self.captured = 0
         self._devices: dict = {}
 
-    def library(self):
-        return bind(build.load("step_kernel"))
+    def library(self, dtype):
+        """The kernel library of ``dtype``'s instantiations (each dtype's
+        compiles in an nvcc process of its own, ``ops/build.py:VARIANTS``)."""
+        sfx = dtype_suffix(dtype)
+        return bind(build.load(f"step_kernel_{sfx}"), sfx)
 
     def device_limits(self, device) -> dict:
-        """``DEVICE_FIELDS`` of a CUDA device, queried once."""
+        """``DEVICE_FIELDS`` of a CUDA device, queried once (through the
+        library that holds the query alone)."""
         device = torch.device(device)
         key = device.index if device.index is not None else torch.cuda.current_device()
         if key not in self._devices:
-            lib = self.library()
+            lib = bind_device(build.load("step_device"))
             out = (ctypes.c_int32 * len(DEVICE_FIELDS))()
             with torch.cuda.device(key):
                 raise_on(lib, lib.nutpie_step_device(out), "step kernel device query")
@@ -552,7 +580,7 @@ class StepKernel:
         """Registers, spill bytes and resident blocks of the kernels as
         compiled, and for a low-rank metric of ``rank`` at these shapes, its
         plan's shared memory and the blocks an SM holds (0 at rank 0)."""
-        lib = self.library()
+        lib = self.library(dtype)
         plan = self.plan(n_chains, dim, rank, dtype, device) if rank else None
         mk = MkConfig(n_chains=n_chains, dim=dim, depth_slots=2, lr_rank=rank,
                       **plan_fields(plan))

@@ -64,8 +64,9 @@ def test_no_jax_or_reference_imports():
     scanned = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"progress.py", "checkpoint.py", "zarr_store.py", "storage/native.py",
             "storage/sink.py", "storage/stores.py", "storage/transport.py",
-            "storage/zarr_writer.py"} <= scanned, scanned
-    assert len(scanned) >= 24
+            "storage/zarr_writer.py", "sampler/mclmc.py",
+            "sampler/mclmc_kernel.py", "sampler/isokinetic.py"} <= scanned, scanned
+    assert len(scanned) >= 26
 
 
 def test_cpu_sample_loads_no_jax(tmp_path):
@@ -105,7 +106,7 @@ def test_cuda_without_card_raises():
 # the route each configuration takes on radon, or None where it still
 # raises naming its ROADMAP item
 _CARD_ROUTES = {"store_divergences": "step", "step_size_adapt_method": "megakernel",
-                "target_integration_time": "megakernel"}
+                "target_integration_time": "megakernel", "sampler": "mclmc"}
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -116,22 +117,22 @@ _CARD_ROUTES = {"store_divergences": "step", "step_size_adapt_method": "megakern
     dict(target_integration_time=2.0),
 ])
 def test_unported_configs_raise_on_card_path(kwargs):
-    """Flow and MCLMC raise naming their ROADMAP item; Adam and the target
-    time take the chunk kernel on radon, the divergence rows the step
-    kernel (as in the JAX package), and then only the missing card stops
-    the run."""
+    """Flow raises naming its ROADMAP item; Adam and the target time take
+    the chunk kernel on radon, the divergence rows the step kernel (as in
+    the JAX package), MCLMC the MCLMC kernel, and then only the missing
+    card stops the run."""
     expected = _CARD_ROUTES.get(next(iter(kwargs)))
     if expected is None:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             nutpie_tpu_torch.sample(compile_model_def(radon()), chains=2, tune=2, draws=2,
                                     device="cuda", **kwargs)
         return
-    from nutpie_tpu_torch.sample import nuts_config_from_settings, route
-    from nutpie_tpu_torch.settings import NutsSettings
+    from nutpie_tpu_torch.sample import _make_settings, config_from_settings, route
 
-    settings = NutsSettings.Diag(0)
-    settings.update(kwargs)
-    assert route(nuts_config_from_settings(settings), radon()) == expected
+    options = dict(kwargs)
+    settings = _make_settings(options.pop("sampler", "nuts"), "diag", 0)
+    settings.update(options)
+    assert route(config_from_settings(settings), radon()) == expected
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             nutpie_tpu_torch.sample(compile_model_def(radon()), chains=2, tune=2, draws=2,
@@ -150,14 +151,19 @@ def test_model_without_kernel_raises_on_card_path():
 
 
 def test_unported_options_raise():
-    """The refusals that remain, each naming its ROADMAP item: the MCLMC
-    sampler, flow adaptation and a fixed mass matrix (which only flow
-    reaches through ``sample``, so it is asked of the route)."""
-    from nutpie_tpu_torch.sample import route
+    """The refusals that remain, each naming its ROADMAP item: flow
+    adaptation and a fixed mass matrix (which only flow reaches through
+    ``sample``, so it is asked of the route); the MCLMC sampler takes its
+    own route."""
+    from nutpie_tpu_torch.sample import _make_settings, config_from_settings, route
 
     m = compile_model_def(radon())
-    for kwargs, item in ((dict(sampler="mclmc"), "MCLMC"),
+    for kwargs, item in ((dict(sampler="mclmc"), None),
                          (dict(adaptation="flow"), "flow adaptation")):
+        if item is None:
+            cfg = config_from_settings(_make_settings(kwargs["sampler"], "diag", 0))
+            assert route(cfg, radon()) == "mclmc"
+            continue
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1: {item}"):
             nutpie_tpu_torch.sample(m, chains=2, tune=2, draws=2, device="cpu", **kwargs)
     cfg = NutsConfig(adapt=AdaptConfig(num_tune=8, update_mass_matrix=False))
