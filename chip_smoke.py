@@ -118,7 +118,8 @@ from a CUDA graph) at the logistic GLM's width from ``bench_glm.py``
    bytes as the plan's form reads them, the plan (form, warps, shared
    memory) and the library yardstick of the metric part (two
    ``torch.bmm`` per application for every chain, times the applications
-   a step).
+   a step; by CUDA events and by device time, each reported beside K2's time
+   by the same timer).
 
 K2's low-rank branch (``adaptation="low_rank"``) on the 1000-d
 ill-conditioned Gaussian (``nutpie_tpu/models/analytic.py:166``,
@@ -165,24 +166,33 @@ launches captured in a CUDA graph and replayed; and K2's MICRO
 instantiations for NUTS with ``microcanonical_trajectory=True``):
 
 12a. ``mclmc_parity``: K3 against its plain version
-    (``mclmc.PlainMclmcSteps``) on the card.  Float64 on the GLM at full
-    width, 64 chains, under a 16-draw tuning schedule with early switches
-    every 4 draws (``MCLMC_CASES``: each trajectory kind, three steps a
-    draw, a forced divergence at ``max_energy_error`` 0.05): an 8-draw
-    warmup window from draw 0 across the switch at draw 3 (ints and
+    (``mclmc.PlainMclmcSteps``, with the chunk's normals from
+    ``draw_normals``; K3 draws its own) on the card, in each of its forms
+    (``mclmc_kernel.mclmc_plan``).  Float64 on the GLM at full width (the
+    held form), 64 chains, under a 16-draw tuning schedule with early
+    switches every 4 draws (``MCLMC_CASES``: each trajectory kind, three
+    steps a draw, a forced divergence at ``max_energy_error`` 0.05): an
+    8-draw warmup window from draw 0 across the switch at draw 3 (ints and
     ``diverging`` exact, floats to rtol 1e-3), the kernel's own run to the
     end of tuning, then a 16-draw frozen chunk (ints and ``diverging``
-    exact, floats to rtol 1e-6 / atol 1e-8).  Float64 low-rank at the
-    Gaussian's shapes (dim 1000, R 32, 16 chains, a frozen chunk).
-    Float32 at the GLM's main shapes, one frozen 32-draw chunk: at least
-    99.9% of ``diverging`` flags equal and 99% of draws within 1e-3
-    (relative to 1 + abs x); the same chunk replayed from its graph
-    bitwise equal to its launches made one by one.
+    exact, floats to rtol 1e-6 / atol 1e-8); the same for the strided form
+    (``MCLMC_STRIDED_DIM``: the 100-d Gaussian, 16 chains), with and
+    without the forced divergence.  Float64
+    low-rank frozen chunks (``MCLMC_LR_CASES``, 16 chains): the Gaussian's
+    dim 1000 at R 32 (streamed), dim 500 at R 32 (staged by TMA), dim 33 at
+    R 5 (staged by loads; again with the forced divergence) and dim 1100 at
+    R 8 (staged by TMA, five coordinates a thread).  Float32 at the GLM's main shapes, one frozen
+    32-draw chunk, and at the low-rank path's (1024 chains, dim 1000, R 32,
+    staged), one frozen ``MCLMC_LR_F32_DRAWS``-draw chunk: at least 99.9%
+    of ``diverging`` flags equal and 99% of draws within 1e-3 (relative to
+    1 + abs x); the GLM chunk replayed from its graph bitwise equal to its
+    launches made one by one, and two runs from one state bitwise equal.
 12b. ``mclmc``: ``sample(sampler="mclmc")`` on the GLM, 10,240 chains x
     (``MCLMC_GLM_TUNE`` 1200 + 300; see there why 1200), chunk 32, float32,
     seed 42: K3 launched exactly once a
     chunk and twice a step (every draw from a graph replay), K1 and K2
-    never; the glm phase's posterior bars.  Then ``adaptation="low_rank"``
+    never, ``draw_normals`` never called (K3 draws the refresh normals);
+    the glm phase's posterior bars.  Then ``adaptation="low_rank"``
     on ``tests/test_mclmc.py``'s correlated Gaussian (dim 8, factor 40) at
     1024 chains with its variance-ratio bar [0.5, 1.5]; then low-rank
     MCLMC on the 1000-d Gaussian, 1024 chains x (300 + 100), cutoff
@@ -204,8 +214,12 @@ instantiations for NUTS with ``microcanonical_trajectory=True``):
     posterior divergences below 1%.
     ``step_timing`` then times K3's kick and settle per step (CUDA events
     and device time) at the GLM's main shapes and the low-rank Gaussian's,
-    beside its byte bound (``mclmc_bytes``) and its plain pieces, and K2's
-    micro ``advance`` at the GLM's.
+    beside its byte bound (``mclmc_bytes``), its plain pieces and, under
+    the low-rank metric, the library yardstick of its metric part (two
+    ``torch.bmm`` an application, three applications a step, by events and
+    by device time) and the bases read a step as the plan's form reads
+    them (counted by construction, not measured), and K2's micro
+    ``advance`` at the GLM's.
 
 The options path (every NUTS step-size and depth option and the
 divergence rows on the card):
@@ -303,16 +317,17 @@ CHAINS, TUNE, DRAWS, CHUNK = 2048, 300, 300, 128
 # 300; draw 384 is a chunk boundary of radon's run (128) and the GLM's (32)
 RESUME_DRAWS = 84
 # the control phase's Zarr run: the main configuration with its posterior
-# cut to 50 draws and no warmup stored.  The layout (the JAX package's) is
+# cut to ZARR_DRAWS draws and no warmup stored.  The layout (the JAX package's) is
 # one file per chain, array and 16 draws: the main run's 600 draws would be
 # 1.7 M files, and a first cut to 128 posterior draws (311 k files) took 194
 # s to read back twice; 100 posterior draws over two device chunks (84 + 16
 # rows, re-buffered across them), 272 k files, took 20.37 s to write and
 # 44.47 s to read back (chip_smoke, PR 8).  Cut to 50 when the MCLMC and
-# microcanonical phases joined the script (its time limit): the draws lie in
-# one device chunk, and the last Zarr chunk (2 draws) is still flushed
-# partial
-ZARR_DRAWS = 50
+# microcanonical phases joined the script (its time limit), then to 18 (50
+# took 14.56 s to write and 33.22 s to read back with the whole script at
+# 1109.1 s of its 1200; 18 took 10.28 and 27.02 s): the draws lie in one
+# device chunk, and the last Zarr chunk (2 draws) is still flushed partial
+ZARR_DRAWS = 18
 # 8 draws a parity chunk keep the whole run near ten minutes
 PARITY_CHAINS, PARITY_CHUNK = 64, 8
 # a chain count that divides neither the chains per block nor the card's
@@ -592,9 +607,18 @@ def phase_build(ctx):
         plans[name] = dataclasses.asdict(step_kernel.plan(LR_CHAINS, LR_DIM, LR_RANK, dt, DEVICE))
         diag[name] = _diag_plan_reading(step_kernel, k2[name], GLM_CHAINS, GLM_DIM, dt)
     ctx["k2_geometry"], ctx["glm_plan"] = k2, diag
-    k3 = {str(dt).removeprefix("torch."): mclmc_kernel.geometry(dt)
-          for dt in (torch.float32, torch.float64)}
-    ctx["k3_geometry"] = k3
+    # K3's forms in both dtypes, with its plans at the main paths' shapes:
+    # the GLM's (held), the low-rank path's (float32 stages the basis,
+    # float64 streams it)
+    k3, k3_plans = {}, {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).removeprefix("torch.")
+        k3[name] = mclmc_kernel.geometry(dt, LR_CHAINS, LR_DIM, LR_RANK)
+        k3_plans[name] = {
+            "glm": dataclasses.asdict(mclmc_kernel.plan(GLM_CHAINS, GLM_DIM, 0, dt, DEVICE)),
+            "low_rank": dataclasses.asdict(mclmc_kernel.plan(LR_CHAINS, LR_DIM, LR_RANK, dt,
+                                                             DEVICE))}
+    ctx["k3_geometry"], ctx["k3_plans"] = k3, k3_plans
     emit({
         "phase": "build", "torch": torch.__version__,
         "cuda": torch.version.cuda, "card": ctx["card"],
@@ -612,10 +636,14 @@ def phase_build(ctx):
         "mclmc_kernel": {
             "library": os.path.relpath(str(libs["mclmc"]), ROOT),
             "geometry": k3,
+            "plans": k3_plans,
         },
     })
-    assert k3["float32"]["local_bytes"] == 0 and k3["float32"]["lr_local_bytes"] == 0, \
-        f"the MCLMC kernel spills in float32: {k3['float32']}"
+    for dt, geo in k3.items():
+        assert all(v == 0 for k, v in geo.items() if k.endswith("local_bytes")), \
+            f"the MCLMC kernel spills in {dt}: {geo}"
+        assert geo["lr_smem_bytes"] == k3_plans[dt]["low_rank"]["smem_bytes"], (geo, k3_plans)
+        assert geo["lr_blocks_per_sm"] >= 1, geo
     for tag in ("float32", "float32_adam"):
         g32 = geometry[tag]
         assert g32["resident_chains_per_sm"] >= 10 and g32["local_bytes_per_thread"] == 0, g32
@@ -1881,7 +1909,7 @@ def phase_step_timing(ctx):
 
 
 def mclmc_bytes(n_chains: int, draws: int, steps_per_draw: int, dim: int, itemsize: int,
-                rank: int = 0, stored_rows: int = 0) -> dict:
+                rank: int = 0, stored_rows: int = 0, lr_form: str = "staged") -> dict:
     """Bytes K3's kicks and settles must move over ``draws`` frozen draws of
     one chunk (no adaptation), counted from csrc/mclmc.cu as what passes
     between launches: each input read once and each output written once,
@@ -1889,25 +1917,27 @@ def mclmc_bytes(n_chains: int, draws: int, steps_per_draw: int, dim: int, itemsi
     state rows a draw's end writes and the next draw's start reads in the
     same launch.  A kick reads the gradient, the inverse mass, the velocity
     and z and writes the velocity and z (6 rows); a settle reads the
-    normals, the velocity, z and the inverse mass and writes the velocity
-    and z (6 rows); a draw's end also reads the gradient and writes the
-    state's position, gradient and velocity, the draw and ``stored_rows``
-    more buffers (5 + stored_rows rows), save that the chunk's last draw
-    starts no next one (no inverse mass read, no velocity or z written).
-    Scalars: a kick reads the draw counter and the step size and writes the
-    kinetic change; a settle reads the log density, the step within the
-    draw and the chain's state and running scalars and writes the last two;
-    a draw's end writes its scalar row; every launch reads the schedule
+    velocity, z and the inverse mass and writes the velocity and z (5
+    rows; it draws the step's normals itself from the chain's 8-byte key);
+    a draw's end also reads the gradient and writes the state's position,
+    gradient and velocity, the draw and ``stored_rows`` more buffers (5 +
+    stored_rows rows), save that the chunk's last draw starts no next one
+    (no inverse mass read, no velocity or z written).  Scalars: a kick
+    reads the draw counter and the step size and writes the kinetic
+    change; a settle reads the log density, the step within the draw and
+    the chain's state and running scalars and writes the last two; a
+    draw's end writes its scalar row; every launch reads the schedule
     once.  Under a low-rank metric of rank ``rank`` each launch that
     applies it must read the chain's basis and log eigenvalues once (every
     kick and every settle but the chunk's last); ``lr_basis_bytes_as_read``
-    counts the basis as the kernel reads it, twice an application (A^T g
-    and A u in a kick, A u in a settle)."""
+    counts the basis as the kernel reads it in its plan's form ``lr_form``:
+    once a launch that applies it when staged, twice an application when
+    streamed (A^T g and A u in a kick, A u in a settle)."""
     T, row = itemsize, dim * itemsize
     steps = draws * steps_per_draw
     state = 3 * 4 + 2 * T + 4 * T + 4                # ints, flts, running, step
     kick = 6 * row + 4 + T + T
-    settle = 6 * row + T + 2 * state
+    settle = 5 * row + T + 2 * state + 8
     per_draw = (5 + stored_rows) * row + 4 * T
     last = 3 * row                                    # the chunk's last settle
     schedule = 6 * 4 * 2 * steps                      # per launch, not per chain
@@ -1916,31 +1946,26 @@ def mclmc_bytes(n_chains: int, draws: int, steps_per_draw: int, dim: int, itemsi
     if rank:
         metric = (rank * dim + rank) * T
         total += n_chains * (2 * steps - 1) * metric
-        out["lr_basis_bytes_as_read"] = n_chains * (6 * steps - 2) * rank * dim * T
+        reads = 2 * steps - 1 if lr_form == "staged" else 6 * steps - 2
+        out["lr_basis_bytes_as_read"] = n_chains * reads * rank * dim * T
     out["bytes"] = total
     return out
 
 
 def _k3_chunk(cfg, sched, states, start: int, chunk: int, plain: bool = False):
     """One MCLMC chunk prepared as the runner prepares it: the state's copy,
-    the normals, buffers and scratch, and its pieces (K3's, or the plain
-    version's)."""
-    from nutpie_tpu_torch.sampler.mclmc import (
-        PlainMclmcSteps,
-        draw_normals,
-        init_buffers,
-        init_scratch,
-    )
+    the buffers and scratch, and its pieces (K3's, which draw their own
+    normals, or the plain version's, with the chunk's normals)."""
+    from nutpie_tpu_torch.sampler.mclmc import init_buffers, init_scratch, plain_steps
     from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
 
     st = states.clone()
     C, _, dim = st.vecs.shape
     dtype = st.vecs.dtype
-    normals = draw_normals(st.key, start, chunk, cfg.steps_per_draw, dim, dtype)
     bufs = init_buffers(cfg, chunk, C, dim, dtype, DEVICE)
     scratch = init_scratch(C, dim, dtype, DEVICE)
-    args = (cfg, sched, start, chunk, st, normals, bufs, scratch)
-    return st, bufs, PlainMclmcSteps(*args) if plain else mclmc_kernel.chunk(*args)
+    pieces = plain_steps if plain else mclmc_kernel.chunk
+    return st, bufs, pieces(cfg, sched, start, chunk, st, bufs, scratch)
 
 
 def _k3_timed(model, cfg, sched, states, start: int, draws: int, plain_draws: int) -> dict:
@@ -1981,7 +2006,10 @@ def _k3_timed(model, cfg, sched, states, start: int, draws: int, plain_draws: in
             z = dsteps.settle(dst, z, logp, g)
         torch.cuda.synchronize()
     rows = _device_rows(prof)
-    k3_s = sum(r[0] for r in rows if "mclmc_kick" in r[1] or "mclmc_settle" in r[1])
+    # the kicks and settles: a kernel a piece (mclmc_piece<1|2, ...>; before
+    # the redesign mclmc_kick and mclmc_settle; the chunk's begin ran first)
+    k3_s = sum(r[0] for r in rows if any(n in r[1] for n in ("mclmc_piece", "mclmc_kick",
+                                                              "mclmc_settle")))
     # the plain pieces
     pst, _, plain = _k3_chunk(cfg, sched, states, start, draws, plain=True)
     z = plain.begin(pst)
@@ -2028,6 +2056,8 @@ def mclmc_step_timing(ctx):
     glm["bytes_bound_ms_per_step"] = 1e3 * work["bytes"] / PEAK_BYTES / work["steps"]
     glm["share_of_bound"] = glm["bytes_bound_ms_per_step"] / glm["k3_ms_per_step"]
     glm["share_of_bound_device"] = glm["bytes_bound_ms_per_step"] / glm["k3_device_ms_per_step"]
+    glm["plan"] = dataclasses.asdict(mclmc_kernel.plan(GLM_CHAINS, GLM_DIM, 0, torch.float32,
+                                                       DEVICE))
     out["glm"] = {"chains": GLM_CHAINS, "dim": GLM_DIM, **glm}
     ctx.update(mclmc_ms=glm["k3_ms_per_step"], mclmc_device_ms=glm["k3_device_ms_per_step"],
                mclmc_plain_ms=glm["plain_ms_per_step"],
@@ -2050,10 +2080,24 @@ def mclmc_step_timing(ctx):
         lr_log_eigs=torch.linspace(-2.0, 2.0, LR_RANK, device=DEVICE).expand(
             LR_CHAINS, LR_RANK).contiguous())
     lr = _k3_timed(lmodel, lcfg, lsched, lstates, MCLMC_PARITY_TUNE, 16, 4)
-    lwork = mclmc_bytes(LR_CHAINS, 16, 1, LR_DIM, 4, rank=LR_RANK)
+    lplan = mclmc_kernel.plan(LR_CHAINS, LR_DIM, LR_RANK, torch.float32, DEVICE)
+    lwork = mclmc_bytes(LR_CHAINS, 16, 1, LR_DIM, 4, rank=LR_RANK, lr_form=lplan.form)
+    lr["plan"] = dataclasses.asdict(lplan)
     lr["bytes_bound_ms_per_step"] = 1e3 * lwork["bytes"] / PEAK_BYTES / lwork["steps"]
+    # the basis reads of the plan's form, counted by construction (once a
+    # launch that applies the metric when staged), not measured
     lr["basis_bytes_as_read_per_step"] = lwork["lr_basis_bytes_as_read"] / lwork["steps"]
+    lr["bases_read_per_step"] = lr["basis_bytes_as_read_per_step"] / (
+        LR_CHAINS * LR_DIM * LR_RANK * 4)
+    lr["basis_reads"] = f"counted from the plan's form ({lplan.form}), not measured"
     lr["share_of_bound"] = lr["bytes_bound_ms_per_step"] / lr["k3_ms_per_step"]
+    lr["share_of_bound_device"] = lr["bytes_bound_ms_per_step"] / lr["k3_device_ms_per_step"]
+    # the library yardstick of the metric part: three applications a step
+    # (A^T g and A u in the kick, A u in the settle), two torch.bmm each, by
+    # events and by device time as K3's own
+    bmm_ms, bmm_device_ms = _bmm_metric_ms(lstates.lr_basis)
+    lr["library_ms_per_step"] = 3 * bmm_ms
+    lr["library_device_ms_per_step"] = 3 * bmm_device_ms
     out["lowrank"] = {"chains": LR_CHAINS, "dim": LR_DIM, "rank": LR_RANK, **lr}
     ctx["mclmc_lr"] = out["lowrank"]
     # K2's microcanonical advance at the GLM's main shapes
@@ -2076,7 +2120,7 @@ def mclmc_step_timing(ctx):
                        "share_of_bound": bound / ms["advance"]}
     ctx.update(micro_ms=ms["advance"], micro_device_ms=dev["advance"],
                micro_plain_ms=plain["advance"], micro_bound_ms=bound)
-    emit({"phase": "step_timing_mclmc", **out, "geometry": mclmc_kernel.geometry(torch.float32),
+    emit({"phase": "step_timing_mclmc", **out, "geometry": ctx["k3_geometry"]["float32"],
           "card": ctx["card"]})
 
 
@@ -2432,12 +2476,15 @@ def _plain_step_ms(model, cfg, sched, states, chunk: int, max_steps: int) -> dic
     return {"advance": total / n, "steps": n}
 
 
-def _bmm_metric_ms(basis, reps: int = 50) -> float:
+def _bmm_metric_ms(basis, reps: int = 50) -> tuple:
     """The library yardstick of the branch's metric part: one application of
     the basis products for every chain, w^T U and then U c, as two
     ``torch.bmm`` calls ([C, 1, dim] x [C, dim, R] and [C, 1, R] x [C, R,
-    dim]), ms by CUDA events.  The port never calls it."""
+    dim]); (ms by CUDA events, ms of device time under ``torch.profiler``,
+    every device kernel of the calls), each the mean of ``reps``
+    applications.  The port never calls it."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     n_chains, dim, _ = basis.shape
     w = torch.randn((n_chains, 1, dim), dtype=basis.dtype, device=basis.device)
@@ -2448,7 +2495,13 @@ def _bmm_metric_ms(basis, reps: int = 50) -> float:
 
     apply()
     torch.cuda.synchronize()
-    return _event_ms(apply, reps)[0]
+    events = _event_ms(apply, reps)[0]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            apply()
+        torch.cuda.synchronize()
+    device = 1e3 * sum(r[0] for r in _device_rows(prof)) / reps
+    return events, device
 
 
 def lowrank_step_timing(ctx):
@@ -2467,8 +2520,9 @@ def lowrank_step_timing(ctx):
     chunk = LR_F32_CHUNK
     plan = step_kernel.plan(LR_CHAINS, LR_DIM, LR_RANK, states.vecs.dtype, DEVICE,
                             aligned=states.lr_basis.data_ptr() % 16 == 0)
-    bmm_ms = _bmm_metric_ms(states.lr_basis)
-    out = {"plan": dataclasses.asdict(plan), "bmm_ms_per_application": bmm_ms}
+    bmm_ms, bmm_device_ms = _bmm_metric_ms(states.lr_basis)
+    out = {"plan": dataclasses.asdict(plan), "bmm_ms_per_application": bmm_ms,
+           "bmm_device_ms_per_application": bmm_device_ms}
     ctx["lr_plan"] = f"{plan.form} by {plan.copy}, {plan.warps} warps a chain, " \
                      f"{plan.smem_bytes} bytes of shared memory a block"
     for tag, c, st in (
@@ -2503,11 +2557,14 @@ def lowrank_step_timing(ctx):
                 model, c, sched, st, chunk)
             apps = (2 * work["leapfrogs"] + 2 * (work["draws"] - LR_CHAINS)) / LR_CHAINS
             library = bmm_ms * apps / n_steps
+            library_device = bmm_device_ms * apps / n_steps
             out[tag].update(metric_applications_per_step=apps / n_steps,
-                            library_metric_ms_per_step=library)
+                            library_metric_ms_per_step=library,
+                            library_metric_device_ms_per_step=library_device)
             ctx.update(lr_step_ms=k2_ms, lr_step_device_ms=device["advance"],
                        lr_step_plain_ms=plain["advance"],
                        lr_step_bound_ms=max(t_bytes, t_ops), lr_library_ms=library,
+                       lr_library_device_ms=library_device,
                        lr_step_bound_by="bytes" if t_bytes >= t_ops else "operations")
     emit({"phase": "step_timing_lowrank", "chains": LR_CHAINS, "dim": LR_DIM,
           "chunk": chunk, "dtype": "float32", **out, "card": ctx["card"]})
@@ -3253,6 +3310,19 @@ MCLMC_CASES = {
 MCLMC_PARITY_TUNE, MCLMC_EARLY_SWITCH = 16, 4
 MCLMC_WARM_DRAWS, MCLMC_FROZEN_DRAWS, MCLMC_F32_DRAWS = 8, 16, 32
 MCLMC_LR_CHAINS = 16
+# K3's strided form (the diagonal metric past dim 64): the 100-d Gaussian
+MCLMC_STRIDED_DIM = 100
+# K3's low-rank forms in float64 (tag, dim, rank, MclmcConfig fields):
+# streamed, staged by TMA, staged by loads (a 33 x 5 basis of 8-byte values,
+# 1320 bytes, is not 16-byte aligned), a chain's coordinates past four a
+# thread of the block (staged by TMA), and the loads case with a forced
+# divergence (a divergent draw's end reads the normals kept in the work row)
+MCLMC_LR_CASES = (("dim1000_rank32", LR_DIM, LR_RANK, {}),
+                  ("dim500_rank32", 500, LR_RANK, {}),
+                  ("dim33_rank5", 33, 5, {}), ("dim1100_rank8", 1100, 8, {}),
+                  ("dim33_rank5_divergence", 33, 5, MCLMC_CASES["divergence"]))
+# the float32 low-rank chunk at the path's shapes (staged)
+MCLMC_LR_F32_DRAWS = 8
 
 
 def _mclmc_cfg(tune: int, low_rank=None, **fields):
@@ -3323,17 +3393,17 @@ def _check_mclmc(tag, sk, bk, sp, bp, rtol, atol) -> float:
     return max_abs(bk.position, bp.position)
 
 
-def _mclmc_glm_case(tag: str, fields: dict) -> dict:
-    """One float64 GLM case: the warmup window from draw 0 (rtol 1e-3), the
-    kernel's own run to the end of tuning, then a frozen chunk (rtol 1e-6,
-    atol 1e-8)."""
+def _mclmc_glm_case(tag: str, fields: dict, model=None, n_chains: int = STEP_PARITY_CHAINS) -> dict:
+    """One float64 case (the GLM unless ``model``): the warmup window from
+    draw 0 (rtol 1e-3), the kernel's own run to the end of tuning, then a
+    frozen chunk (rtol 1e-6, atol 1e-8)."""
     import torch
 
     from nutpie_tpu_torch.sampler.mclmc import MclmcChunkRunner
 
-    model = _glm_model()
+    model = _glm_model() if model is None else model
     cfg, sched = _mclmc_cfg(MCLMC_PARITY_TUNE, **fields)
-    states = _mclmc_init(model, cfg, STEP_PARITY_CHAINS, torch.float64, 5)
+    states = _mclmc_init(model, cfg, n_chains, torch.float64, 5)
     (sk, bk), (sp, bp) = _mclmc_both(model, cfg, sched, states, 0, MCLMC_WARM_DRAWS)
     warm = _check_mclmc(f"{tag} warmup", sk, bk, sp, bp, 1e-3, 1e-3)
     run = MclmcChunkRunner(model, cfg, MCLMC_PARITY_TUNE - MCLMC_WARM_DRAWS, torch.float64)
@@ -3346,9 +3416,10 @@ def _mclmc_glm_case(tag: str, fields: dict) -> dict:
 
 
 def _mclmc_lr_fleet(n_chains: int, dtype, seed: int, cutoff: float, tune: int,
-                    dim: int = LR_DIM):
+                    dim: int = LR_DIM, rank: int = LR_RANK, **fields):
     """An MCLMC fleet of the 1000-d Gaussian at exact posterior draws with
-    the diagonal and low-rank estimates of ``_lr_fleet``, past tuning."""
+    the diagonal and low-rank estimates of ``_lr_fleet``, past tuning
+    (``fields``: more of the ``MclmcConfig``)."""
     import torch
 
     from nutpie_tpu_torch.models import ill_conditioned_gaussian
@@ -3359,7 +3430,7 @@ def _mclmc_lr_fleet(n_chains: int, dtype, seed: int, cutoff: float, tune: int,
 
     model = ill_conditioned_gaussian(dim=dim)
     cfg, sched = _mclmc_cfg(tune, low_rank=LowRankConfig(eigval_cutoff=cutoff,
-                                                         max_rank=LR_RANK))
+                                                         max_rank=rank), **fields)
     states = _mclmc_init(model, cfg, n_chains, dtype, seed)
     x, g = _lr_posterior(n_chains, LR_WINDOW + 1, seed, dim)
     win_x, win_g = x[:, :LR_WINDOW], g[:, :LR_WINDOW]
@@ -3385,24 +3456,57 @@ def _mclmc_lr_fleet(n_chains: int, dtype, seed: int, cutoff: float, tune: int,
     return model, cfg, sched, states
 
 
+def _mclmc_f32_shares(bk, bp) -> dict:
+    """Float32 kernel against plain: the shares of equal divergence flags and
+    of close draws."""
+    pk, pp = bk.position, bp.position
+    return {
+        "share_equal_diverging": float((bk.diverging == bp.diverging).double().mean()),
+        "share_draws_within_tol": float(((pk - pp).abs() <= F32_TOL * (1.0 + pp.abs()))
+                                        .all(-1).double().mean()),
+        "max_rel_diff_position": max_rel(pk, pp),
+        "divergences": int(bk.diverging.sum()),
+    }
+
+
 def phase_mclmc_parity(ctx):
     """K3 against its plain version on the card (see the docstring)."""
     import torch
 
-    failed, out = [], {"glm_f64": {}}
+    from nutpie_tpu_torch.models import ill_conditioned_gaussian
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+
+    failed, out = [], {"glm_f64": {}, "lowrank_f64": {}, "plans": {}}
     for tag, fields in MCLMC_CASES.items():
         out["glm_f64"][tag] = _held(failed, _mclmc_glm_case, tag, fields)
-    # the low-rank metric at the Gaussian's shapes, a frozen chunk
-    model, cfg, sched, states = _mclmc_lr_fleet(MCLMC_LR_CHAINS, torch.float64, 9,
-                                                LR_CUTOFF_ALL, MCLMC_PARITY_TUNE)
-    (sk, bk), (sp, bp) = _mclmc_both(model, cfg, sched, states, MCLMC_PARITY_TUNE,
-                                     MCLMC_FROZEN_DRAWS)
-    out["lowrank_f64"] = _held(failed, lambda: {"max_abs": _check_mclmc(
-        "lowrank frozen", sk, bk, sp, bp, 1e-6, 1e-8),
-        "divergences": int(bk.diverging.sum())})
+    out["plans"]["glm_f64"] = mclmc_kernel.plan(STEP_PARITY_CHAINS, GLM_DIM, 0, torch.float64,
+                                                DEVICE).form
+    # the strided form: the diagonal metric past dim 64
+    smodel = ill_conditioned_gaussian(dim=MCLMC_STRIDED_DIM)
+    out["strided_f64"] = _held(failed, _mclmc_glm_case, "strided", {}, smodel,
+                               MCLMC_LR_CHAINS)
+    # and with a forced divergence: the draw's end reads the kept normals
+    out["strided_f64_divergence"] = _held(failed, _mclmc_glm_case, "strided divergence",
+                                          MCLMC_CASES["divergence"], smodel, MCLMC_LR_CHAINS)
+    out["plans"]["strided_f64"] = mclmc_kernel.plan(MCLMC_LR_CHAINS, MCLMC_STRIDED_DIM, 0,
+                                                    torch.float64, DEVICE).form
+    # the low-rank forms, a frozen chunk each
+    for tag, dim, rank, fields in MCLMC_LR_CASES:
+        model, cfg, sched, states = _mclmc_lr_fleet(MCLMC_LR_CHAINS, torch.float64, 9,
+                                                    LR_CUTOFF_ALL, MCLMC_PARITY_TUNE, dim, rank,
+                                                    **fields)
+        plan = mclmc_kernel.plan(MCLMC_LR_CHAINS, dim, rank, torch.float64, DEVICE,
+                                 aligned=states.lr_basis.data_ptr() % 16 == 0)
+        out["plans"][f"lowrank_f64_{tag}"] = f"{plan.form} by {plan.copy}"
+        (sk, bk), (sp, bp) = _mclmc_both(model, cfg, sched, states, MCLMC_PARITY_TUNE,
+                                         MCLMC_FROZEN_DRAWS)
+        out["lowrank_f64"][tag] = _held(failed, lambda: {"max_abs": _check_mclmc(
+            f"lowrank {tag} frozen", sk, bk, sp, bp, 1e-6, 1e-8),
+            "divergences": int(bk.diverging.sum())})
+        del model, states, sk, bk, sp, bp
     # float32 at the GLM's main shapes: a fresh fleet past tuning, one
     # frozen chunk; then the graph's replays against the launches made one
-    # by one, bitwise
+    # by one, bitwise, and a second run from the same state, bitwise
     model = _glm_model()
     cfg, sched = _mclmc_cfg(MCLMC_PARITY_TUNE)
     states = _mclmc_init(model, cfg, GLM_CHAINS, torch.float32, 42)
@@ -3410,31 +3514,46 @@ def phase_mclmc_parity(ctx):
         1, torch.tensor([0], device=DEVICE), MCLMC_PARITY_TUNE))
     (sk, bk), (sp, bp) = _mclmc_both(model, cfg, sched, states, MCLMC_PARITY_TUNE,
                                      MCLMC_F32_DRAWS)
-    pk, pp = bk.position, bp.position
-    f32 = {
-        "share_equal_diverging": float((bk.diverging == bp.diverging).double().mean()),
-        "share_draws_within_tol": float(((pk - pp).abs() <= F32_TOL * (1.0 + pp.abs()))
-                                        .all(-1).double().mean()),
-        "max_rel_diff_position": max_rel(pk, pp),
-        "divergences": int(bk.diverging.sum()),
-    }
+    f32 = _mclmc_f32_shares(bk, bp)
     out["glm_f32"] = f32
+    out["plans"]["glm_f32"] = mclmc_kernel.plan(GLM_CHAINS, GLM_DIM, 0, torch.float32,
+                                                DEVICE).form
     (gk, gbk), _ = _mclmc_both(model, cfg, sched, states, MCLMC_PARITY_TUNE, MCLMC_F32_DRAWS,
                                graph=True)
-    replay_bitwise = all(bitwise_equal(a, b) for a, b in (
-        (gbk.position, bk.position), (gbk.scalars, bk.scalars), (gk.vecs, sk.vecs),
-        (gk.flts, sk.flts), (gk.ints, sk.ints)))
+    same = lambda s1, b1, s2, b2: all(bitwise_equal(x, y) for x, y in (
+        (b1.position, b2.position), (b1.scalars, b2.scalars), (s1.vecs, s2.vecs),
+        (s1.flts, s2.flts), (s1.ints, s2.ints)))
+    replay_bitwise = same(gk, gbk, sk, bk)
+    rk, rbk = _k3_eager(model, cfg, sched, states, MCLMC_PARITY_TUNE, MCLMC_F32_DRAWS)
+    rerun_bitwise = same(rk, rbk, sk, bk)
     out["graph_replay_bitwise"] = replay_bitwise
+    out["rerun_bitwise"] = rerun_bitwise
+    del sk, bk, sp, bp, gk, gbk, rk, rbk
+    # float32 under the low-rank metric at the path's shapes (staged)
+    lmodel, lcfg, lsched, lstates = _mclmc_lr_fleet(LR_CHAINS, torch.float32, 12, LR_CUTOFF,
+                                                    MCLMC_PARITY_TUNE)
+    (sk, bk), (sp, bp) = _mclmc_both(lmodel, lcfg, lsched, lstates, MCLMC_PARITY_TUNE,
+                                     MCLMC_LR_F32_DRAWS)
+    lr32 = _mclmc_f32_shares(bk, bp)
+    out["lowrank_f32"] = lr32
+    out["plans"]["lowrank_f32"] = mclmc_kernel.plan(LR_CHAINS, LR_DIM, LR_RANK, torch.float32,
+                                                    DEVICE).form
     ctx["mclmc_max_abs_err"] = max(
         [v["frozen_max_abs"] for v in out["glm_f64"].values() if isinstance(v, dict)
          and "frozen_max_abs" in v] + [0.0])
+    ctx["mclmc_lr_max_abs_err"] = max(
+        [v["max_abs"] for v in out["lowrank_f64"].values() if isinstance(v, dict)
+         and "max_abs" in v] + [0.0])
     emit({"phase": "mclmc_parity", **out})
-    if f32["share_equal_diverging"] < F32_MIN_SHARE_STEPS:
-        failed.append(f"float32 diverging share {f32['share_equal_diverging']}")
-    if f32["share_draws_within_tol"] < F32_MIN_SHARE_DRAWS:
-        failed.append(f"float32 draws share {f32['share_draws_within_tol']}")
+    for tag, shares in (("GLM", f32), ("low-rank", lr32)):
+        if shares["share_equal_diverging"] < F32_MIN_SHARE_STEPS:
+            failed.append(f"float32 {tag} diverging share {shares['share_equal_diverging']}")
+        if shares["share_draws_within_tol"] < F32_MIN_SHARE_DRAWS:
+            failed.append(f"float32 {tag} draws share {shares['share_draws_within_tol']}")
     if not replay_bitwise:
         failed.append("graph replay not bitwise the launches one by one")
+    if not rerun_bitwise:
+        failed.append("two runs from one state not bitwise equal")
     assert not failed, failed
 
 
@@ -3678,6 +3797,26 @@ def _correlated_gaussian(dim: int = 8, factor: float = 40.0, seed: int = 0):
 
 def phase_mclmc(ctx):
     """``sample(sampler="mclmc")`` on the card (see the docstring)."""
+    import nutpie_tpu_torch.sampler.mclmc as mclmc_module
+
+    # the card's route makes no normals tensor: every call of draw_normals
+    # during this phase is counted (K3 draws the refresh normals itself)
+    draw_normals = mclmc_module.draw_normals
+    normals_calls = []
+
+    def counted_draw_normals(*args, **kwargs):
+        normals_calls.append(args[1:])
+        return draw_normals(*args, **kwargs)
+
+    mclmc_module.draw_normals = counted_draw_normals
+    try:
+        return _mclmc_runs(ctx, normals_calls)
+    finally:
+        mclmc_module.draw_normals = draw_normals
+
+
+def _mclmc_runs(ctx, normals_calls: list):
+    """The mclmc phase's three runs (``phase_mclmc``)."""
     import numpy as np
     import torch
 
@@ -3699,6 +3838,7 @@ def phase_mclmc(ctx):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k3, k2, k1 = mclmc_kernel.launches, step_kernel.launches, chunk_kernel.launches
+    assert not normals_calls, f"draw_normals called on the card's route: {normals_calls}"
     total = MCLMC_GLM_TUNE + GLM_DRAWS
     chunks = math.ceil(total / GLM_CHUNK)
     want = _k3_launches(chunks, total, 1)
@@ -3789,8 +3929,11 @@ def phase_mclmc(ctx):
           "posterior_divergences": int(raw_lr["stats"]["diverging"][:, MCLMC_LR_TUNE:].sum())}
     if not updates or updates[-1]["chains_with_a_kept_slot"] < 0.9 * LR_CHAINS:
         failed.append(f"low-rank MCLMC on the 1000-d Gaussian: slots kept {updates}")
+    if normals_calls:
+        failed.append(f"draw_normals called on the card's route: {normals_calls}")
     emit({"phase": "mclmc", "glm": glm, "correlated_gaussian_low_rank": corr,
-          "gaussian_1000_low_rank": lr, "failed": failed, "card": ctx["card"]})
+          "gaussian_1000_low_rank": lr, "draw_normals_calls": len(normals_calls),
+          "failed": failed, "card": ctx["card"]})
     assert not failed, failed
 
 
@@ -3980,6 +4123,7 @@ def main() -> int:
                 "bound_ms": ctx["lr_step_bound_ms"],
                 "bound_by": ctx["lr_step_bound_by"],
                 "library_ms": ctx["lr_library_ms"],
+                "library_device_ms": ctx["lr_library_device_ms"],
                 "library": "two torch.bmm per metric application, times the applications "
                            "a step (the metric part only)",
                 "parity": "ok",
@@ -4013,9 +4157,23 @@ def main() -> int:
             "device_ms": ctx["mclmc_device_ms"],
             **ctx["mclmc_graphs"],
             "geometry": ctx["k3_geometry"]["float32"],
-            "low_rank": {k: ctx["mclmc_lr"][k] for k in (
-                "k3_ms_per_step", "k3_device_ms_per_step", "plain_ms_per_step",
-                "bytes_bound_ms_per_step", "share_of_bound")},
+            "plan": ctx["k3_plans"]["float32"]["glm"],
+            "low_rank": {
+                "shapes": f"{LR_CHAINS} chains, dim {LR_DIM}, rank {LR_RANK}, float32",
+                "plan": ctx["mclmc_lr"]["plan"],
+                "max_abs_err": ctx["mclmc_lr_max_abs_err"],
+                "ms": ctx["mclmc_lr"]["k3_ms_per_step"],
+                "device_ms": ctx["mclmc_lr"]["k3_device_ms_per_step"],
+                "plain_ms": ctx["mclmc_lr"]["plain_ms_per_step"],
+                "bound_ms": ctx["mclmc_lr"]["bytes_bound_ms_per_step"],
+                "bound_by": "bytes",
+                "share_of_bound": ctx["mclmc_lr"]["share_of_bound"],
+                "library_ms": ctx["mclmc_lr"]["library_ms_per_step"],
+                "library_device_ms": ctx["mclmc_lr"]["library_device_ms_per_step"],
+                "library": "two torch.bmm per metric application, three applications a "
+                           "step (the metric part only)",
+                "parity": "ok",
+            },
             "parity": "ok",
         }]})
     print(ctx["card"], flush=True)

@@ -1,6 +1,6 @@
-// The low-rank metric's products for the step kernel (step_kernel.cu), run
-// by a block of kLrWarps warps per chain with the chain's basis in shared
-// memory.
+// The low-rank metric's products for the step kernel (step_kernel.cu) and
+// the MCLMC kernel (mclmc.cu), run by a block of kLrWarps warps per chain
+// with the chain's basis in shared memory.
 //
 // The metric of nutpie_tpu_torch/sampler/low_rank.py (the JAX package's
 // nutpie_tpu/sampler/low_rank.py:46-68):
@@ -270,6 +270,22 @@ struct LowRank {
   // sets out into the tiles.
   __device__ __forceinline__ void prefetch() {
     if (tma && !streamed && next >= 0) use(next);
+  }
+
+  // Staged by TMA, in the chain's last pass as soon as the warp is done
+  // with tile t: the block's next chain's tile t sets out into it, so the
+  // copies overlap the rest of the pass (the MCLMC kernel's half-step);
+  // prefetched() closes the staging after the pass.  Elsewhere nothing.
+  __device__ __forceinline__ void prefetch_tile(int t) {
+    if (!tma || streamed || next < 0 || staged == next) return;
+    __syncwarp();  // the warp's lanes are done with tile t
+    copy(basis + size_t(next) * dim * R, t, tiles + size_t(t) * tile_elems, bars + t);
+  }
+
+  __device__ __forceinline__ void prefetched() {
+    if (!tma || streamed || next < 0 || staged == next) return;
+    ++stagings;
+    staged = next;
   }
 
   __device__ __forceinline__ void fetch(int t) {

@@ -37,8 +37,12 @@ chunk's scratch (``MclmcScratch``), so the state is the JAX state's.
 Randomness: the draw with absolute index d keys its steps by
 ``split(fold_in(fold_in(key, 4), d), steps_per_draw)``; step j's refresh
 draws ``normal(keys[j], (dim,))`` and a divergent draw's fresh velocity is
-the same normals of its last step.  ``draw_normals`` makes a chunk's
-``[C, L, steps_per_draw, dim]`` before it runs.
+the same normals of its last step.  Under the partitionable layout
+``split(k, S)[j]`` is ``fold_in(k, j)``, so step j's key is
+``fold_in(fold_in(fold_in(key, 4), d), j)``.  The plain version takes a
+chunk's ``[C, L, steps_per_draw, dim]`` from ``draw_normals`` before it
+runs; the kernel draws each step's normals itself from ``refresh_keys``
+(``fold_in(key, 4)``), as ``step_normals`` mirrors.
 """
 
 from __future__ import annotations
@@ -276,6 +280,24 @@ def draw_normals(keys: torch.Tensor, chunk_start: int, chunk_len: int, steps: in
     return threefry.normal(threefry.split(base, steps), (dim,), dtype)
 
 
+def refresh_keys(keys: torch.Tensor) -> torch.Tensor:
+    """The refresh normals' key that K3 takes (``McPtrs.keys``): the words
+    of ``fold_in(key, 4)`` as int32 ``[C, 2]`` (bit patterns of the uint32
+    words), folded once a chunk."""
+    k = threefry.fold_in_data(keys, 4)
+    return torch.where(k >= 2**31, k - 2**32, k).to(torch.int32)
+
+
+def step_normals(keys4: torch.Tensor, draw_idx, step, dim: int, dtype) -> torch.Tensor:
+    """Step ``step`` of draw ``draw_idx`` (absolute; ints or ``[C]``
+    tensors) from ``refresh_keys``' words ``keys4 [C, 2]``: ``normal(fold_in(
+    fold_in(keys4, d), j), (dim,))``, ``[C, dim]``, as K3's settle draws it
+    (``csrc/mclmc.cu``: StepNormals)."""
+    k = keys4.to(torch.int64) & threefry.MASK32
+    k = threefry.fold_in_data(k, draw_idx)
+    return threefry.normal(threefry.fold_in_data(k, step), (dim,), dtype)
+
+
 class PlainMclmcSteps:
     """K3's plain version over one chunk: the three pieces in torch, on any
     device.  ``states`` and ``bufs`` and the scratch are updated in place,
@@ -431,6 +453,17 @@ class PlainMclmcSteps:
         sc.step.copy_(torch.where(m, torch.zeros_like(sc.step), sc.step))
 
 
+def plain_steps(cfg: MclmcConfig, sched: Schedule, chunk_start: int, limit: int,
+                states: MclmcState, bufs: MclmcBuffers,
+                scratch: MclmcScratch) -> PlainMclmcSteps:
+    """The plain pieces of one chunk, with the chunk's refresh normals from
+    ``draw_normals`` (K3 draws its own)."""
+    _, _, dim = states.vecs.shape
+    normals = draw_normals(states.key, chunk_start, bufs.position.shape[1],
+                           cfg.steps_per_draw, dim, states.vecs.dtype)
+    return PlainMclmcSteps(cfg, sched, chunk_start, limit, states, normals, bufs, scratch)
+
+
 def mclmc_adapt_update(cfg: AdaptConfig, sched: Schedule, adapt_vecs, adapt_flts,
                        draw_idx, x, g, ok, tuning):
     """MCLMC's per-draw metric update (``mclmc.py:263-293``): Welford adds
@@ -486,19 +519,21 @@ def update_low_rank(cfg: MclmcConfig, states: MclmcState, bufs: MclmcBuffers,
 class MclmcChunkRunner:
     """``run_chunk(states, chunk_start, limit, sched) -> (states, bufs)``.
 
-    Per chunk (``nutpie_tpu/sampler/mclmc.py:321-378``): the refresh
-    normals, then ``limit`` draws of ``steps_per_draw`` steps, each two
+    Per chunk (``nutpie_tpu/sampler/mclmc.py:321-378``): ``limit`` draws
+    of ``steps_per_draw`` steps, each two
     batched ``model.logp_and_grad`` calls with a ``kick`` and a ``settle``
     after them, then the low-rank update.  Draws past ``limit`` are not
     run (the JAX runner masks their state and the host drops their rows).
     There is no pooling and no depth cap.
 
-    On CUDA tensors the pieces are K3's launches (``mclmc_kernel``): one
-    draw's steps, the log densities with their autograd and the launches,
-    are captured once per chunk in a CUDA graph and replayed ``limit``
-    times (the draw counter is the state's, on the device).  A log density
-    that cannot be captured raises.  ``plain=True`` runs the plain version
-    on any device (the comparisons on the card use it).
+    On CUDA tensors the pieces are K3's launches (``mclmc_kernel``), which
+    draw the refresh normals in the kernel: one draw's steps, the log
+    densities with their autograd and the launches, are captured once per
+    chunk in a CUDA graph and replayed ``limit`` times (the draw counter is
+    the state's, on the device).  A log density that cannot be captured
+    raises.  ``plain=True`` runs the plain version on any device (the
+    comparisons on the card use it), with the chunk's normals from
+    ``draw_normals``, as the plain pieces on CPU tensors take them.
     """
 
     def __init__(self, model: ModelDef, cfg: MclmcConfig, chunk_len: int, dtype,
@@ -517,13 +552,13 @@ class MclmcChunkRunner:
         chunk_start, limit = int(chunk_start), int(limit)
         C, _, dim = states.vecs.shape
         device = states.vecs.device
-        normals = draw_normals(states.key, chunk_start, self.chunk_len, cfg.steps_per_draw,
-                               dim, self.dtype)
         bufs = init_buffers(cfg, self.chunk_len, C, dim, self.dtype, device)
         scratch = init_scratch(C, dim, self.dtype, device)
         states = states.clone()  # the chunk's own, updated in place
-        args = (cfg, sched, chunk_start, limit, states, normals, bufs, scratch)
-        steps = PlainMclmcSteps(*args) if self.plain else mclmc_kernel.chunk(*args)
+        if self.plain:
+            steps = plain_steps(cfg, sched, chunk_start, limit, states, bufs, scratch)
+        else:  # K3 on the card, drawing its normals; the plain pieces on the CPU
+            steps = mclmc_kernel.chunk(cfg, sched, chunk_start, limit, states, bufs, scratch)
         z = steps.begin(states)
 
         def one_draw():
