@@ -8,19 +8,24 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases (each prints one JSON line):
 
 1. ``build``: torch version, the card's name and power limit, and the
-   build of the chunk kernel (``nutpie_tpu_torch/csrc/megakernel.cu``), the
-   step kernel (``csrc/step_kernel.cu``) and the MCLMC kernel
-   (``csrc/mclmc.cu``) from the sources in the checkout with ``nvcc``, one
-   process each, together; their registers and spill bytes (any spill of
-   K1 or K2 in either dtype fails, and of K3 in float32), and the
-   step kernel's low-rank plan at the low-rank path's shapes in both
-   dtypes, whose shared memory must be what the kernel lays out.
+   build of the chunk kernel (``nutpie_tpu_torch/csrc/megakernel.cu``)
+   from the sources in the checkout with ``nvcc``, its registers and
+   spill bytes (any spill fails).  The libraries of the step kernel
+   (``csrc/step_kernel.cu``: float32, float64 and its device query) and
+   of the MCLMC kernel (``csrc/mclmc.cu``) start to compile beside it, one
+   ``nvcc`` process each, while the phases that run K1 alone (``parity``,
+   ``main``, ``warmup``, ``timing``) run; ``build_steps``, after them,
+   waits for those builds and prints each one's seconds, their registers
+   and spill bytes (any spill of K2 in either dtype fails, and of K3 in
+   float32), and the step kernel's low-rank plan at the low-rank path's
+   shapes in both dtypes, whose shared memory must be what the kernel
+   lays out.
 2. ``parity``: the kernel against its plain torch version on the card, on
    radon at full width (173 parameters, 919 observations), 64 chains:
-   one fresh warmup chunk of 8 draws in float64 (ints, step counts and
-   Welford counts exact; positions to rtol 1e-3), one frozen chunk of 8
-   draws from the state that follows (ints exact; floats to rtol 1e-6,
-   atol 1e-8), and one fresh float32 warmup chunk (finite; shares of equal
+   one fresh warmup chunk of ``PARITY_CHUNK`` draws in float64 (ints, step
+   counts and Welford counts exact; positions to rtol 1e-3), one frozen
+   chunk of as many draws from the state that follows (ints exact; floats
+   to rtol 1e-6, atol 1e-8), and one fresh float32 warmup chunk (finite; shares of equal
    step counts and of close draws above their limits).
 3. ``main``: ``sample()`` on radon, 2048 chains x (300 tune + 300 draws),
    pooled mass matrix and step size, on CUDA in float32, with the kernel's
@@ -34,10 +39,10 @@ Phases (each prints one JSON line):
    switches, the step-size freeze at draw 270, the end of tuning), while
    the kernel carries the fleet through the main path's warmup chunks
    with pooling, rescue and the fleet depth cap between them as in
-   ``sample()``.  Float64 from a fresh fleet, windows of up to 8 draws:
-   ints, step counts and Welford counts exact, positions and adaptation
-   state to rtol 1e-3.  Float32 from another fresh fleet, windows of 4
-   draws: finite draws and adaptation state, and per window the shares of
+   ``sample()``.  Float64 from a fresh fleet, windows of 2 draws: ints,
+   step counts and Welford counts exact, positions and adaptation state
+   to rtol 1e-3.  Float32 from another fresh fleet, windows of 2 draws:
+   finite draws and adaptation state, and per window the shares of
    equal step counts and of close draws and the fleet's step size within
    ``F32_WARM_BARS``.
 5. ``timing``: the kernel and its plain version on one posterior chunk at
@@ -48,7 +53,8 @@ Phases (each prints one JSON line):
    over 3.35 TB/s.  The two are held against each other at these shapes:
    in float32, at least 99.9% of the step counts equal and 99% of the
    draws within 1e-3 (relative to 1 + |x|); from the same state in
-   float64, ints exact and floats to rtol 1e-6 / atol 1e-8.
+   float64 over the chunk's first ``TIMING_F64_DRAWS`` draws, ints exact
+   and floats to rtol 1e-6 / atol 1e-8 (the float64 chunk timed whole).
 6. ``profile``: the main path once more under ``torch.profiler``: device
    time by kernel and the device's idle share of the wall time, the
    device-to-host copies into pinned and pageable memory and the seconds
@@ -70,15 +76,17 @@ from a CUDA graph) at the logistic GLM's width from ``bench_glm.py``
    version (``leapfrog_begin``, and ``leapfrog_finish`` then
    ``leapfrog_begin``) on the card, both running the same torch logp.
    Float64 at full width, 64 chains: one
-   fresh 8-draw warmup window from draw 0 (ints, step counts and Welford
-   counts exact, positions and adaptation state to rtol 1e-3), then a
-   16-draw frozen chunk (ints exact, floats to rtol 1e-6 / atol 1e-8).
-   Float64 ``ill_conditioned_gaussian(dim=1000)``, 16 chains, an 8-draw
-   frozen chunk: ints and step counts exact (lanes stride past 256
-   coordinates).  Float64 eight schools, 16 chains, in each of four
+   fresh ``GLM_F64_WARM``-draw warmup window from draw 0 (ints, step counts
+   and Welford counts exact, positions and adaptation state to rtol 1e-3),
+   then a ``GLM_F64_FROZEN``-draw frozen chunk (ints exact, floats to rtol
+   1e-6 / atol 1e-8).
+   Float64 ``ill_conditioned_gaussian(dim=1000)``, 16 chains, a frozen
+   chunk of ``ILL_DRAWS``: ints and step counts exact (lanes stride past
+   256 coordinates).  Float64 eight schools, 16 chains, in each of four
    settings with branches of their own (``SETTINGS``: step size jitter,
-   ``mindepth`` 3, no U-turn check, the draw-based mass matrix): an
-   8-draw warmup window and an 8-draw frozen chunk at those bars.  Beside
+   ``mindepth`` 3, no U-turn check, the draw-based mass matrix): a
+   warmup window and a frozen chunk of ``SETTINGS_DRAWS`` each at those
+   bars.  Beside
    the GLM readings, the plain version on the CPU
    against the card's from the same state: how far two plain versions
    that round differently part over the same draws.  Float32 at the main shapes, from a fleet the step
@@ -109,7 +117,7 @@ from a CUDA graph) at the logistic GLM's width from ``bench_glm.py``
    CUDA graphs at ``unroll`` 1, 4, 8 and 16 (host wall, and the machine
    steps each ran).  Then the
    same for K2's low-rank branch at the low-rank path's shapes (below):
-   one frozen 8-draw chunk of the float32 parity fleet, K2 with R = 32
+   one frozen ``LR_F32_CHUNK``-draw chunk of the float32 parity fleet, K2 with R = 32
    and with R = 0 (the same fleet without its metric), the logp+grad
    call by CUDA events (and over the first ``LR_DEVICE_STEPS`` steps by
    device time under ``torch.profiler``, reported beside them), the plain
@@ -123,7 +131,8 @@ from a CUDA graph) at the logistic GLM's width from ``bench_glm.py``
 
 K2's low-rank branch (``adaptation="low_rank"``) on the 1000-d
 ill-conditioned Gaussian (``nutpie_tpu/models/analytic.py:166``,
-BASELINE's 1000-d target) at 1024 chains, max_rank 32, chunk 80:
+BASELINE's 1000-d target) at 1024 chains (the path's own run at
+``LR_PATH_CHAINS``), max_rank 32, chunk 80:
 
 10. ``lowrank_parity``: K2 against its plain halves on the card.  Float64,
     16 chains, metrics from the port's ``estimate_low_rank`` on each
@@ -134,14 +143,14 @@ BASELINE's 1000-d target) at 1024 chains, max_rank 32, chunk 80:
     this target keeps none (the branch's arithmetic on an all-padded
     metric); dim 500, R 32 (staged by TMA); dim 33, R 5 with two slots
     padded (660 bytes a basis, not 16-byte aligned: staged by loads).  Each
-    runs a warmup window from draw 0 (4 draws; the last two's trees stop
+    runs a warmup window from draw 0 (2 draws; the last two's trees stop
     at depth 6; ints, step counts and Welford counts exact, floats to
-    1e-3), then a frozen chunk (8 draws) (ints exact, floats and the
+    1e-3), then a frozen chunk (2 draws) (ints exact, floats and the
     stored gradients to rtol 1e-6 / atol 1e-8).  Float32 at the main
-    shapes, one frozen 8-draw chunk: at least
+    shapes, one frozen ``LR_F32_CHUNK``-draw chunk: at least
     99.9% of step counts equal and 99% of draws within 1e-3 (relative to 1
     + abs x).
-11. ``lowrank``: ``sample(adaptation="low_rank")``, 1024 chains x (300
+11. ``lowrank``: ``sample(adaptation="low_rank")``, ``LR_PATH_CHAINS`` x (300
     tune + ``LR_DRAWS`` draws), float32, seed 42, default settings but the
     eigenvalue cutoff ``LR_CUTOFF`` (see there): K2 launched once per
     chunk and once per machine step, its graph replays and capture
@@ -195,12 +204,12 @@ instantiations for NUTS with ``microcanonical_trajectory=True``):
     the glm phase's posterior bars.  Then ``adaptation="low_rank"``
     on ``tests/test_mclmc.py``'s correlated Gaussian (dim 8, factor 40) at
     1024 chains with its variance-ratio bar [0.5, 1.5]; then low-rank
-    MCLMC on the 1000-d Gaussian, 1024 chains x (300 + 100), cutoff
+    MCLMC on the 1000-d Gaussian, ``LR_PATH_CHAINS`` x (300 + 100), cutoff
     ``LR_CUTOFF``: after the boundary updates at least 90% of chains keep
     a slot; its variance ratios and R-hat are readings.
 12c. ``micro``: K2's microcanonical instantiations against the plain
     halves: float64 on the GLM (64 chains; a ``MICRO_GLM_WARM``-draw
-    warmup window, see there, and an 8-draw frozen chunk, with the CPU's
+    warmup window, see there, and a ``MICRO_FROZEN``-draw frozen chunk, with the CPU's
     plain version over the window beside; a second warmup window of
     ``MICRO_GLM_LATE_WARM`` draws from draw ``MICRO_GLM_LATE``, where the
     trees have left the depth cap, its integers held and its floats read,
@@ -225,8 +234,8 @@ The options path (every NUTS step-size and depth option and the
 divergence rows on the card):
 
 12. ``options_parity``: each kernel against its plain version with the
-    options on, float64, 16 chains, maxdepth 6, a 4-draw warmup window then a 4-draw
-    frozen chunk at the parity bars: K1 on radon under Adam, a fixed step,
+    options on, float64, 16 chains, maxdepth 6, an ``OPTIONS_DRAWS``-draw
+    warmup window then a frozen chunk as long at the parity bars: K1 on radon under Adam, a fixed step,
     a target integration time with an extra doubling, and the four
     settings of ``SETTINGS``; K2 on the GLM under Adam, a fixed step and a
     target time, on the centered eight schools with the divergence rows
@@ -282,12 +291,57 @@ started before chunk k is converted):
     and the writer printed; the directory deleted).  That run stores no
     warmup and cuts the draws to ``ZARR_DRAWS`` (see there).
 
+Flow adaptation (the NUTS path through K2 and the MCLMC path through K3,
+each under the fixed metric, in each chain's flow base space):
+
+15. ``flow_parity``: K2 under the fixed metric against its plain version
+    on the pulled-back log density of ``funnel(dim=101, scale=1.0)`` under
+    seeded flows whose couplings act (the gate's flow config), 64 chains,
+    float64: a fresh warmup window of ``FLOW_WARM_DRAWS`` (ints, step counts and Welford
+    counts exact, floats to 1e-3; the inverse mass stays at ones), then a
+    frozen chunk of ``FLOW_FROZEN_DRAWS`` (ints exact, floats to rtol 1e-6 /
+    atol 1e-8, the gradients too); the same again with ``use_orbit`` (the orbit rows and
+    buffers to the same bars), and with ``use_orbit`` beside the divergence
+    rows of ``store_divergences`` (``FLOW_DIV``, 16 chains: a low ``max_energy_error``
+    forces divergent draws; the divergence buffers to the same bars, finite
+    exactly where a draw diverged); float32 at those shapes (the float32
+    fleet's): the fresh warmup window under the warmup phase's early bars,
+    then a frozen chunk under the frozen chunks' share bars.  K3 under the
+    fixed metric, each chunk through the runner's graph and the flow's
+    chunk boundary: on ``std_normal(4, 1, 3)`` under seeded flows at the
+    MCLMC flow run's 64 chains, a tuning chunk of ``FLOW_WARM_DRAWS`` from
+    draw 0 (where the flag acts: the windows must not run) in float64
+    (ints and ``diverging`` exact, floats to K3's warmup bars, rtol 1e-3)
+    and in float32 (the run's dtype: K3's float32 share bars); on the
+    funnel's 64 chains in float64 (the strided form), a tuning chunk under
+    the same bars, the kernel's own run to the end of ``FLOW_K3_TUNE``,
+    then a frozen chunk under K3's frozen bars.  ``chunk_flow_update`` on
+    the card against the CPU, float64, ``FLOW_TRAIN_STEPS`` Adam steps:
+    every output to rtol 1e-6, ``flow_updates`` exact.
+16. ``flow``: ``sample(adaptation="flow")`` on the card.  The reference
+    gate in float64 (``tests/test_flow.py:242-288``: its model, flow,
+    chains, draws, seed and update cadence): 0 divergences, ESS(v) and
+    the least ESS over ``x[..., 0:100:10]`` above 1000, the mean Fisher
+    distance of the last 200 draws below 0.1, printed beside the JAX
+    package's CPU margins (``tests/reference/flow_gate_margins.json``,
+    only read).  The same model and flow as a float32 fleet of 64 chains
+    under the float32 recipe: finite draws, v's mean within 0.1 of 0 and
+    sd within 0.1 of 1, K2 launched once a chunk and once a machine step
+    (all from graph replays), K1 never; divergences, the Fisher tail,
+    ESS, ESS/s, gradients/s, the wall, the seconds of each flow training
+    and of the captures read.  MCLMC with flow on
+    ``tests/test_mclmc.py:98-108``'s Gaussian, 64 chains x (800 + 2000),
+    float32, flows trained every ``FLOW_MCLMC_FREQ`` draws: its bars, K3
+    launched once a chunk and twice a step.  K2's and K3's fixed-metric
+    steps timed (events, device time, the plain version, the byte bound).
+
 Every phase that reads split R-hat and bulk ESS (``column_diagnostics``)
 also computes them on the card with ``diagnostics_device`` and holds
 them to the host's to rtol ``DIAG_RTOL``.
 
 Then the script's seconds, the kernels line (K1; K2 with its low-rank
-branch and its microcanonical instantiations; K3), the card line, and the
+branch, its microcanonical instantiations and its fixed metric; K3 with
+its low-rank form and its fixed metric), the card line, and the
 last line
 
 ``{"ok": true, "device": {...}}``.  Every phase runs even after one
@@ -325,11 +379,13 @@ RESUME_DRAWS = 84
 # 44.47 s to read back (chip_smoke, PR 8).  Cut to 50 when the MCLMC and
 # microcanonical phases joined the script (its time limit), then to 18 (50
 # took 14.56 s to write and 33.22 s to read back with the whole script at
-# 1109.1 s of its 1200; 18 took 10.28 and 27.02 s): the draws lie in one
-# device chunk, and the last Zarr chunk (2 draws) is still flushed partial
-ZARR_DRAWS = 18
-# 8 draws a parity chunk keep the whole run near ten minutes
-PARITY_CHAINS, PARITY_CHUNK = 64, 8
+# 1109.1 s of its 1200; 18 took 10.28 and 27.02 s), then to 2 (18 took
+# 11.5 and 34.7 s in a 1207.6 s script): the draws lie in one device chunk,
+# and their Zarr chunk (2 of 16 draws) is flushed partial
+ZARR_DRAWS = 2
+# 8 draws a parity chunk kept the whole run near ten minutes; cut to 4
+# when the flow phases joined the script, then to 2 (its time limit)
+PARITY_CHAINS, PARITY_CHUNK = 64, 2
 # a chain count that divides neither the chains per block nor the card's
 # resident chain slots, so the chain queue runs dry part-way through blocks
 RAGGED_CHAINS = 61
@@ -378,9 +434,12 @@ F32_WARM_BARS = {"early": (0.9, 0.0, 1e-2), "late": (0.999, 0.9, 1e-3)}
 # back into the step size and mass matrix, so over a long stretch even two
 # plain versions part ways (PERF.md, Findings); over 2048 chains float64 stays
 # within 1e-3 for about 8 draws (4 at a fresh start), float32 for about 4.
+# Both held 4-draw windows when the flow phases joined the script (float64
+# held 8 until then: (84, 8), (154, 8), (234, 8), (266, 8), (292, 8)),
+# and 2 since (the script's time limit): each still holds its event's draw
 WINDOWS = {
-    "float64": ((0, 4), (84, 8), (154, 8), (234, 8), (266, 8), (292, 8)),
-    "float32": ((0, 4), (87, 4), (156, 4), (236, 4), (268, 4), (296, 4)),
+    "float64": ((0, 2), (89, 2), (158, 2), (238, 2), (269, 2), (298, 2)),
+    "float32": ((0, 2), (89, 2), (158, 2), (238, 2), (269, 2), (298, 2)),
 }
 EARLY_END = 90
 # the GLM path (bench_glm.py:17-22; its 700 draws cut to 300) and its
@@ -391,10 +450,24 @@ GLM_MONITORED = list(range(0, GLM_DIM, max(1, GLM_DIM // 24)))
 # the GLM profile's cut of tune and draws (the trace of every launch of the
 # whole path would be too large, and the profiler's processing grows with
 # its events: 64 + 64 until the low-rank path joined the script, 32 + 32
-# until the MCLMC and microcanonical phases did); the control phase's busy
-# caller runs the same cut
-GLM_PROFILE_TUNE, GLM_PROFILE_DRAWS = 16, 16
-STEP_PARITY_CHAINS, ILL_DIM, ILL_CHAINS = 64, 1000, 16
+# until the MCLMC and microcanonical phases did, 16 + 16 until the flow
+# phases did, then 8 + 8, cut for the script's time limit); the control phase's
+# busy caller runs the same cut
+GLM_PROFILE_TUNE, GLM_PROFILE_DRAWS = 4, 4
+# step_parity's 1000-d Gaussian: its trees run to the depth limit, so its
+# plain version is most of the phase (8 draws until the flow phases joined
+# the script, then 4, then 2, cut for its time limit)
+STEP_PARITY_CHAINS, ILL_DIM, ILL_CHAINS, ILL_DRAWS = 64, 1000, 16, 2
+# step_parity's float64 GLM: a fresh warmup window, then a frozen chunk
+# (8 + 16 draws until the script outran its time limit on a slower host)
+GLM_F64_WARM, GLM_F64_FROZEN = 4, 8
+# the timing phase's float64 chunk is held against its plain version over
+# its first draws (the whole 128-draw chunk until a slower host took the
+# script past its time limit), and timed whole
+TIMING_F64_DRAWS = 32
+# the chains of step_parity's CPU yardstick (all 64 until the flow phases
+# joined the script)
+YARD_CHAINS = 8
 # posterior means of the GLM against the Laplace approximation, in
 # posterior sd: catches a wrong gradient, not a subtle bias
 LAPLACE_SD_TOL = 0.25
@@ -419,6 +492,12 @@ DEVICE = "cuda"
 # cap (about 500 leapfrogs a draw), and 300 + 200 draws took 234 s on an
 # H100 80GB HBM3 at 700 W
 LR_DIM, LR_CHAINS, LR_TUNE, LR_DRAWS, LR_CHUNK, LR_RANK = 1000, 1024, 300, 40, 80, 32
+# the low-rank path's own run: 1024 chains at first, then cut to 512 for
+# the script's time limit (the run took 95.7 s of a 1207.6 s
+# script; the timings and parity phases keep the 1024 chains above), then
+# to 256 (512 took 53.7 s of a 1037.4 s script, which a slower host took
+# past its 1200 s)
+LR_PATH_CHAINS = 256
 LR_MONITORED = list(range(0, LR_DIM, 16))
 LR_VAR_BAND = (0.8, 1.25)
 # the main path's eigenvalue cutoff: at the default 100 the gradient-based
@@ -443,15 +522,17 @@ LR_PARITY_CHAINS, LR_WINDOW, LR_CUTOFF_ALL = 16, 80, 1.0 + 1e-6
 # merges, draws ended by a U-turn and by the depth limit) over 4 + 8 draws.
 # The first two ran 8 + 16 draws until the MCLMC and microcanonical phases
 # joined the script; cut to 4 + 8 for its time limit
+# (4 + 8 until the flow phases joined the script; 4 + 4 then; 2 + 2 since
+# a slower host took the script past its time limit)
 LR_F64_CASES = (
-    ("all_slots", LR_DIM, LR_RANK, LR_CUTOFF_ALL, 0, None, (4, 8)),
-    ("default_cutoff", LR_DIM, LR_RANK, 100.0, 0, None, (4, 8)),
-    ("dim500", 500, LR_RANK, LR_CUTOFF_ALL, 0, 6, (4, 8)),
-    ("dim33_rank5", 33, 5, LR_CUTOFF_ALL, 2, 6, (4, 8)),
+    ("all_slots", LR_DIM, LR_RANK, LR_CUTOFF_ALL, 0, None, (2, 2)),
+    ("default_cutoff", LR_DIM, LR_RANK, 100.0, 0, None, (2, 2)),
+    ("dim500", 500, LR_RANK, LR_CUTOFF_ALL, 0, 6, (2, 2)),
+    ("dim33_rank5", 33, 5, LR_CUTOFF_ALL, 2, 6, (2, 2)),
 )
 # the float32 low-rank parity chunk and the low-rank step timing's chunk
-# (16 draws until PR 9, cut for the script's time limit)
-LR_F32_CHUNK = 8
+# (16 draws at first, then 8, cut for the script's time limit)
+LR_F32_CHUNK = 4
 # plain machine steps timed at the low-rank shapes (each is a few ms), and
 # the kernel's steps timed by device time under the profiler (reported
 # beside the CUDA-event times the kernels line and its share of bound use)
@@ -565,25 +646,59 @@ def max_abs(a, b) -> float:
     return float((a - b).abs().nan_to_num(0).max())
 
 
+# the libraries of K2 (its float32 and float64 instantiations, and its
+# device query alone) and K3, compiled while the K1 phases run
+STEP_LIBS = ("step_kernel_f32", "step_kernel_f64", "step_device", "mclmc")
+# one nvcc each, in a process of its own (ops/build.py names its temporary
+# output by process, so a library the package builds at once stays whole)
+_BUILD_ONE = ("import importlib.util, sys; "
+              "spec = importlib.util.spec_from_file_location('build', sys.argv[1]); "
+              "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m); "
+              "m.build_all(sys.argv[2:])")
+_BUILDS: dict = {}
+
+
+def _start_step_builds() -> None:
+    """Start one process for each of ``STEP_LIBS``; a thread each waits
+    for it and keeps its end, exit code and output."""
+    import threading
+
+    script = os.path.join(ROOT, "nutpie_tpu_torch", "ops", "build.py")
+    t0 = time.perf_counter()
+    for name in STEP_LIBS:
+        proc = subprocess.Popen([sys.executable, "-c", _BUILD_ONE, script, name],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        entry = {"proc": proc, "t0": t0}
+
+        def wait(entry=entry):
+            out, err = entry["proc"].communicate()
+            entry.update(seconds=time.perf_counter() - entry["t0"], output=out + err)
+
+        entry["thread"] = threading.Thread(target=wait, daemon=True)
+        entry["thread"].start()
+        _BUILDS[name] = entry
+
+
+def _stop_step_builds() -> None:
+    """End any build process still running (a run cut short)."""
+    for entry in _BUILDS.values():
+        if entry["proc"].poll() is None:
+            entry["proc"].kill()
+            entry["proc"].wait()
+
+
 def phase_build(ctx):
+    """K1's library, with K2's and K3's started beside it (``build_steps``
+    waits for them)."""
     import torch
 
     from nutpie_tpu_torch.ops import build
     from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
-    from nutpie_tpu_torch.sampler.step_kernel import DIAG_FORM_TAGS, step_kernel
 
-    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
-
+    _start_step_builds()
     t0 = time.perf_counter()
-    # one nvcc each, together (K2's float32 and float64 instantiations
-    # in two, its device query in a third)
-    libs = build.build_all(["megakernel", "step_kernel_f32", "step_kernel_f64", "step_device",
-                            "mclmc"])
-    lib_path = libs["megakernel"]
+    lib_path = build.build_all(["megakernel"])["megakernel"]
     chunk_kernel.library()
-    step_kernel.library(torch.float32)
-    step_kernel.library(torch.float64)
-    mclmc_kernel.library()
     seconds = time.perf_counter() - t0
     ctx["card"] = card_line()
     # what was compiled, at the main path's configuration
@@ -597,6 +712,43 @@ def phase_build(ctx):
             geometry[tag] = chunk_kernel.geometry(_main_kernel_config(model, c), dtype,
                                                   torch.device("cuda"))
     ctx["geometry"] = geometry
+    emit({
+        "phase": "build", "torch": torch.__version__,
+        "cuda": torch.version.cuda, "card": ctx["card"],
+        "kind": torch.cuda.get_device_name(0),
+        "library": os.path.relpath(str(lib_path), ROOT),
+        "build_seconds": round(seconds, 3),
+        "building_beside": list(STEP_LIBS),
+        "geometry": geometry,
+    })
+    for tag in ("float32", "float32_adam"):
+        g32 = geometry[tag]
+        assert g32["resident_chains_per_sm"] >= 10 and g32["local_bytes_per_thread"] == 0, g32
+
+
+def phase_build_steps(ctx):
+    """K2's and K3's libraries (started by ``build``): their registers,
+    spill and plans."""
+    import torch
+
+    from nutpie_tpu_torch.ops import build
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import DIAG_FORM_TAGS, step_kernel
+
+    t0 = time.perf_counter()
+    if not _BUILDS:
+        _start_step_builds()
+    for entry in _BUILDS.values():
+        entry["thread"].join()
+    waited = time.perf_counter() - t0
+    failed = [f"{name}: {entry['output'][-4000:]}" for name, entry in _BUILDS.items()
+              if entry["proc"].returncode != 0]
+    assert not failed, "\n".join(failed)
+    libs = build.build_all(list(STEP_LIBS))
+    step_kernel.library(torch.float32)
+    step_kernel.library(torch.float64)
+    mclmc_kernel.library()
+    seconds = {name: round(entry["seconds"], 3) for name, entry in _BUILDS.items()}
     # K2's instantiations in both dtypes, with the low-rank plan of the
     # low-rank path's shapes (float32 stages the basis, float64 streams it)
     # and the diagonal plan of the GLM's, with the chains an SM holds
@@ -620,12 +772,8 @@ def phase_build(ctx):
                                                              DEVICE))}
     ctx["k3_geometry"], ctx["k3_plans"] = k3, k3_plans
     emit({
-        "phase": "build", "torch": torch.__version__,
-        "cuda": torch.version.cuda, "card": ctx["card"],
-        "kind": torch.cuda.get_device_name(0),
-        "library": os.path.relpath(str(lib_path), ROOT),
-        "build_seconds": round(seconds, 3),
-        "geometry": geometry,
+        "phase": "build_steps", "build_seconds": seconds,
+        "seconds_waited": round(waited, 3),
         "step_kernel": {
             "library": [os.path.relpath(str(libs[f"step_kernel_{sfx}"]), ROOT)
                         for sfx in ("f32", "f64")],
@@ -644,9 +792,6 @@ def phase_build(ctx):
             f"the MCLMC kernel spills in {dt}: {geo}"
         assert geo["lr_smem_bytes"] == k3_plans[dt]["low_rank"]["smem_bytes"], (geo, k3_plans)
         assert geo["lr_blocks_per_sm"] >= 1, geo
-    for tag in ("float32", "float32_adam"):
-        g32 = geometry[tag]
-        assert g32["resident_chains_per_sm"] >= 10 and g32["local_bytes_per_thread"] == 0, g32
     for dt, geo in k2.items():
         assert all(v == 0 for k, v in geo.items() if k.endswith("local_bytes")), \
             f"the step kernel spills in {dt}: {geo}"
@@ -1099,7 +1244,8 @@ def phase_timing(ctx):
     assert f32["share_draws_within_tol"] >= F32_MIN_SHARE_DRAWS, f32
 
     # float64 from the same state at the same shapes: ints exact, floats to
-    # rtol 1e-6 / atol 1e-8, as in the parity phase; then its time
+    # rtol 1e-6 / atol 1e-8, as in the parity phase, over the chunk's first
+    # TIMING_F64_DRAWS draws; then the whole chunk's time
     st64 = NutsMachineState(**{k: v.double() if v.is_floating_point() else v
                                for k, v in states.tensors().items()})
     mom64, jit64 = draw_randoms(st64.key, TUNE, CHUNK, model.ndim, torch.float64)
@@ -1107,13 +1253,17 @@ def phase_timing(ctx):
     def kernel64_once():
         return chunk_kernel(cfg, model, sched, TUNE, CHUNK, st64, mom64, jit64, True)
 
-    k64 = kernel64_once()
-    p64 = plain_chunk(cfg, model, sched, TUNE, CHUNK, st64.clone(), mom64, jit64, True)
+    n64 = TIMING_F64_DRAWS
+    mom_n, jit_n = draw_randoms(st64.key, TUNE, n64, model.ndim, torch.float64)
+    k64 = chunk_kernel(cfg, model, sched, TUNE, n64, st64, mom_n, jit_n, True)
+    p64 = plain_chunk(cfg, model, sched, TUNE, n64, st64.clone(), mom_n, jit_n, True)
     torch.cuda.synchronize()
     err64 = _check_frozen_f64("main-shape float64", *k64, *p64)
-    del p64
+    del p64, k64
+    kernel64_once()  # warm
     ms64, outs64 = _event_ms(kernel64_once, reps)
-    _assert_repeatable([k64] + outs64)
+    _assert_repeatable(outs64)
+    k64 = outs64[0]
     del outs64
 
     km = model.kernel_model
@@ -1136,6 +1286,7 @@ def phase_timing(ctx):
         "f32_share_equal_n_steps": f32["share_equal_n_steps"],
         "f32_share_draws_within_tol": f32["share_draws_within_tol"],
         "f32_tol": F32_TOL, "f64_ints_equal": True, "f64_max_abs_err_position": err64,
+        "f64_parity_draws": TIMING_F64_DRAWS,
         "f64_kernel_ms": ms64, "f64_leapfrogs": work64["leapfrogs"],
         "resident_chains_per_sm": ctx["geometry"]["float32"]["resident_chains_per_sm"],
         "card": ctx["card"],
@@ -1354,12 +1505,13 @@ def _glm_warm_fleet(seed):
 
 
 def _plain_on_cpu(model, cfg, sched, states, start, chunk_len, limit, frozen):
-    """The plain version on the CPU from the card's state: how far two
+    """The plain version on the CPU from the card's state, on its first
+    ``YARD_CHAINS`` chains (each chain's steps are its own): how far two
     plain versions that round differently part over the same chunk."""
     from nutpie_tpu_torch.sampler.run import make_chunk_runner
     from nutpie_tpu_torch.sampler.state import NutsMachineState
 
-    cpu = NutsMachineState(**{k: v.cpu() for k, v in states.tensors().items()})
+    cpu = NutsMachineState(**{k: v[:YARD_CHAINS].cpu() for k, v in states.tensors().items()})
     run = make_chunk_runner(model, cfg, chunk_len, states.vecs.dtype,
                             adapt_frozen=frozen, plain=True)
     return run(cpu, start, limit, sched)
@@ -1370,8 +1522,9 @@ def _yardstick(limit, plain_card, plain_cpu) -> dict:
     import torch
 
     (s_g, b_g), (s_c, b_c) = plain_card, plain_cpu
-    pos_g, pos_c = b_g.position[:, :limit].cpu(), b_c.position[:, :limit]
-    return {"ints_equal": bool(torch.equal(s_g.ints.cpu(), s_c.ints)),
+    n = s_c.ints.shape[0]
+    pos_g, pos_c = b_g.position[:n, :limit].cpu(), b_c.position[:, :limit]
+    return {"chains": n, "ints_equal": bool(torch.equal(s_g.ints[:n].cpu(), s_c.ints)),
             "max_abs_diff_position": max_abs(pos_g, pos_c)}
 
 
@@ -1387,30 +1540,32 @@ def _held(failed: list, check, *args):
 
 def glm_f64_parity(failed: list) -> dict:
     """K2 against its plain version on the GLM at full width in float64,
-    64 chains: a fresh 8-draw warmup window, then a 16-draw frozen chunk;
+    64 chains: a fresh ``GLM_F64_WARM``-draw warmup window, then a
+    ``GLM_F64_FROZEN``-draw frozen chunk;
     beside each, the plain version on the CPU against the card's.  Failed
     bars go to ``failed``."""
     import torch
 
     model = _glm_model()
     cfg, sched, states = _fleet(model, GLM_TUNE, STEP_PARITY_CHAINS, torch.float64, 21)
-    (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, states, 0, 8, 8, False)
-    warm_err = _held(failed, _check_warmup_f64, "GLM warmup window", 8, s_k, b_k, s_p, b_p)
-    warm_yard = _yardstick(8, (s_p, b_p),
-                           _plain_on_cpu(model, cfg, sched, states, 0, 8, 8, False))
+    w, n = GLM_F64_WARM, GLM_F64_FROZEN
+    (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, states, 0, w, w, False)
+    warm_err = _held(failed, _check_warmup_f64, "GLM warmup window", w, s_k, b_k, s_p, b_p)
+    warm_yard = _yardstick(w, (s_p, b_p),
+                           _plain_on_cpu(model, cfg, sched, states, 0, w, w, False))
     warm_share = float(((b_k.position - b_p.position).abs()
                         <= 1e-3 * (1.0 + b_p.position.abs())).double().mean())
-    (f_k, fb_k), (f_p, fb_p) = _steps_both(model, cfg, sched, s_k, 8, 16, 16, True)
+    (f_k, fb_k), (f_p, fb_p) = _steps_both(model, cfg, sched, s_k, w, n, n, True)
     frozen_err = _held(failed, _check_frozen_f64, "GLM frozen chunk", f_k, fb_k, f_p, fb_p)
-    frozen_yard = _yardstick(16, (f_p, fb_p),
-                             _plain_on_cpu(model, cfg, sched, s_k, 8, 16, 16, True))
+    frozen_yard = _yardstick(n, (f_p, fb_p),
+                             _plain_on_cpu(model, cfg, sched, s_k, w, n, n, True))
     return {"chains": STEP_PARITY_CHAINS, "n_data": GLM_N_DATA, "dim": GLM_DIM,
-            "warmup": {"draws": 8, "held": warm_err is not None,
+            "warmup": {"draws": w, "held": warm_err is not None,
                        "ints_equal": bool(torch.equal(s_k.ints, s_p.ints)),
                        "max_abs_err_position": max_abs(b_k.position, b_p.position),
                        "share_within_1e-3": warm_share, "rtol": 1e-3,
                        "plain_card_vs_cpu": warm_yard},
-            "frozen": {"draws": 16, "held": frozen_err is not None,
+            "frozen": {"draws": n, "held": frozen_err is not None,
                        "ints_equal": bool(torch.equal(f_k.ints, f_p.ints)),
                        "max_abs_err_position": max_abs(fb_k.position, fb_p.position),
                        "rtol": 1e-6, "atol": 1e-8,
@@ -1456,13 +1611,14 @@ SETTINGS = {
     "no_turning_check": ({"check_turning": False, "maxdepth": 4}, {}),
     "draw_diag": ({}, {"use_grad_based_estimate": False}),
 }
-SETTINGS_CHAINS, SETTINGS_DRAWS = 16, 8
+# 8 + 8 draws until the flow phases joined the script
+SETTINGS_CHAINS, SETTINGS_DRAWS = 16, 4
 
 
 def settings_f64_parity(failed: list) -> dict:
     """K2 against its plain version in each of ``SETTINGS``: float64 eight
-    schools, 16 chains, an 8-draw warmup window from a fresh fleet, then
-    an 8-draw frozen chunk.  Failed bars go to ``failed``."""
+    schools, 16 chains, a warmup window of ``SETTINGS_DRAWS`` from a fresh
+    fleet, then a frozen chunk as long.  Failed bars go to ``failed``."""
     import numpy as np
     import torch
 
@@ -1517,7 +1673,8 @@ def phase_step_parity(ctx):
 
     ill = ill_conditioned_gaussian(dim=ILL_DIM)
     icfg, isched, istates = _fleet(ill, GLM_TUNE, ILL_CHAINS, torch.float64, 23)
-    (i_k, ib_k), (i_p, ib_p) = _steps_both(ill, icfg, isched, istates, 0, 8, 8, True)
+    (i_k, ib_k), (i_p, ib_p) = _steps_both(ill, icfg, isched, istates, 0, ILL_DRAWS,
+                                           ILL_DRAWS, True)
     ill_ints = bool(torch.equal(i_k.ints, i_p.ints))
     ill_steps = nan_equal(ib_k.scalars[..., ns], ib_p.scalars[..., ns])
     settings = settings_f64_parity(failed)
@@ -1526,7 +1683,7 @@ def phase_step_parity(ctx):
     emit({
         "phase": "step_parity",
         "glm_f64": glm64,
-        "gaussian1000_f64": {"chains": ILL_CHAINS, "dim": ILL_DIM, "draws": 8,
+        "gaussian1000_f64": {"chains": ILL_CHAINS, "dim": ILL_DIM, "draws": ILL_DRAWS,
                              "ints_equal": ill_ints, "n_steps_equal": ill_steps,
                              "max_rel_diff_position": max_rel(ib_k.position, ib_p.position),
                              "leapfrogs": int(ib_k.scalars[..., ns].nansum())},
@@ -2334,7 +2491,8 @@ def phase_lowrank(ctx):
         torch.cuda.synchronize()
         _zero_counts(step_kernel, chunk_kernel)
         t0 = time.perf_counter()
-        raw = nt.sample(compiled, progress_bar=False, adaptation="low_rank", chains=LR_CHAINS, tune=LR_TUNE,
+        raw = nt.sample(compiled, progress_bar=False, adaptation="low_rank", chains=LR_PATH_CHAINS,
+                        tune=LR_TUNE,
                         draws=LR_DRAWS, mass_matrix_eigval_cutoff=LR_CUTOFF, seed=42,
                         precision="float32", device=DEVICE, return_raw_trace=True)
         torch.cuda.synchronize()
@@ -2351,10 +2509,10 @@ def phase_lowrank(ctx):
     _assert_step_launches(step_kernel, chunks, steps, CUDA_UNROLL)
     assert ranks == {LR_RANK}, f"the step kernel ran with metric ranks {ranks}"
     assert [u["end"] for u in updates] == [160, 240], updates
-    assert updates[-1]["chains_with_a_kept_slot"] >= 0.9 * LR_CHAINS, updates
+    assert updates[-1]["chains_with_a_kept_slot"] >= 0.9 * LR_PATH_CHAINS, updates
 
     pos = raw["position"]
-    assert pos.shape == (LR_CHAINS, LR_TUNE + LR_DRAWS, LR_DIM), pos.shape
+    assert pos.shape == (LR_PATH_CHAINS, LR_TUNE + LR_DRAWS, LR_DIM), pos.shape
     assert pos.dtype == np.float32, pos.dtype
     assert np.isfinite(pos).all(), "non-finite draws"
     grads = int(n_steps.astype(np.int64).sum())
@@ -2373,7 +2531,7 @@ def phase_lowrank(ctx):
                         "graph_replays": step_kernel.replays,
                         "capture_s": step_kernel.capture_s}
     emit({
-        "phase": "lowrank", "chains": LR_CHAINS, "tune": LR_TUNE, "draws": LR_DRAWS,
+        "phase": "lowrank", "chains": LR_PATH_CHAINS, "tune": LR_TUNE, "draws": LR_DRAWS,
         "dim": LR_DIM, "rank": LR_RANK, "chunk_len": LR_CHUNK, "dtype": "float32",
         "step_kernel_launches": k2, "chunk_kernel_launches": k1, "machine_steps": steps,
         "chunks": chunks, **ctx["lr_graphs"], "unroll": CUDA_UNROLL,
@@ -2506,7 +2664,7 @@ def _bmm_metric_ms(basis, reps: int = 50) -> tuple:
 
 def lowrank_step_timing(ctx):
     """K2 at the low-rank path's shapes (1024 chains, dim 1000, float32,
-    one frozen 8-draw chunk from the float32 parity fleet) with R = 32 and
+    one frozen ``LR_F32_CHUNK``-draw chunk from the float32 parity fleet) with R = 32 and
     with R = 0 (the same fleet without its low-rank metric), beside the
     logp+grad call, the byte bound, the plain halves and the library
     yardstick of the metric part: two ``torch.bmm`` calls per application
@@ -2594,7 +2752,7 @@ K2_GLM_OPTIONS = {
 # 8 + 8 draws until the MCLMC and microcanonical phases joined the script;
 # cut to 4 + 4 for its time limit (every option's branch still runs in
 # both windows)
-OPTIONS_CHAINS, OPTIONS_DRAWS = 16, 4
+OPTIONS_CHAINS, OPTIONS_DRAWS = 16, 2
 DIV_STATS = ("divergence_start", "divergence_end", "divergence_momentum",
              "divergence_start_gradient")
 # the options phase's fixed step size for radon: the main phase's final
@@ -2609,8 +2767,8 @@ RADON_FIXED_EPS = 0.33
 RADON_TARGET_STEPS, RADON_EXTRA_DOUBLINGS = 6, 1
 # the GLM run with the divergence rows: bench_glm.py's width, draws cut
 # from 300 to 100 to keep its host copies near 5 GB (five [10,240, 400, 64]
-# float32 arrays)
-GLM_DIV_DRAWS = 100
+# float32 arrays), then to 32 (one chunk) for the script's time limit
+GLM_DIV_DRAWS = 32
 
 
 def _assert_rows_where_diverged(tag, bufs) -> None:
@@ -2679,7 +2837,7 @@ def _init(model, cfg, n_chains, dtype, seed):
 
 def phase_options_parity(ctx):
     """Each kernel against its plain version with the options on (float64,
-    16 chains, maxdepth 6, a 4-draw warmup window then a 4-draw frozen
+    16 chains, maxdepth 6, an OPTIONS_DRAWS-draw warmup window then a frozen
     chunk): K1 on
     radon in ``K1_OPTIONS``; K2 on the GLM in ``K2_GLM_OPTIONS``, on the
     centered eight schools with the divergence rows (their buffers too)
@@ -3562,11 +3720,15 @@ def phase_mclmc_parity(ctx):
 # the float64 low-rank cases of K2's microcanonical instantiations (as
 # LR_F64_CASES): dim 33 at rank 5 (staged by loads) and the path's dim
 # 1000 at rank 32 (streamed), trees to depth 6
+# (the frozen chunks 8 and 4 draws until the flow phases joined the script)
 MICRO_LR_CASES = (
-    ("dim33_rank5", 33, 5, LR_CUTOFF_ALL, 2, 6, (4, 8)),
-    ("dim1000_rank32", LR_DIM, LR_RANK, LR_CUTOFF_ALL, 0, 6, (2, 4)),
+    ("dim33_rank5", 33, 5, LR_CUTOFF_ALL, 2, 6, (2, 2)),
+    ("dim1000_rank32", LR_DIM, LR_RANK, LR_CUTOFF_ALL, 0, 6, (2, 2)),
 )
-MICRO_RADON_CHAINS, MICRO_F32_DRAWS = 16, 16
+# the float32 micro share chunk: 16 draws until the flow phases joined the
+# script, 8 until a slower host took it past its time limit; the float64
+# frozen chunks of the GLM and radon (8 draws until then)
+MICRO_RADON_CHAINS, MICRO_F32_DRAWS, MICRO_FROZEN = 16, 4, 4
 # the GLM's warmup window from a fresh fleet: the isokinetic trees of the
 # first draws run to the depth cap (255 leapfrogs), over which rounding
 # grows fast: two plain versions that round differently (the card's and
@@ -3592,9 +3754,10 @@ MICRO_GLM_LATE, MICRO_GLM_LATE_WARM = 24, 8
 # chains of the warmup window the CPU's plain version also runs (the
 # yardstick: how far two plain versions that round differently part)
 MICRO_YARD_CHAINS = 4
-# the micro phase's sample() run: the GLM with its posterior cut to 100
-# draws, and its posterior divergence bar (tests/test_sample.py:234-235)
-MICRO_GLM_DRAWS, MICRO_MAX_DIV_SHARE = 100, 0.01
+# the micro phase's sample() run: the GLM with its posterior cut to 32
+# draws (100 at first, cut for the script's time limit), and
+# its posterior divergence bar (tests/test_sample.py:234-235)
+MICRO_GLM_DRAWS, MICRO_MAX_DIV_SHARE = 32, 0.01
 
 
 def _micro_cfg(tune: int, **fields):
@@ -3656,8 +3819,8 @@ def micro_parity(ctx) -> list:
     model = _glm_model()
     cfg, sched = _micro_cfg(GLM_TUNE)
     states = _init(model, cfg, STEP_PARITY_CHAINS, torch.float64, 21)
-    out["glm_f64"] = _micro_pair(failed, "GLM", model, cfg, sched, states, MICRO_GLM_WARM, 8,
-                                 yardstick=True)
+    out["glm_f64"] = _micro_pair(failed, "GLM", model, cfg, sched, states, MICRO_GLM_WARM,
+                                 MICRO_FROZEN, yardstick=True)
     carry = make_chunk_runner(model, cfg, MICRO_GLM_LATE, torch.float64, adapt_frozen=False)
     late, _ = carry(states, 0, MICRO_GLM_LATE, sched)
     (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, late, MICRO_GLM_LATE,
@@ -3683,7 +3846,8 @@ def micro_parity(ctx) -> list:
     rmodel = radon()
     rcfg, rsched = _micro_cfg(TUNE, maxdepth=6)
     rstates = _init(rmodel, rcfg, MICRO_RADON_CHAINS, torch.float64, 23)
-    out["radon_f64"] = _micro_pair(failed, "radon", rmodel, rcfg, rsched, rstates, 8, 8)
+    out["radon_f64"] = _micro_pair(failed, "radon", rmodel, rcfg, rsched, rstates, 8,
+                                   MICRO_FROZEN)
     # float32 at the GLM's main shapes: the step_parity phase's fleet
     # warmed through tuning (by the exact-normal kinetic) and one frozen
     # chunk under the microcanonical one
@@ -3908,7 +4072,7 @@ def _mclmc_runs(ctx, normals_calls: list):
         torch.cuda.synchronize()
         _zero_all(mclmc_kernel)
         t0 = time.perf_counter()
-        raw_lr = nt.sample(model, sampler="mclmc", adaptation="low_rank", chains=LR_CHAINS,
+        raw_lr = nt.sample(model, sampler="mclmc", adaptation="low_rank", chains=LR_PATH_CHAINS,
                            tune=MCLMC_LR_TUNE, draws=MCLMC_LR_DRAWS, seed=42,
                            progress_bar=False, device=DEVICE, precision="float32",
                            mass_matrix_eigval_cutoff=LR_CUTOFF, return_raw_trace=True)
@@ -3921,13 +4085,13 @@ def _mclmc_runs(ctx, normals_calls: list):
     var = x.astype(np.float64).reshape(-1, LR_DIM).var(axis=0)
     ratio = var / np.diag((q * eigs) @ q.T)
     ess, rhat = column_diagnostics(x, LR_MONITORED)
-    lr = {"chains": LR_CHAINS, "tune": MCLMC_LR_TUNE, "draws": MCLMC_LR_DRAWS,
+    lr = {"chains": LR_PATH_CHAINS, "tune": MCLMC_LR_TUNE, "draws": MCLMC_LR_DRAWS,
           "wall_s": lr_wall, "launches": mclmc_kernel.launches, "eigval_cutoff": LR_CUTOFF,
           "updates": updates, "max_rhat": float(max(rhat)),
           "min_bulk_ess": float(np.min(ess)), "variance_ratio_min": float(ratio.min()),
           "variance_ratio_max": float(ratio.max()),
           "posterior_divergences": int(raw_lr["stats"]["diverging"][:, MCLMC_LR_TUNE:].sum())}
-    if not updates or updates[-1]["chains_with_a_kept_slot"] < 0.9 * LR_CHAINS:
+    if not updates or updates[-1]["chains_with_a_kept_slot"] < 0.9 * LR_PATH_CHAINS:
         failed.append(f"low-rank MCLMC on the 1000-d Gaussian: slots kept {updates}")
     if normals_calls:
         failed.append(f"draw_normals called on the card's route: {normals_calls}")
@@ -3991,19 +4155,531 @@ def phase_micro(ctx):
     assert not failed, failed
 
 
+# ---------------------------------------------------------------- flow adaptation
+# The reference gate's configuration (tests/test_flow.py:242-288): the
+# 100-d funnel at scale 1 (101 x coordinates beside v), the flow and the
+# run; ESS and Fisher thresholds.  The float32 fleet runs the same model
+# and flow config at 64 chains under the float32 recipe
+# (sample._apply_f32_flow_recipe), which adds its learning-rate decay (the
+# config's rate and steps win; 3e-4 and 1600 steps, the recipe's, took
+# 105.6 s of training in a 127.4 s run of this script on an H100 80GB
+# HBM3 at 700 W).  MCLMC with flow: tests/test_mclmc.py:98-108's model,
+# seed and bars at 64 chains, its flows trained every FLOW_MCLMC_FREQ draws (the
+# default 64 would be 13 trainings of 1600 steps in this script's time)
+FLOW_DIM = 101
+FLOW_GATE = dict(num_layers=5, hidden=32, train_steps=800, window=600, learning_rate=1e-3,
+                 num_diag_updates=2, extension_share=0.4)
+FLOW_GATE_RUN = dict(chains=2, tune=1200, draws=1000, seed=1, transform_update_freq=150)
+FLOW_GATE_ESS, FLOW_GATE_FISHER = 1000.0, 0.1
+FLOW_FLEET_CHAINS = 64
+FLOW_MCLMC_CHAINS, FLOW_MCLMC_TUNE, FLOW_MCLMC_DRAWS, FLOW_MCLMC_FREQ = 64, 800, 2000, 200
+# the parity fleets: 64 chains of the funnel under seeded flows whose
+# couplings act (FLOW_PERTURB: the scale of each field's normals); K3's
+# funnel fleet tunes FLOW_K3_TUNE draws (its first chunk held against the
+# plain version, the rest the kernel's own) before its frozen chunk;
+# chunk_flow_update on the card against the CPU with FLOW_TRAIN_STEPS
+FLOW_PARITY_CHAINS, FLOW_PARITY_TUNE, FLOW_K3_TUNE = 64, 300, 16
+# K2 with the orbit reservoir beside the divergence rows: a max_energy_error
+# low enough that the fresh fleet's first draws diverge (the parity fails
+# if none does), on 16 chains as the options' divergence-row cases run
+# (a 64-chain pair took about 20 s of the phase)
+FLOW_DIV = {"store_divergences": True, "max_energy_error": 0.5}
+FLOW_DIV_CHAINS = 16
+# the parity fleets' trees stop at depth 6, as the low-rank parity's small
+# cases do: a fresh fleet's first draws run to the depth limit, and every
+# code path of the step still runs (checks, merges, draws ended by a U-turn
+# and by the limit)
+FLOW_PARITY_MAXDEPTH = 6
+FLOW_PERTURB = {"flow_mu": 0.3, "flow_log_sigma": 0.2, "flow_w2": 0.15, "flow_b2": 0.05}
+FLOW_TRAIN_STEPS, FLOW_TRAIN_WINDOW = 20, 64
+# the frozen chunks of the parity fleets, and the draws the fixed-metric
+# steps are timed over (each machine step of the timing runs the flow's
+# logp eagerly: 16 draws were 1,008 steps, 9 s of the phase); the frozen
+# chunks took 8 draws until a slower host took the script past its time
+# limit
+FLOW_WARM_DRAWS, FLOW_FROZEN_DRAWS, FLOW_TIMED_DRAWS = 4, 4, 4
+
+
+class _FlowLogp:
+    """The pulled-back log density under fixed flows, as a model's
+    ``logp_and_grad`` (the step runner builds the same from the state)."""
+
+    def __init__(self, model, fcfg, params):
+        self.model, self.fcfg, self.params = model, fcfg, params
+        self.ndim = model.ndim
+
+    def logp_and_grad(self, z):
+        from nutpie_tpu_torch.transforms.flow import flow_logp_and_grad
+
+        return flow_logp_and_grad(self.fcfg, self.model.logp_and_grad, self.params, z)
+
+
+def _perturbed_flows(states, seed: int = 3):
+    """The state with each chain's flow moved to seeded parameters that act."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, scale in FLOW_PERTURB.items():
+        t = getattr(states, name)
+        noise = torch.randn(t.shape, generator=gen, dtype=torch.float64)
+        out[name] = (scale * noise).to(device=t.device, dtype=t.dtype)
+    return states.replace(**out)
+
+
+def _flow_nuts_fleet(dtype, use_orbit: bool, seed: int, n_chains: int = FLOW_PARITY_CHAINS,
+                     **nuts):
+    from nutpie_tpu_torch.models import funnel
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.nuts import NutsConfig
+    from nutpie_tpu_torch.transforms.flow import FlowConfig
+
+    model = funnel(dim=FLOW_DIM, scale=1.0)
+    cfg = NutsConfig(maxdepth=FLOW_PARITY_MAXDEPTH,
+                     flow=FlowConfig(use_orbit=use_orbit, **FLOW_GATE),
+                     adapt=AdaptConfig(num_tune=FLOW_PARITY_TUNE, update_mass_matrix=False),
+                     **nuts)
+    sched = make_schedule(cfg.adapt, FLOW_PARITY_TUNE)
+    return model, cfg, sched, _perturbed_flows(_init(model, cfg, n_chains, dtype, seed))
+
+
+def _flow_k2_pair(failed, tag, model, cfg, sched, states) -> dict:
+    """K2 under the fixed metric against its plain version, float64: a
+    fresh warmup window of ``FLOW_WARM_DRAWS``, then a frozen chunk of
+    ``FLOW_FROZEN_DRAWS``
+    from the kernel's state; the gradients (and orbit rows, and the
+    divergence buffers) held beside the draws."""
+    import torch
+
+    w = FLOW_WARM_DRAWS
+    (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, states, 0, w, w, False)
+    warm = _held(failed, _check_warmup_f64, f"{tag} warmup window", w, s_k, b_k, s_p, b_p)
+    ok_metric = bool((s_k.inv_mass == 1.0).all())
+    if not ok_metric:
+        failed.append(f"{tag}: the fixed inverse mass moved")
+    n = FLOW_FROZEN_DRAWS
+    (f_k, fb_k), (f_p, fb_p) = _steps_both(model, cfg, sched, s_k, w, n, n, True)
+    frozen = _held(failed, _check_frozen_f64, f"{tag} frozen chunk", f_k, fb_k, f_p, fb_p)
+    rows = ["gradient"] + (["orbit_position", "orbit_gradient"] if cfg.use_orbit else [])
+    for name in rows:
+        _held(failed, assert_close, f"{tag} frozen {name}", getattr(fb_k, name),
+              getattr(fb_p, name), 1e-6, 1e-8)
+    if cfg.use_orbit:
+        _held(failed, assert_close, f"{tag} orbit rows", f_k.orbit, f_p.orbit, 1e-6, 1e-8)
+        _held(failed, assert_close, f"{tag} warmup orbit_position", b_k.orbit_position,
+              b_p.orbit_position, 1e-3, 1e-3)
+    div = {}
+    if cfg.store_divergences:
+        before = len(failed)
+        _held(failed, _check_div_rows, f"{tag} warmup window", b_k, b_p, 1e-3, 1e-3)
+        _held(failed, _check_div_rows, f"{tag} frozen chunk", fb_k, fb_p, 1e-6, 1e-8)
+        divergent = int(b_k.diverging.sum() + fb_k.diverging.sum())
+        if divergent == 0:
+            failed.append(f"{tag}: no draw diverged")
+        div = {"div_rows_held": len(failed) == before, "divergent_draws": divergent,
+               "draws": int(b_k.diverging.numel() + fb_k.diverging.numel())}
+    return {"warmup_held": warm is not None, "frozen_held": frozen is not None, **div,
+            "inv_mass_fixed": ok_metric,
+            "warmup_ints_equal": bool(torch.equal(s_k.ints, s_p.ints)),
+            "frozen_ints_equal": bool(torch.equal(f_k.ints, f_p.ints)),
+            "warmup_max_abs_err_position": max_abs(b_k.position, b_p.position),
+            "frozen_max_abs_err_position": max_abs(fb_k.position, fb_p.position),
+            "frozen_max_abs_err_orbit": (max_abs(fb_k.orbit_position, fb_p.orbit_position)
+                                         if cfg.use_orbit else None)}
+
+
+def _flow_update_parity(failed) -> dict:
+    """chunk_flow_update on the card against the same function on the CPU,
+    float64, FLOW_TRAIN_STEPS Adam steps on a seeded window of
+    FLOW_TRAIN_WINDOW rows a chain, every chain past its diagonal phase:
+    every output to rtol 1e-6, flow_updates exact."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from nutpie_tpu_torch.sampler.state import flow_window
+    from nutpie_tpu_torch.transforms.flow import FlowWindow, chunk_flow_update
+
+    model, cfg, _, states = _flow_nuts_fleet(torch.float64, False, 37)
+    fcfg = dc.replace(cfg.flow, train_steps=FLOW_TRAIN_STEPS, window=FLOW_TRAIN_WINDOW)
+    C, _, dim = states.vecs.shape
+    rng = np.random.default_rng(5)
+    z = rng.standard_normal((C, FLOW_TRAIN_WINDOW + 16, dim))
+    g = -z * np.exp(0.3 * rng.standard_normal((C, 1, dim))) + 0.1 * rng.standard_normal(z.shape)
+    W = FLOW_TRAIN_WINDOW
+    win = flow_window(states)
+    win = FlowWindow(win.flow, torch.full((C,), fcfg.num_diag_updates, dtype=torch.int32,
+                                          device=DEVICE),
+                     torch.as_tensor(z[:, :W], device=DEVICE),
+                     torch.as_tensor(g[:, :W], device=DEVICE),
+                     torch.ones((C, W), dtype=torch.bool, device=DEVICE))
+    args = (states.position, states.gradient, states.logp,
+            torch.as_tensor(z[:, W:], device=DEVICE), torch.as_tensor(g[:, W:], device=DEVICE),
+            torch.ones((C, 16), dtype=torch.bool, device=DEVICE))
+    cpu = lambda t: t.cpu()  # noqa: E731
+    t0 = time.perf_counter()
+    out_k = chunk_flow_update(fcfg, model.logp_and_grad, win, *args, in_warmup=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    win_c = FlowWindow(type(win.flow)(*map(cpu, win.flow)), *map(cpu, win[1:]))
+    out_c = chunk_flow_update(fcfg, model.logp_and_grad, win_c, *map(cpu, args), in_warmup=True)
+    (wk, *rest_k), (wc, *rest_c) = out_k, out_c
+    worst = 0.0
+    if not torch.equal(wk.flow_updates.cpu(), wc.flow_updates):
+        failed.append("chunk_flow_update: flow_updates differ")
+    pairs = list(zip(wk.flow._fields, wk.flow, wc.flow)) + [
+        ("win_draws", wk.win_draws, wc.win_draws), ("position", rest_k[0], rest_c[0]),
+        ("gradient", rest_k[1], rest_c[1]), ("logp", rest_k[2], rest_c[2])]
+    for name, a, b in pairs:
+        _held(failed, assert_close, f"chunk_flow_update {name}", a.cpu(), b, 1e-6, 1e-12)
+        worst = max(worst, max_rel(a.cpu(), b))
+    return {"chains": C, "dim": dim, "train_steps": FLOW_TRAIN_STEPS, "window": W,
+            "flow_updates": int(wk.flow_updates.sum()), "max_rel_diff": worst,
+            "card_s": card_s, "rtol": 1e-6}
+
+
+def _flow_mclmc_fleet(model, dtype, n_chains, seed, tune):
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.mclmc import MclmcConfig
+    from nutpie_tpu_torch.transforms.flow import FlowConfig
+
+    cfg = MclmcConfig(flow=FlowConfig(**FLOW_GATE),
+                      adapt=AdaptConfig(num_tune=tune, update_mass_matrix=False))
+    sched = make_schedule(cfg.adapt, tune)
+    return cfg, sched, _perturbed_flows(_mclmc_init(model, cfg, n_chains, dtype, seed))
+
+
+def _check_windows_idle(tag, before, s_k, s_p) -> None:
+    """The fixed metric's tuning chunk left K3's and the plain version's
+    mass-matrix windows as they were."""
+    import torch
+
+    for name in ("adapt_vecs", "adapt_flts"):
+        for who, s in (("kernel", s_k), ("plain", s_p)):
+            assert torch.equal(getattr(s, name), getattr(before, name)), \
+                f"{tag}: the {who}'s windows ran ({name})"
+
+
+def phase_flow_parity(ctx):
+    """K2 and K3 under the fixed metric against their plain versions, and
+    chunk_flow_update on the card against the CPU (see the docstring)."""
+    import torch
+
+    from nutpie_tpu_torch.models import funnel, std_normal
+    from nutpie_tpu_torch.sampler.mclmc import MclmcChunkRunner
+
+    failed = []
+    readings = {}
+    for tag, use_orbit, n_chains, nuts in (
+            ("k2_f64", False, FLOW_PARITY_CHAINS, {}),
+            ("k2_orbit_f64", True, FLOW_PARITY_CHAINS, {}),
+            ("k2_orbit_div_f64", True, FLOW_DIV_CHAINS, FLOW_DIV)):
+        model, cfg, sched, states = _flow_nuts_fleet(torch.float64, use_orbit, 31, n_chains,
+                                                     **nuts)
+        readings[tag] = _flow_k2_pair(failed, tag, model, cfg, sched, states)
+
+    # float32 at those shapes: the fresh warmup window under the warmup
+    # phase's early bars, then a frozen chunk from the kernel's state
+    # under the frozen chunks' share bars
+    model, cfg, sched, states = _flow_nuts_fleet(torch.float32, False, 33)
+    w, n = FLOW_WARM_DRAWS, FLOW_FROZEN_DRAWS
+    (warm, wb_k), (_, wb_p) = _steps_both(model, cfg, sched, states, 0, w, w, False)
+    f32_warm = {"start": 0, **_f32_shares(w, warm, wb_k, wb_p)}
+    _held(failed, _assert_f32_warm, f32_warm)
+    (g_k, gb_k), (_, gb_p) = _steps_both(model, cfg, sched, warm, w, n, n, True)
+    f32 = _f32_shares(n, g_k, gb_k, gb_p)
+    ctx["flow_f32_fleet"] = (model, cfg, sched, warm)
+
+    # K3 at the MCLMC flow run's shapes: a tuning chunk from draw 0, where
+    # the fixed metric acts, float64 and float32
+    k3 = {}
+    for dtype in (torch.float64, torch.float32):
+        smodel = std_normal(4, mu=1.0, sigma=3.0)
+        mcfg, msched, mstates = _flow_mclmc_fleet(smodel, dtype, FLOW_MCLMC_CHAINS, 43,
+                                                  FLOW_PARITY_TUNE)
+        (sk, bk), (sp, bp) = _mclmc_both(smodel, mcfg, msched, mstates, 0, FLOW_WARM_DRAWS,
+                                         graph=True)
+        _held(failed, _check_windows_idle, f"K3 std_normal {dtype}", mstates, sk, sp)
+        if dtype == torch.float64:
+            err = _held(failed, _check_mclmc, "K3 flow std_normal tuning", sk, bk, sp, bp,
+                        1e-3, 1e-3)
+            k3["std_normal_f64"] = {"tuning_held": err is not None,
+                                    "max_abs_err_position": max_abs(bk.position, bp.position)}
+        else:
+            k3["std_normal_f32"] = _mclmc_f32_shares(bk, bp)
+    # K3 on the funnel (the strided form in float64): a tuning chunk, the
+    # kernel's own run to the end of tuning, then a frozen chunk
+    mmodel = funnel(dim=FLOW_DIM, scale=1.0)
+    mcfg, msched, mstates = _flow_mclmc_fleet(mmodel, torch.float64, FLOW_PARITY_CHAINS, 35,
+                                              FLOW_K3_TUNE)
+    w = FLOW_WARM_DRAWS
+    (sk, bk), (sp, bp) = _mclmc_both(mmodel, mcfg, msched, mstates, 0, w, graph=True)
+    _held(failed, _check_windows_idle, "K3 funnel", mstates, sk, sp)
+    tuning = _held(failed, _check_mclmc, "K3 flow funnel tuning", sk, bk, sp, bp, 1e-3, 1e-3)
+    tuned, _ = MclmcChunkRunner(mmodel, mcfg, FLOW_K3_TUNE - w, torch.float64)(
+        sk, w, FLOW_K3_TUNE - w, msched)
+    (sk, bk), (sp, bp) = _mclmc_both(mmodel, mcfg, msched, tuned, FLOW_K3_TUNE,
+                                     FLOW_FROZEN_DRAWS, graph=True)
+    frozen = _held(failed, _check_mclmc, "K3 flow funnel frozen", sk, bk, sp, bp, 1e-6, 1e-8)
+    k3["funnel_f64"] = {"tuning_held": tuning is not None, "tuning_max_abs_err_position": tuning,
+                        "frozen_held": frozen is not None,
+                        "frozen_max_abs_err_position": max_abs(bk.position, bp.position)}
+    readings.update(k3)
+    readings["chunk_flow_update_f64"] = _flow_update_parity(failed)
+
+    k3_32 = k3["std_normal_f32"]
+    if k3_32["share_equal_diverging"] < F32_MIN_SHARE_STEPS:
+        failed.append(f"K3 float32 diverging share {k3_32['share_equal_diverging']}")
+    if k3_32["share_draws_within_tol"] < F32_MIN_SHARE_DRAWS:
+        failed.append(f"K3 float32 draws share {k3_32['share_draws_within_tol']}")
+    if f32["share_equal_n_steps"] < F32_MIN_SHARE_STEPS:
+        failed.append(f"K2 float32 frozen n_steps share {f32['share_equal_n_steps']}")
+    if f32["share_draws_within_tol"] < F32_MIN_SHARE_DRAWS:
+        failed.append(f"K2 float32 frozen draws share {f32['share_draws_within_tol']}")
+    k2_at = f"{FLOW_PARITY_CHAINS} chains, dim {FLOW_DIM + 1}"
+    ctx["flow_k2_parity"] = {
+        "max_abs_err": readings["k2_f64"]["frozen_max_abs_err_position"],
+        "max_abs_err_at": f"{k2_at}, float64, a {FLOW_FROZEN_DRAWS}-draw frozen chunk",
+        "warmup_max_abs_err": readings["k2_f64"]["warmup_max_abs_err_position"],
+        "warmup_max_abs_err_at": f"{k2_at}, float64, a {FLOW_WARM_DRAWS}-draw tuning window",
+        "f32_shares_at": f"{k2_at}, float32 (the float32 fleet's shapes)",
+        "f32_tuning_shares": {k: f32_warm[k] for k in ("share_equal_n_steps",
+                                                       "share_draws_within_tol")},
+        "f32_frozen_shares": {k: f32[k] for k in ("share_equal_n_steps",
+                                                  "share_draws_within_tol")}}
+    k3_at = f"{FLOW_MCLMC_CHAINS} chains, dim 4"
+    ctx["flow_k3_parity"] = {
+        "max_abs_err": k3["std_normal_f64"]["max_abs_err_position"],
+        "max_abs_err_at": f"{k3_at}, float64, a {FLOW_WARM_DRAWS}-draw tuning chunk",
+        "f32_shares_at": f"{k3_at}, float32 (the MCLMC flow run's shapes), the same chunk",
+        "f32_tuning_shares": {k: k3_32[k] for k in ("share_equal_diverging",
+                                                    "share_draws_within_tol")},
+        "strided_max_abs_err": k3["funnel_f64"]["frozen_max_abs_err_position"],
+        "strided_max_abs_err_at": f"{k2_at}, float64, a {FLOW_FROZEN_DRAWS}-draw frozen chunk"}
+    emit({"phase": "flow_parity", "model": f"funnel(dim={FLOW_DIM}, scale=1.0) under seeded "
+          "flows whose couplings act; K3 also std_normal(4, 1, 3)", "flow": FLOW_GATE,
+          "chains": FLOW_PARITY_CHAINS, **readings,
+          "k2_f32": {"chains": FLOW_PARITY_CHAINS, "tol": F32_TOL, "tuning": f32_warm,
+                     "frozen": {"draws": FLOW_FROZEN_DRAWS, **f32}},
+          "failed": failed, "card": ctx["card"]})
+    assert not failed, failed
+
+
+class _TrainingClock:
+    """Seconds of each flow training (``transforms.flow.train_flow``, a
+    synchronize on each side) while the context is open."""
+
+    def __enter__(self):
+        import torch
+
+        import nutpie_tpu_torch.transforms.flow as flow_module
+
+        self.module, self.original, self.seconds = flow_module, flow_module.train_flow, []
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.original(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        flow_module.train_flow = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.train_flow = self.original
+
+
+def _flow_readings(trace, wall: float, train_s: list) -> dict:
+    """Divergences, the Fisher tail, ESS of v and the monitored x columns,
+    ESS/s and gradients/s of a NUTS flow run."""
+    import numpy as np
+
+    from nutpie_tpu_torch.diagnostics import ess
+
+    v = np.asarray(trace.posterior["v"].values)
+    x = np.asarray(trace.posterior["x"].values)
+    ess_v = float(ess(v))
+    ess_x = min(float(ess(x[..., i])) for i in range(0, FLOW_DIM - 1, 10))
+    fd = np.asarray(trace.sample_stats["fisher_distance"].values)
+    grads = int(trace.sample_stats["n_steps"].values.astype(np.int64).sum()
+                + trace.warmup_sample_stats["n_steps"].values.astype(np.int64).sum())
+    return {"divergences": int(np.asarray(trace.sample_stats["diverging"].values).sum()),
+            "ess_v": ess_v, "min_ess_x": ess_x,
+            "fisher_distance_mean_tail": float(np.nanmean(fd[:, -200:])),
+            "v_mean": float(v.mean()), "v_sd": float(v.std()),
+            "all_finite": bool(np.isfinite(v).all() and np.isfinite(x).all()),
+            "wall_s": wall, "min_ess_per_s": min(ess_v, ess_x) / wall,
+            "gradients": grads, "grads_per_s": grads / wall,
+            "flow_trainings": len(train_s), "train_s": float(sum(train_s)),
+            "train_s_per_update": float(np.mean(train_s)) if train_s else 0.0,
+            "train_share_of_wall": float(sum(train_s)) / wall}
+
+
+def _jax_gate_margins() -> dict:
+    """The JAX package's CPU margins of the gate (only read)."""
+    path = os.path.join(ROOT, "tests", "reference", "flow_gate_margins.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _flow_nuts_run(dtype, chains: int, flow: dict):
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.models import funnel
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.run import CUDA_UNROLL
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    model = compile_model_def(funnel(dim=FLOW_DIM, scale=1.0)).with_transform_adapt(**flow)
+    run = dict(FLOW_GATE_RUN, chains=chains)
+    torch.cuda.synchronize()
+    _zero_counts(step_kernel, chunk_kernel)
+    with _TrainingClock() as clock:
+        t0 = time.perf_counter()
+        trace = nt.sample(model, adaptation="flow", progress_bar=False, device=DEVICE,
+                          precision="float64" if dtype == torch.float64 else "float32", **run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    import numpy as np
+
+    n_steps = np.concatenate([trace.warmup_sample_stats["n_steps"].values,
+                              trace.sample_stats["n_steps"].values], axis=1)
+    freq = FLOW_GATE_RUN["transform_update_freq"]
+    steps = machine_steps(n_steps, freq, CUDA_UNROLL)
+    chunks = math.ceil((run["tune"] + run["draws"]) / freq)
+    launches = step_kernel.launches
+    launch_error = None
+    try:
+        assert chunk_kernel.launches == 0, "the chunk kernel launched on the flow path"
+        _assert_step_launches(step_kernel, chunks, steps, CUDA_UNROLL)
+    except AssertionError as err:
+        launch_error = str(err)
+    out = _flow_readings(trace, wall, clock.seconds)
+    out.update({"chains": chains, "dtype": str(dtype).split(".")[-1], "machine_steps": steps,
+                "chunks": chunks, "step_kernel_launches": launches,
+                "graph_replays": step_kernel.replays, "capture_s": step_kernel.capture_s,
+                "launch_error": launch_error})
+    return out
+
+
+def phase_flow(ctx):
+    """``sample(adaptation="flow")`` on the card (see the docstring)."""
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.models import std_normal
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+    from nutpie_tpu_torch.sampler.state import flow_params
+
+    gate = _flow_nuts_run(torch.float64, FLOW_GATE_RUN["chains"], FLOW_GATE)
+    # the float32 fleet: the gate's flow config, under which the float32
+    # recipe adds only its learning-rate decay (the config sets the rate and
+    # the steps, and what a user sets wins); MCLMC's run below takes the
+    # whole recipe
+    fleet = _flow_nuts_run(torch.float32, FLOW_FLEET_CHAINS, FLOW_GATE)
+    ctx["flow_k2_launches"] = fleet["step_kernel_launches"]
+
+    # MCLMC with flow
+    model = compile_model_def(std_normal(4, mu=1.0, sigma=3.0))
+    _zero_all(mclmc_kernel)
+    torch.cuda.synchronize()
+    with _TrainingClock() as clock:
+        t0 = time.perf_counter()
+        mtrace = nt.sample(model, sampler="mclmc", adaptation="flow", progress_bar=False,
+                           device=DEVICE, chains=FLOW_MCLMC_CHAINS, tune=FLOW_MCLMC_TUNE,
+                           draws=FLOW_MCLMC_DRAWS, seed=17,
+                           transform_update_freq=FLOW_MCLMC_FREQ)
+        torch.cuda.synchronize()
+        mwall = time.perf_counter() - t0
+    xs = np.asarray(mtrace.posterior["x"].values)
+    chunks = math.ceil((FLOW_MCLMC_TUNE + FLOW_MCLMC_DRAWS) / FLOW_MCLMC_FREQ)
+    k3_expected = _k3_launches(chunks, FLOW_MCLMC_TUNE + FLOW_MCLMC_DRAWS, 1)
+    mc = {"chains": FLOW_MCLMC_CHAINS, "tune": FLOW_MCLMC_TUNE, "draws": FLOW_MCLMC_DRAWS,
+          "transform_update_freq": FLOW_MCLMC_FREQ, "x_mean": float(xs.mean()),
+          "x_sd": float(xs.std()), "all_finite": bool(np.isfinite(xs).all()),
+          "k3_launches": mclmc_kernel.launches, "k3_expected": k3_expected,
+          "wall_s": mwall, "flow_trainings": len(clock.seconds),
+          "train_s": float(sum(clock.seconds)), "capture_s": mclmc_kernel.capture_s}
+    ctx["flow_k3_launches"] = mclmc_kernel.launches
+
+    # K2's and K3's fixed-metric timing at the flow paths' float32 shapes
+    f_model, f_cfg, f_sched, f_warm = ctx["flow_f32_fleet"]
+    flogp = _FlowLogp(f_model, f_cfg.flow, flow_params(f_warm))
+    ms, n_steps, bufs = _timed_steps(flogp, f_cfg, f_sched, f_warm, FLOW_TIMED_DRAWS,
+                                     start=FLOW_WARM_DRAWS)
+    dev = _device_step_ms(flogp, f_cfg, f_sched, f_warm, FLOW_TIMED_DRAWS, min(n_steps, 32))
+    plain = _plain_step_ms(flogp, f_cfg, f_sched, f_warm, FLOW_TIMED_DRAWS, 8)
+    C, _, dim = f_warm.vecs.shape
+    work = step_bytes(bufs.scalars, FLOW_TIMED_DRAWS, C, n_steps, dim,
+                      f_warm.ckpt_p.shape[1], 4)
+    bound = 1e3 * work["bytes"] / PEAK_BYTES / n_steps
+    ctx["flow_k2_timing"] = {"ms": ms["advance"], "device_ms": dev["advance"],
+                             "plain_ms": plain["advance"], "bound_ms": bound,
+                             "share_of_bound": bound / ms["advance"],
+                             "device_share_of_bound": (bound / dev["advance"]
+                                                       if dev["advance"] else None),
+                             "logp_grad_ms": ms["logp_grad"], "machine_steps": n_steps}
+    mmodel = std_normal(4, mu=1.0, sigma=3.0)
+    mcfg, msched, mstates = _flow_mclmc_fleet(mmodel, torch.float32, FLOW_MCLMC_CHAINS, 41,
+                                              FLOW_K3_TUNE)
+    k3 = _k3_timed(_FlowLogp(mmodel, mcfg.flow, flow_params(mstates)), mcfg, msched, mstates,
+                   FLOW_K3_TUNE, FLOW_TIMED_DRAWS, 8)
+    mb = mclmc_bytes(FLOW_MCLMC_CHAINS, FLOW_TIMED_DRAWS, 1, 4, 4)
+    k3_bound = 1e3 * mb["bytes"] / PEAK_BYTES / FLOW_TIMED_DRAWS
+    ctx["flow_k3_timing"] = {"ms": k3["k3_ms_per_step"], "device_ms": k3["k3_device_ms_per_step"],
+                             "plain_ms": k3["plain_ms_per_step"], "bound_ms": k3_bound,
+                             "share_of_bound": k3_bound / k3["k3_ms_per_step"],
+                             "device_share_of_bound": (
+                                 k3_bound / k3["k3_device_ms_per_step"]
+                                 if k3["k3_device_ms_per_step"] else None)}
+
+    margins = _jax_gate_margins()
+    emit({"phase": "flow",
+          "gate_f64": {"config": FLOW_GATE, "run": FLOW_GATE_RUN, **gate,
+                       "thresholds": {"ess": FLOW_GATE_ESS, "fisher": FLOW_GATE_FISHER},
+                       "jax_cpu_margins": margins},
+          "fleet_f32": {"flow": FLOW_GATE, "recipe": "lr_decay (sample._apply_f32_flow_recipe; "
+                        "the config's learning_rate and train_steps win)", **fleet},
+          "mclmc_recipe": "learning_rate 3e-4, train_steps 1600, lr_decay",
+          "mclmc_f32": mc, "k2_fixed_metric": ctx["flow_k2_timing"],
+          "k3_fixed_metric": ctx["flow_k3_timing"], "card": ctx["card"]})
+    assert gate["launch_error"] is None, gate["launch_error"]
+    assert fleet["launch_error"] is None, fleet["launch_error"]
+    assert gate["divergences"] == 0, gate
+    assert gate["ess_v"] > FLOW_GATE_ESS and gate["min_ess_x"] > FLOW_GATE_ESS, gate
+    assert gate["fisher_distance_mean_tail"] < FLOW_GATE_FISHER, gate
+    assert fleet["all_finite"], fleet
+    assert abs(fleet["v_mean"]) < 0.1 and abs(fleet["v_sd"] - 1.0) < 0.1, fleet
+    assert mc["all_finite"] and mc["k3_launches"] == k3_expected, mc
+    assert abs(mc["x_mean"] - 1.0) < 0.3 and abs(mc["x_sd"] - 3.0) < 0.5, mc
+
+
+# K1's phases first, while K2's and K3's libraries compile
 PHASES = {
     "build": phase_build,
     "parity": phase_parity,
+    "main": phase_main,
+    "warmup": phase_warmup,
+    "timing": phase_timing,
+    "build_steps": phase_build_steps,
     "step_parity": phase_step_parity,
     "lowrank_parity": phase_lowrank_parity,
-    "main": phase_main,
     "glm": phase_glm,
     "lowrank": phase_lowrank,
     "mclmc_parity": phase_mclmc_parity,
     "mclmc": phase_mclmc,
     "micro": phase_micro,
-    "warmup": phase_warmup,
-    "timing": phase_timing,
+    "flow_parity": phase_flow_parity,
+    "flow": phase_flow,
     "step_timing": phase_step_timing,
     "options_parity": phase_options_parity,
     "options": phase_options,
@@ -4014,7 +4690,7 @@ PHASES = {
 NEEDS = {"timing": ("warmup",), "micro": ("step_parity",),
          "step_timing": ("step_parity", "lowrank_parity", "micro"),
          "options_parity": ("warmup", "step_parity"), "options": ("main", "options_parity", "warmup", "step_parity"),
-         "control": ("main", "glm")}
+         "control": ("main", "glm"), "flow": ("flow_parity",)}
 
 
 def main() -> int:
@@ -4043,26 +4719,29 @@ def main() -> int:
     start = time.perf_counter()
     ctx: dict = {}
     asked = {p for p in args.phases.split(",") if p}
-    asked |= {"build"} | {n for p in asked for n in NEEDS.get(p, ())}
+    asked |= {"build", "build_steps"} | {n for p in asked for n in NEEDS.get(p, ())}
     phases = [p for p in PHASES if p in asked]
     # every phase runs, so one call reads them all; any failure fails the run
     failed, seconds, memory = [], {}, {}
-    for name in phases:
-        t0 = time.perf_counter()
-        try:
-            PHASES[name](ctx)
-        except Exception:
-            traceback.print_exc()
-            print(f"chip_smoke: phase {name} failed", file=sys.stderr, flush=True)
-            failed.append(name)
-        seconds[name] = round(time.perf_counter() - t0, 1)
-        # what a phase leaves on the card, before and after the garbage
-        # collector and the allocator's cache release (a finished run's
-        # background sampler and its graphs are freed by the collector)
-        memory[name] = [round(torch.cuda.memory_reserved() / 2**30, 2)]
-        gc.collect()
-        torch.cuda.empty_cache()
-        memory[name].append(round(torch.cuda.memory_reserved() / 2**30, 2))
+    try:
+        for name in phases:
+            t0 = time.perf_counter()
+            try:
+                PHASES[name](ctx)
+            except Exception:
+                traceback.print_exc()
+                print(f"chip_smoke: phase {name} failed", file=sys.stderr, flush=True)
+                failed.append(name)
+            seconds[name] = round(time.perf_counter() - t0, 1)
+            # what a phase leaves on the card, before and after the garbage
+            # collector and the allocator's cache release (a finished run's
+            # background sampler and its graphs are freed by the collector)
+            memory[name] = [round(torch.cuda.memory_reserved() / 2**30, 2)]
+            gc.collect()
+            torch.cuda.empty_cache()
+            memory[name].append(round(torch.cuda.memory_reserved() / 2**30, 2))
+    finally:
+        _stop_step_builds()
     emit({"phase_seconds": seconds, "total_s": round(time.perf_counter() - start, 1),
           "reserved_gib_after_phase": memory})
     if failed:
@@ -4128,6 +4807,20 @@ def main() -> int:
                            "a step (the metric part only)",
                 "parity": "ok",
             },
+            "fixed_metric": {
+                "timed_at": f"{FLOW_PARITY_CHAINS} chains, dim {FLOW_DIM + 1}, float32 (the "
+                            "flow fleet's funnel in its flows' base space)",
+                "launches": ctx["flow_k2_launches"],
+                **ctx["flow_k2_parity"],
+                "ms": ctx["flow_k2_timing"]["ms"],
+                "device_ms": ctx["flow_k2_timing"]["device_ms"],
+                "plain_ms": ctx["flow_k2_timing"]["plain_ms"],
+                "bound_ms": ctx["flow_k2_timing"]["bound_ms"],
+                "bound_by": "bytes",
+                "share_of_bound": ctx["flow_k2_timing"]["share_of_bound"],
+                "library_ms": None,
+                "parity": "ok",
+            },
             "microcanonical": {
                 "shapes": f"{GLM_CHAINS} chains, dim {GLM_DIM}, float32 (the GLM)",
                 "launches": ctx["micro_launches"],
@@ -4172,6 +4865,20 @@ def main() -> int:
                 "library_device_ms": ctx["mclmc_lr"]["library_device_ms_per_step"],
                 "library": "two torch.bmm per metric application, three applications a "
                            "step (the metric part only)",
+                "parity": "ok",
+            },
+            "fixed_metric": {
+                "timed_at": f"{FLOW_MCLMC_CHAINS} chains, dim 4, float32 (the MCLMC flow "
+                            "run's Gaussian in its flows' base space)",
+                "launches": ctx["flow_k3_launches"],
+                **ctx["flow_k3_parity"],
+                "ms": ctx["flow_k3_timing"]["ms"],
+                "device_ms": ctx["flow_k3_timing"]["device_ms"],
+                "plain_ms": ctx["flow_k3_timing"]["plain_ms"],
+                "bound_ms": ctx["flow_k3_timing"]["bound_ms"],
+                "bound_by": "bytes",
+                "share_of_bound": ctx["flow_k3_timing"]["share_of_bound"],
+                "library_ms": None,
                 "parity": "ok",
             },
             "parity": "ok",

@@ -15,6 +15,15 @@ rows after the 14) and is carried as it is, both ways.
 ``state_to_arrays`` unpacks it again, so both packages can step the same
 state and be compared array by array.
 
+Under flow adaptation the JAX ``FlowAdaptState`` adds ``adapt.flow.<field>``
+for every field of its ``FlowParams``, ``adapt.flow_updates`` and the
+window ``adapt.win_draws`` / ``adapt.win_grads`` / ``adapt.win_valid``
+(the port's ``flow_<field>``, ``flow_updates`` and ``win_*``), and with
+``use_orbit`` the state's ``orbit_z`` and ``orbit_g``, the rows of the
+port's ``orbit``.  The JAX ``MclmcState``'s ``floww`` carries the same
+flow and window leaves under ``floww.flow.<field>``, ``floww.flow_updates``
+and ``floww.win_*``.
+
 The JAX ``MclmcState`` flattens to ``rng_key``, ``position``,
 ``gradient``, ``logp``, ``velocity``, ``draw_idx``, ``log_eps``,
 ``total_steps``, ``divergence_count``, ``adapt.inv_mass`` and the four
@@ -34,10 +43,13 @@ from .sampler.mclmc import M_FLT, M_INT, M_VEC, MclmcState
 from .sampler.state import (
     ADAPT_FLT_SLOTS,
     ADAPT_VEC_SLOTS,
+    FLOW_FIELDS,
     N_ADAPT_FLT,
     N_ADAPT_VEC,
+    WINDOW_FIELDS,
     NutsMachineState,
 )
+from .transforms.flow import FlowParams
 
 # flat adaptation leaf name -> (packed tensor, slot)
 ADAPT_LEAVES = {
@@ -59,6 +71,30 @@ for _acc in ("draws_cur", "grads_cur", "draws_bg", "grads_bg"):
 STATE_LEAVES = ("vecs", "ckpt_p", "ckpt_s", "flts", "ints")
 # the low-rank metric's leaves and the port's fields
 METRIC_LEAVES = {"adapt.metric.basis": "lr_basis", "adapt.metric.log_eigs": "lr_log_eigs"}
+
+
+def flow_leaves(prefix: str) -> dict:
+    """A flow window's leaf names under ``prefix`` (``adapt`` or ``floww``)
+    and the port's fields."""
+    out = {f"{prefix}.flow.{name}": field for name, field in zip(FlowParams._fields, FLOW_FIELDS)}
+    out.update({f"{prefix}.{name}": name for name in WINDOW_FIELDS})
+    return out
+
+
+FLOW_LEAVES = flow_leaves("adapt")
+MCLMC_FLOW_LEAVES = flow_leaves("floww")
+_LEAF_DTYPES = {"flow_updates": torch.int32, "win_valid": torch.bool}
+
+
+def _flow_from_arrays(arrays: dict, leaves: dict, device, dtype) -> dict:
+    return {field: torch.as_tensor(np.array(arrays[leaf]), device=device,
+                                   dtype=_LEAF_DTYPES.get(field, dtype))
+            for leaf, field in leaves.items() if leaf in arrays}
+
+
+def _flow_to_arrays(state, leaves: dict) -> dict:
+    return {leaf: getattr(state, field).detach().cpu().numpy()
+            for leaf, field in leaves.items() if getattr(state, field) is not None}
 
 
 def adapt_from_arrays(arrays: dict, device="cpu", dtype=torch.float64):
@@ -92,6 +128,9 @@ def state_from_arrays(arrays: dict, device="cpu", dtype=None) -> NutsMachineStat
     adapt_vecs, adapt_flts = adapt_from_arrays(arrays, device, dtype)
     metric = {field: t(arrays[leaf]) for leaf, field in METRIC_LEAVES.items()
               if leaf in arrays}
+    metric.update(_flow_from_arrays(arrays, FLOW_LEAVES, device, dtype))
+    if "orbit_z" in arrays:
+        metric["orbit"] = torch.stack([t(arrays["orbit_z"]), t(arrays["orbit_g"])], dim=1)
     return NutsMachineState(
         key=t(np.asarray(arrays["rng_key"]).astype(np.int64), torch.int64),
         adapt_vecs=adapt_vecs,
@@ -115,6 +154,9 @@ def state_to_arrays(state: NutsMachineState) -> dict:
     for leaf, field in METRIC_LEAVES.items():
         if getattr(state, field) is not None:
             out[leaf] = a(getattr(state, field))
+    out.update(_flow_to_arrays(state, FLOW_LEAVES))
+    if state.orbit is not None:
+        out["orbit_z"], out["orbit_g"] = a(state.orbit[:, 0]), a(state.orbit[:, 1])
     return out
 
 
@@ -131,6 +173,7 @@ def mclmc_state_from_arrays(arrays: dict, device="cpu", dtype=None) -> MclmcStat
     adapt_vecs, adapt_flts = adapt_from_arrays(arrays, device, dtype)
     metric = {field: t(arrays[leaf]) for leaf, field in METRIC_LEAVES.items()
               if leaf in arrays}
+    metric.update(_flow_from_arrays(arrays, MCLMC_FLOW_LEAVES, device, dtype))
     vecs = torch.stack([t(arrays[name]) for name in M_VEC], dim=1)
     flts = torch.stack([t(arrays[name]) for name in M_FLT], dim=1)
     ints = torch.stack([t(arrays[name], torch.int32) for name in M_INT], dim=1)
@@ -156,4 +199,5 @@ def mclmc_state_to_arrays(state: MclmcState) -> dict:
     for leaf, field in METRIC_LEAVES.items():
         if getattr(state, field) is not None:
             out[leaf] = a(getattr(state, field))
+    out.update(_flow_to_arrays(state, MCLMC_FLOW_LEAVES))
     return out

@@ -170,14 +170,17 @@ __device__ __forceinline__ T mass_estimate(const MkConfig& cfg,
 }
 
 // The rate-limited new inverse mass of one coordinate (old value `old`)
-// and its contribution to the ratio of the step shift.
+// and its contribution to the ratio of the step shift.  Under a fixed
+// metric (cfg.fixed_metric, flow adaptation; adapt.py's update_mass_matrix
+// False) the inverse mass stays as it is, as when frozen, so the ratio is
+// 1 and the shift 0, while the windows run on.
 template <typename T>
 __device__ __forceinline__ T mass_update(const MkConfig& cfg,
                                          const AdaptWindow<T>& w, bool use_est,
                                          T est, T old, T& ratio) {
   T m = use_est ? est : old;
   m = jclip(m, old * T(0.5), old * T(2.0));
-  if (w.frozen) m = old;
+  if (w.frozen || cfg.fixed_metric) m = old;
   ratio = jmax(ratio, m / jmax(old, T(cfg.min_variance)));
   return m;
 }

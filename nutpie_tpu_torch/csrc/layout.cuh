@@ -115,6 +115,7 @@ struct MkConfig {
   int32_t step_held;   // chunks a thread holds in registers (0: any number)
   int32_t step_grid;   // blocks of a launch
   int32_t micro;       // 1: the microcanonical kinetic (the step kernel's MICRO instantiations)
+  int32_t fixed_metric;  // 1: the inverse mass is never re-estimated (flow adaptation)
 };
 
 // Device pointers of one launch.  State tensors are updated in place.

@@ -683,10 +683,11 @@ __device__ __forceinline__ void end_draw(const ChainCtx<T, LR, N, KC, G>& cx, co
 
   // the metric (mclmc.py:mclmc_adapt_update): Welford adds where tuning and
   // not diverging, the estimate from the current window before the switch,
-  // kept where tuning and not frozen, then the switch
+  // kept where tuning and not frozen, then the switch; none of it under a
+  // fixed metric (flow adaptation), whose windows do not run
   Row<T, N, KC> im(cx.av + A_INV_MASS * dim);
   bool im_known = false;  // held: im's registers hold the row
-  if (tuning) {
+  if (tuning && !cfg.mk.fixed_metric) {
     const bool ok = !diverging;
     const AdaptWindow<T> w(cfg.mk, s, af, draw_idx, ok);
     AdaptWindow<T> pre = w;  // the estimate reads the window before the switch

@@ -170,6 +170,14 @@ struct StepPtrs {
   // (low-rank), [C, 2, dim]; the first half-update's kinetic change, [C]
   void* mc_rows;
   void* mc_dke;
+  // flow adaptation's use_orbit: the uniform-leaf reservoir's rows (a leaf
+  // and its gradient, [C, 2, dim]), each step's reservoir uniform (first
+  // half -> second, [C]) and the draws' orbit leaves ([C, L, dim] each);
+  // all null without it
+  void* orbit;
+  float* orbit_u;
+  void* orbit_pos_out;
+  void* orbit_grad_out;
 };
 
 template <typename T>
@@ -212,6 +220,10 @@ struct StepArgs {
   T* div_grad_out;
   T* mc_rows;
   T* mc_dke;
+  T* orbit;
+  float* orbit_u;
+  T* orbit_pos_out;
+  T* orbit_grad_out;
 
   StepArgs(const MkConfig& c, const StepPtrs& p, bool adv)
       : cfg(c), advance(adv ? 1 : 0), scal(p.scal), key(p.key),
@@ -232,7 +244,10 @@ struct StepArgs {
         div_end_out(static_cast<T*>(p.div_end_out)),
         div_mom_out(static_cast<T*>(p.div_mom_out)),
         div_grad_out(static_cast<T*>(p.div_grad_out)),
-        mc_rows(static_cast<T*>(p.mc_rows)), mc_dke(static_cast<T*>(p.mc_dke)) {}
+        mc_rows(static_cast<T*>(p.mc_rows)), mc_dke(static_cast<T*>(p.mc_dke)),
+        orbit(static_cast<T*>(p.orbit)), orbit_u(p.orbit_u),
+        orbit_pos_out(static_cast<T*>(p.orbit_pos_out)),
+        orbit_grad_out(static_cast<T*>(p.orbit_grad_out)) {}
 
   // The block's view of the low-rank metric (its barriers initialized).
   template <typename G>
@@ -724,6 +739,10 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
   const bool div_leaf = !finite || e_err > T(cfg.max_energy_error) || stagnant;
   const T lw = div_leaf ? -T(INFINITY) : -e_err;
   const T acc = finite ? exp(jmin(T(0), -e_err)) : T(0);
+  // use_orbit: the new point replaces the reservoir's leaf with probability
+  // 1 / (the draw's leaves so far, this one included)
+  const bool take_orbit =
+      a.orbit != nullptr && T(a.orbit_u[chain]) * T(in[I_N_LEAVES] + 1) <= T(1);
   if constexpr (DIV) {
     // a divergent leaf keeps the edge it left (position, gradient,
     // momentum) and the point it reached; then the edge becomes the new
@@ -757,7 +776,25 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
       st<N>(ze, c, z);
       st<N>(pe, c, p);
       st<N>(ge, c, gi);
+      if (take_orbit) {
+        T* orow = a.orbit + size_t(chain) * 2 * dim;
+        st<N>(orow, c, z);
+        st<N>(orow + dim, c, gi);
+      }
     });
+  } else {
+    if (take_orbit) {
+      T* orow = a.orbit + size_t(chain) * 2 * dim;
+      each_chunk<KC>(g, n_chunks, [&](int j, int c) {
+        if constexpr (KC > 0) {
+          st<N>(orow, c, z_held[j]);
+          st<N>(orow + dim, c, g_held[j]);
+        } else {
+          st<N>(orow, c, ld<N>(zn, c));
+          st<N>(orow + dim, c, ld<N>(gn, c));
+        }
+      });
+    }
   }
   fl[F_SUM_ACC] = fl[F_SUM_ACC] + acc;
   in[I_N_LEAVES] += 1;
@@ -986,6 +1023,14 @@ __device__ __forceinline__ void finish_half(const StepArgs<T>& a, int chain, con
         st<N>(a.div_grad_out + out_row * dim, c, ld<N>(v + V_DIV_START_GRAD * dim, c));
       }
     });
+    if (a.orbit_pos_out) {
+      // use_orbit: the draw's orbit leaf
+      const T* orow = a.orbit + size_t(chain) * 2 * dim;
+      each_chunk<KC>(g, n_chunks, [&](int, int c) {
+        st<N>(a.orbit_pos_out + out_row * dim, c, ld<N>(orow, c));
+        st<N>(a.orbit_grad_out + out_row * dim, c, ld<N>(orow + dim, c));
+      });
+    }
     if constexpr (LR) {
       // thread r < R is lane r of the first warp
       if (a.eig_out && g.rank < m.R) a.eig_out[out_row * m.R + g.rank] = exp(m.log_eig);
@@ -1039,15 +1084,18 @@ __device__ __forceinline__ void begin_half(const StepArgs<T>& a, int chain, cons
   const bool at_start = in[I_N_LEAF] == 0;
 
   // uniform(fold_in(fold_in(key, 3), total_steps), (3,)): lane l < 3 of
-  // the group (of each warp of a block) hashes element l
+  // the group (of each warp of a block) hashes element l; with use_orbit
+  // lane 3 the reservoir's uniform(fold_in(that key, 1), ())
   const int lane = g.lane();
   float u = 0.0f;
-  if (lane < 3) {
+  if (lane < 3 || (lane == 3 && a.orbit_u != nullptr)) {
     uint32_t k1 = uint32_t(a.key[2 * chain]), k2 = uint32_t(a.key[2 * chain + 1]);
     fold_in(k1, k2, 3u);
     fold_in(k1, k2, uint32_t(total_steps));
-    u = uniform3_element(k1, k2, uint32_t(lane));
+    if (lane == 3) fold_in(k1, k2, 1u);
+    u = uniform3_element(k1, k2, uint32_t(lane == 3 ? 0 : lane));
     if (g.rank < 3) a.u3[3 * size_t(chain) + lane] = u;
+    if (g.rank == 3) a.orbit_u[chain] = u;
   }
   const float u0 = g.first(u);
   const int direction = at_start ? (T(u0) < T(0.5) ? -1 : 1) : in[I_DIRECTION];
@@ -1317,7 +1365,8 @@ int diag_form(const MkConfig& cfg, const StepPtrs& p) {
   const uintptr_t align = uintptr_t(cfg.step_vec) * sizeof(T);
   const void* rows[] = {p.vecs, p.ckpt_p, p.ckpt_s, p.adapt_vecs, p.mom, p.pos_out,
                         p.z_new, p.grad, p.grad_out, p.minv_out, p.div_start_out,
-                        p.div_end_out, p.div_mom_out, p.div_grad_out};
+                        p.div_end_out, p.div_mom_out, p.div_grad_out, p.orbit,
+                        p.orbit_pos_out, p.orbit_grad_out};
   for (const void* r : rows) {
     if (reinterpret_cast<uintptr_t>(r) % align != 0) return -1;
   }

@@ -41,6 +41,7 @@ class PyFuncModel(CompiledModel):
     _coords: dict = dataclasses.field(default_factory=dict)
     _dims: dict = dataclasses.field(default_factory=dict)
     _shared_data: dict = dataclasses.field(default_factory=dict)
+    _transform_adapt_args: dict = dataclasses.field(default_factory=dict)
     _reparameterized_names: tuple = ()
 
     def __post_init__(self):
@@ -146,6 +147,7 @@ class CompiledModelDef(CompiledModel):
     """Adapter exposing a raw :class:`ModelDef` as a CompiledModel."""
 
     model_def: ModelDef = None
+    _transform_adapt_args: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         object.__setattr__(self, "coords", dict(self.model_def.coords))

@@ -17,6 +17,7 @@ keep its constants on ``x.device`` in ``x.dtype``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Any, Callable, Optional, Sequence
@@ -148,6 +149,16 @@ class CompiledModel:
         raise NotImplementedError(
             f"{type(self).__name__} does not support with_data"
         )
+
+    def with_transform_adapt(self, **kwargs: Any) -> "CompiledModel":
+        """A copy whose flow adaptation takes these ``FlowConfig`` options
+        (``nutpie_tpu/model.py:147-155``; they win over the settings')."""
+        merged = dict(getattr(self, "_transform_adapt_args", {}), **kwargs)
+        if dataclasses.is_dataclass(self):
+            return dataclasses.replace(self, _transform_adapt_args=merged)
+        new = copy.copy(self)
+        new._transform_adapt_args = merged
+        return new
 
     def benchmark_logp(self, point, num_evals: int, cores: int | Sequence[int] = 1,
                        device="cuda"):

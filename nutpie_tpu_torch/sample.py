@@ -32,6 +32,7 @@ float64 on the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import threading
 import time
@@ -56,7 +57,6 @@ from .sampler.mclmc import (
     make_mclmc_chunk_runner,
 )
 from .sampler.nuts import (
-    _FLOW_ITEM,
     DIV_BUFFERS,
     SCALAR_SLOTS,
     LowRankConfig,
@@ -66,6 +66,7 @@ from .sampler.run import fleet_depth_cap, init_chains, make_chunk_runner, resolv
 from .settings import MclmcSettings, NutsSettings
 from .storage.sink import ZarrTraceSink
 from .trace import assemble_trace, open_zarr_trace
+from .transforms.flow import FlowConfig
 
 __all__ = ["sample"]
 
@@ -94,18 +95,49 @@ def _make_settings(sampler: str, adaptation: str, seed):
     )
 
 
-def nuts_config_from_settings(settings: NutsSettings) -> NutsConfig:
-    """Settings tree -> NutsConfig (the JAX package's, without its flow
-    branch)."""
-    if settings.adaptation == "flow":
-        raise NotImplementedError(f"flow adaptation: {_FLOW_ITEM}")
+def _apply_f32_flow_recipe(args: dict, precision: str, device) -> None:
+    """The JAX package's float32 flow-training recipe
+    (``nutpie_tpu/sample.py:62-80``), as it is: where the run resolves to
+    float32, learning rate 3e-4, 1600 steps and the cosine decay, unless
+    the user set them."""
+    if resolve_dtype(precision, torch.device("cuda" if device is None else device)) \
+            == torch.float32:
+        args.setdefault("learning_rate", 3e-4)
+        args.setdefault("train_steps", 1600)
+        args.setdefault("lr_decay", True)
+
+
+def flow_config(settings, transform_args: Optional[dict], device,
+                orbit: bool) -> FlowConfig:
+    """The flow's configuration from the settings' ``flow`` options and the
+    model's ``with_transform_adapt`` arguments (those win), the update
+    cadence ``transform_update_freq``, ``use_orbit`` from
+    ``use_orbit_for_training`` (NUTS), and the float32 recipe."""
+    ao = settings.adapt_options
+    args = dict(getattr(ao, "flow", {}) or {})
+    args.update(transform_args or {})
+    if orbit:
+        args.setdefault("use_orbit", getattr(ao, "use_orbit_for_training", False))
+    _apply_f32_flow_recipe(args, settings.precision, device)
+    known = {f.name for f in dataclasses.fields(FlowConfig)}
+    return FlowConfig(update_freq=getattr(ao, "transform_update_freq", 64),
+                      **{k: v for k, v in args.items() if k in known})
+
+
+def nuts_config_from_settings(settings: NutsSettings, transform_args: Optional[dict] = None,
+                              device=None) -> NutsConfig:
+    """Settings tree -> NutsConfig (``nutpie_tpu/sample.py:82-150``);
+    ``transform_args`` are the model's ``with_transform_adapt`` arguments,
+    ``device`` the run's (the float32 flow recipe follows its precision)."""
     ao = settings.adapt_options
     ss = ao.step_size_settings
-    mm = ao.mass_matrix_options
-    low_rank = None
+    mm = getattr(ao, "mass_matrix_options", None)
+    low_rank = flow = None
     if settings.adaptation == "low_rank":
         low_rank = LowRankConfig(eigval_cutoff=mm.eigval_cutoff, gamma=mm.gamma,
                                  window=ao.mass_matrix_switch_freq)
+    elif settings.adaptation == "flow":
+        flow = flow_config(settings, transform_args, device, orbit=True)
     adapt = AdaptConfig(
         num_tune=settings.num_tune,
         target_accept=ss.target_accept,
@@ -119,11 +151,12 @@ def nuts_config_from_settings(settings: NutsSettings) -> NutsConfig:
         adam_beta1=ss.adapt_options.adam.beta1,
         adam_beta2=ss.adapt_options.adam.beta2,
         step_size_jitter=ss.jitter,
-        switch_freq=ao.mass_matrix_switch_freq,
-        early_switch_freq=ao.early_mass_matrix_switch_freq,
-        early_phase_share=ao.early_phase_share,
-        freeze_share=ao.freeze_share,
+        switch_freq=getattr(ao, "mass_matrix_switch_freq", 80),
+        early_switch_freq=getattr(ao, "early_mass_matrix_switch_freq", 10),
+        early_phase_share=getattr(ao, "early_phase_share", 0.3),
+        freeze_share=getattr(ao, "freeze_share", 0.1),
         use_grad_based_estimate=getattr(mm, "use_grad_based_estimate", True),
+        update_mass_matrix=flow is None,
     )
     return NutsConfig(
         maxdepth=settings.maxdepth,
@@ -134,27 +167,28 @@ def nuts_config_from_settings(settings: NutsSettings) -> NutsConfig:
         extra_doublings=settings.extra_doublings,
         max_energy_error=settings.max_energy_error,
         store_gradient=settings.store_gradient,
-        store_mass_matrix=mm.store_mass_matrix,
+        store_mass_matrix=getattr(mm, "store_mass_matrix", False),
         store_divergences=settings.store_divergences,
         store_transformed=settings.store_transformed,
         low_rank=low_rank,
+        flow=flow,
         adapt=adapt,
     )
 
 
-def mclmc_config_from_settings(settings: MclmcSettings) -> MclmcConfig:
-    """Settings tree -> MclmcConfig (``nutpie_tpu/sample.py:276-329``,
-    without its flow branch)."""
-    if settings.adaptation == "flow":
-        raise NotImplementedError(f"flow adaptation: {_FLOW_ITEM}")
+def mclmc_config_from_settings(settings: MclmcSettings, transform_args: Optional[dict] = None,
+                               device=None) -> MclmcConfig:
+    """Settings tree -> MclmcConfig (``nutpie_tpu/sample.py:276-329``)."""
     ao = settings.adapt_options
     ss = ao.step_size_settings
     mm = getattr(ao, "mass_matrix_options", None)
-    low_rank = None
+    low_rank = flow = None
     if settings.adaptation == "low_rank":
         low_rank = LowRankConfig(eigval_cutoff=getattr(mm, "eigval_cutoff", 100.0),
                                  gamma=getattr(mm, "gamma", 1e-5),
                                  window=getattr(ao, "mass_matrix_switch_freq", 80))
+    elif settings.adaptation == "flow":
+        flow = flow_config(settings, transform_args, device, orbit=False)
     adapt = AdaptConfig(
         num_tune=settings.num_tune,
         switch_freq=getattr(ao, "mass_matrix_switch_freq", 80),
@@ -162,6 +196,7 @@ def mclmc_config_from_settings(settings: MclmcSettings) -> MclmcConfig:
         use_grad_based_estimate=getattr(mm, "use_grad_based_estimate", True),
         target_accept=ss.target_accept,
         initial_step=ss.initial_step,
+        update_mass_matrix=flow is None,
     )
     return MclmcConfig(
         step_size=settings.step_size,
@@ -173,15 +208,16 @@ def mclmc_config_from_settings(settings: MclmcSettings) -> MclmcConfig:
         store_gradient=settings.store_gradient,
         store_mass_matrix=getattr(mm, "store_mass_matrix", False),
         low_rank=low_rank,
+        flow=flow,
         adapt=adapt,
     )
 
 
-def config_from_settings(settings):
+def config_from_settings(settings, transform_args: Optional[dict] = None, device=None):
     """The sampler's configuration: ``NutsConfig`` or ``MclmcConfig``."""
     if isinstance(settings, MclmcSettings):
-        return mclmc_config_from_settings(settings)
-    return nuts_config_from_settings(settings)
+        return mclmc_config_from_settings(settings, transform_args, device)
+    return nuts_config_from_settings(settings, transform_args, device)
 
 
 def default_chunk_size(settings, n_chains: int, dim: int, itemsize: int) -> int:
@@ -190,9 +226,9 @@ def default_chunk_size(settings, n_chains: int, dim: int, itemsize: int) -> int:
     [8, 128]."""
     if settings.chunk_size is not None:
         return max(1, int(settings.chunk_size))
-    mm = settings.adapt_options.mass_matrix_options
+    mm = getattr(settings.adapt_options, "mass_matrix_options", None)
     n_vec_buffers = (1 + settings.store_gradient + 4 * settings.store_divergences
-                     + bool(mm.store_mass_matrix))
+                     + bool(getattr(mm, "store_mass_matrix", False)))
     bytes_per_draw = n_chains * (dim * itemsize * n_vec_buffers + 128)
     return int(np.clip((256 * 1024 * 1024) // max(bytes_per_draw, 1), 8, 128))
 
@@ -200,10 +236,14 @@ def default_chunk_size(settings, n_chains: int, dim: int, itemsize: int) -> int:
 def chunk_length(settings, n_chains: int, dim: int, itemsize: int) -> int:
     """The run's chunk length.  Without a ``chunk_size``, low-rank
     adaptation puts the chunk boundaries, where its metric updates, on the
-    mass-matrix switch cadence, as the JAX package does."""
+    mass-matrix switch cadence, and flow adaptation, where its flows train,
+    on ``transform_update_freq``, as the JAX package does."""
     total = settings.num_tune + settings.num_draws
     if settings.adaptation == "low_rank" and settings.chunk_size is None:
         return min(max(settings.adapt_options.mass_matrix_switch_freq, 1), max(total, 1))
+    if settings.adaptation == "flow" and settings.chunk_size is None:
+        freq = getattr(settings.adapt_options, "transform_update_freq", 64)
+        return min(max(freq, 1), max(total, 1))
     return min(default_chunk_size(settings, n_chains, dim, itemsize), max(total, 1))
 
 
@@ -227,13 +267,16 @@ _SCALAR_DTYPES = {
 
 
 # the optional buffers that become statistics of the trace
-_OPTIONAL_STATS = ("gradient", "mass_matrix_inv", "mass_matrix_eigvals", *DIV_BUFFERS)
+_OPTIONAL_STATS = ("gradient", "mass_matrix_inv", "mass_matrix_eigvals", *DIV_BUFFERS,
+                   "transformed_position", "transformed_gradient", "transformation_mu",
+                   "orbit_position", "orbit_gradient")
 # the message a divergent draw carries beside its divergence rows
 DIVERGENCE_MESSAGE = "energy error exceeded max_energy_error (or was non-finite)"
 
 
 def chunk_to_host(bufs: dict, expanded: dict, limit: int,
-                  store_unconstrained: bool = False, mclmc_steps: Optional[int] = None) -> dict:
+                  store_unconstrained: bool = False, mclmc_steps: Optional[int] = None,
+                  flow: bool = False) -> dict:
     """One chunk's host arrays (``ChunkBuffers`` or ``MclmcBuffers`` fields
     and expanded variables by name, ``[C, L, ...]``) cut to the draws
     produced and copied out of the transfer's buffers.
@@ -241,7 +284,8 @@ def chunk_to_host(bufs: dict, expanded: dict, limit: int,
     The optional buffers become statistics under the JAX trace's names.
     With the divergence buffers comes ``divergence_message``, as in
     ``nutpie_tpu/sample.py``: the message at a divergent draw, empty
-    elsewhere.  An MCLMC chunk (``mclmc_steps``: its steps a draw) has
+    elsewhere.  ``fisher_distance`` is a statistic under flow adaptation
+    (``flow``) only, as in the JAX package.  An MCLMC chunk (``mclmc_steps``: its steps a draw) has
     MCLMC's statistics, in the JAX package's order and dtypes: ``logp``,
     ``energy_error``, ``diverging``, ``step_size``, ``n_steps`` (int32),
     then the optional buffers."""
@@ -256,7 +300,7 @@ def chunk_to_host(bufs: dict, expanded: dict, limit: int,
     else:
         stats = {name: cut(bufs[name]) for name in _OPTIONAL_STATS if name in bufs}
     for name, slot in SCALAR_SLOTS.items():
-        if mclmc_steps is not None or name == "fisher_distance":
+        if mclmc_steps is not None or (name == "fisher_distance" and not flow):
             continue  # MCLMC has its own; the Fisher distance is flow adaptation's
         arr = packed[..., slot]
         dt = _SCALAR_DTYPES.get(name)
@@ -369,7 +413,9 @@ def route(cfg, model: ModelDef) -> str:
     for an ``MclmcConfig``, ``"mclmc"`` (K3 around it).  Raises
     ``NotImplementedError`` naming the ``ROADMAP.md`` item of what no
     kernel runs (``step_kernel.unsupported``: each of its refusals holds
-    for whichever kernel the configuration would take)."""
+    for whichever kernel the configuration would take).  Flow adaptation
+    takes ``"step"`` (K2 around the pulled-back log density) or, under
+    MCLMC, ``"mclmc"``."""
     if isinstance(cfg, MclmcConfig):
         return "mclmc"
     why = step_kernel.unsupported(cfg)
@@ -413,10 +459,11 @@ class _BackgroundSampler:
         self._seed = int(settings.seed)
 
         # everything that can refuse the run does so here, before anything runs
-        self._cfg = config_from_settings(settings)
+        self._device = resolve_device(device)
+        self._cfg = config_from_settings(
+            settings, getattr(compiled_model, "_transform_adapt_args", None), self._device)
         self._model: ModelDef = compiled_model._make_model(self._seed)
         self.route = route(self._cfg, self._model)
-        self._device = resolve_device(device)
         self._dtype = resolve_dtype(settings.precision, self._device)
         self._n_chains = settings.num_chains
         self._num_tune = settings.num_tune
@@ -434,6 +481,8 @@ class _BackgroundSampler:
 
         # control state
         self._pause_evt = threading.Event()
+        # set once the loop is parked by pause() with every launched chunk stored
+        self._parked_evt = threading.Event()
         self._abort_evt = threading.Event()
         self._finished_evt = threading.Event()
         self._lock = threading.Lock()
@@ -540,8 +589,15 @@ class _BackgroundSampler:
         while (start < self._total and not self._abort_evt.is_set()) or pending is not None:
             launched = None
             if start < self._total and not self._abort_evt.is_set():
-                while self._pause_evt.is_set() and not self._abort_evt.is_set():
-                    time.sleep(0.01)
+                if self._pause_evt.is_set():
+                    # park with the chunk in flight stored, so no draw lands
+                    # while paused
+                    if pending is not None:
+                        self._finish_chunk(*pending, sink, sink_dims, sink_coords)
+                        pending = None
+                    self._parked_evt.set()
+                    while self._pause_evt.is_set() and not self._abort_evt.is_set():
+                        time.sleep(0.01)
                 if not self._abort_evt.is_set():
                     if (self._checkpoint_path is not None and chunk_idx > 0
                             and chunk_idx % self._checkpoint_every == 0):
@@ -587,7 +643,8 @@ class _BackgroundSampler:
             host[group][name] = arr
         chunk = chunk_to_host(host["bufs"], host["expanded"], p_limit,
                               self._store_unconstrained,
-                              self._cfg.steps_per_draw if self.route == "mclmc" else None)
+                              self._cfg.steps_per_draw if self.route == "mclmc" else None,
+                              flow=self._cfg.flow is not None)
         with self._lock:
             # zarr runs stream to the store and return a store-backed trace;
             # holding every chunk on the host as well would defeat streaming
@@ -708,8 +765,15 @@ class _BackgroundSampler:
         """Pause the sampler (at the next chunk boundary)."""
         self._pause_evt.set()
 
+    def wait_paused(self, timeout: Optional[float] = None) -> bool:
+        """Wait until a paused sampler is parked at a chunk boundary, every
+        chunk it launched stored; False if ``timeout`` (seconds) elapses
+        first."""
+        return self._parked_evt.wait(timeout)
+
     def resume(self):
         """Resume a paused sampler."""
+        self._parked_evt.clear()
         self._pause_evt.clear()
 
     def abort(self):
@@ -795,10 +859,13 @@ def sample(
     ``resume_from`` continues from such a file.  Extra keyword settings
     include ``precision``, ``chunk_size``, ``pool_mass_matrix`` and
     ``pool_step_size``.  ``device`` defaults to CUDA.  ``sampler="mclmc"``
-    runs MCLMC (``MclmcSettings``); flow adaptation is not ported yet (it
-    raises ``NotImplementedError``).
-    ``store_transformed`` stores nothing without flow adaptation, as in the
-    JAX package.
+    runs MCLMC (``MclmcSettings``).  ``adaptation="flow"`` trains a
+    normalizing flow per chain at warmup chunk boundaries (every
+    ``transform_update_freq`` draws; the flow's options through the model's
+    ``with_transform_adapt``) and samples in its base space under an
+    identity metric; ``store_transformed`` then stores the base-space draws,
+    gradients and the flow's mu, and stores nothing without flow
+    adaptation, as in the JAX package.
     """
     updates = dict(kwargs)
     if "use_grad_based_mass_matrix" in updates:

@@ -7,7 +7,8 @@ metric's rank ``lr_rank`` and its launch plan, ``lr_streamed`` to
 ``lr_grid``, and the diagonal plan, ``step_lanes`` to ``step_grid``, are
 the step kernel's and stay 0 for the chunk kernel; so do
 ``store_divergences`` and ``micro``, the microcanonical kinetic, which
-only the step kernel takes).  The schedule
+only the step kernel takes; ``fixed_metric``, an inverse mass that is
+never re-estimated, is the step and MCLMC kernels').  The schedule
 scalars travel as one int32 tensor on the device, so a ``depth_cap`` that
 lives on the device needs no host round trip.
 """
@@ -70,6 +71,7 @@ class MkConfig(ctypes.Structure):
         ("step_held", ctypes.c_int32),
         ("step_grid", ctypes.c_int32),
         ("micro", ctypes.c_int32),
+        ("fixed_metric", ctypes.c_int32),
     ]
 
 
@@ -126,6 +128,7 @@ def sampler_config(cfg: NutsConfig, n_chains: int, dim: int, depth_slots: int,
         extra_doublings=cfg.extra_doublings,
         store_divergences=int(cfg.store_divergences),
         micro=int(cfg.kinetic == "microcanonical"),
+        fixed_metric=int(not ac.update_mass_matrix),
         **model_sizes,
     )
 

@@ -43,6 +43,14 @@ the same normals of its last step.  Under the partitionable layout
 chunk's ``[C, L, steps_per_draw, dim]`` from ``draw_normals`` before it
 runs; the kernel draws each step's normals itself from ``refresh_keys``
 (``fold_in(key, 4)``), as ``step_normals`` mirrors.
+
+Flow adaptation (``MclmcConfig.flow``): the dynamics run in each chain's
+flow base space under an identity metric whose windows do not run
+(``update_mass_matrix=False``); the log densities are the pulled-back
+one under the chunk's flows, and at the chunk's end warmup chunks train
+the flows (``transforms.flow.chunk_flow_update``) and every chunk's draws
+go to model space through the flow that drew them
+(``nutpie_tpu/sampler/mclmc.py:380-418``).
 """
 
 from __future__ import annotations
@@ -56,6 +64,11 @@ import torch
 
 from ..model import ModelDef
 from ..ops import threefry
+from ..transforms.flow import (
+    FlowConfig,
+    init_flow_window,
+    pulled_back,
+)
 from .adapt import (
     ADAPT_VEC_SLOTS,
     WELFORD,
@@ -67,8 +80,16 @@ from .adapt import (
 )
 from .isokinetic import apply_A, apply_At, iso_metric, update_velocity
 from .low_rank import estimate_low_rank, identity_metric
-from .nuts import _FLOW_ITEM, LowRankConfig, NutsConfig
-from .state import N_ADAPT_FLT, N_ADAPT_VEC, where as _w
+from .nuts import LowRankConfig, NutsConfig
+from .state import (
+    N_ADAPT_FLT,
+    N_ADAPT_VEC,
+    FlowStateFields,
+    flow_boundary,
+    flow_fields,
+    flow_params,
+    where as _w,
+)
 
 TRAJECTORIES = ("microcanonical", "euclidean", "euclidean_then_microcanonical")
 
@@ -87,14 +108,12 @@ class MclmcConfig:
     store_gradient: bool = False
     store_mass_matrix: bool = False
     low_rank: Optional[LowRankConfig] = None
-    flow: Optional[object] = None
+    flow: Optional[FlowConfig] = None
     adapt: AdaptConfig = dataclasses.field(
         default_factory=lambda: AdaptConfig(num_tune=300)
     )
 
     def __post_init__(self):
-        if self.flow is not None:
-            raise NotImplementedError(f"flow adaptation: {_FLOW_ITEM}")
         if self.trajectory not in TRAJECTORIES:
             raise ValueError(f"unknown MCLMC trajectory {self.trajectory!r}")
         if self.steps_per_draw < 1:
@@ -103,8 +122,8 @@ class MclmcConfig:
     @property
     def need_gradient(self) -> bool:
         """The chunk keeps its draws' gradients: asked for, or read by the
-        low-rank boundary update."""
-        return self.store_gradient or self.low_rank is not None
+        low-rank or the flow boundary update."""
+        return self.store_gradient or self.low_rank is not None or self.flow is not None
 
 
 # rows of MclmcState.vecs, slots of flts and ints
@@ -115,8 +134,9 @@ N_M_VEC, N_M_FLT, N_M_INT = len(M_VEC), len(M_FLT), len(M_INT)
 
 
 @dataclasses.dataclass
-class MclmcState:
-    """The MCLMC state of C chains (the JAX ``MclmcState``, packed)."""
+class MclmcState(FlowStateFields):
+    """The MCLMC state of C chains (the JAX ``MclmcState``, packed; under
+    flow adaptation the JAX state's ``floww`` in ``FlowStateFields``)."""
 
     key: torch.Tensor         # [C, 2] int64 raw Threefry key data
     vecs: torch.Tensor        # [C, 3, dim] position, gradient, velocity
@@ -424,9 +444,11 @@ class PlainMclmcSteps:
         else:
             new_log_eps = log_eps
 
-        adapt_vecs, adapt_flts = mclmc_adapt_update(cfg.adapt, sched, s.adapt_vecs,
-                                                    s.adapt_flts, draw_idx, x, g,
-                                                    tuning & ~diverging, tuning)
+        adapt_vecs, adapt_flts = s.adapt_vecs, s.adapt_flts
+        if cfg.adapt.update_mass_matrix:  # off under flow: the flow holds the geometry
+            adapt_vecs, adapt_flts = mclmc_adapt_update(cfg.adapt, sched, adapt_vecs,
+                                                        adapt_flts, draw_idx, x, g,
+                                                        tuning & ~diverging, tuning)
 
         # the commit, at the draw's row of the chunk
         d = (draw_idx - self.chunk_start).long().clamp(0, self.bufs.position.shape[1] - 1)
@@ -531,7 +553,11 @@ class MclmcChunkRunner:
     densities with their autograd and the launches, are captured once per
     chunk in a CUDA graph and replayed ``limit`` times (the draw counter is
     the state's, on the device).  A log density that cannot be captured
-    raises.  ``plain=True`` runs the plain version on any device (the
+    raises.  Under flow adaptation the log density is the pulled-back one
+    under the chunk's flows (its own copy of the state's flow fields, read
+    by the graph by address), and the chunk ends with the flow update of
+    warmup chunks and the draws' conversion to model space through the
+    flows that drew them.  ``plain=True`` runs the plain version on any device (the
     comparisons on the card use it), with the chunk's normals from
     ``draw_normals``, as the plain pieces on CPU tensors take them.
     """
@@ -555,6 +581,8 @@ class MclmcChunkRunner:
         bufs = init_buffers(cfg, self.chunk_len, C, dim, self.dtype, device)
         scratch = init_scratch(C, dim, self.dtype, device)
         states = states.clone()  # the chunk's own, updated in place
+        chunk_flow = flow_params(states)
+        logp_and_grad = pulled_back(cfg.flow, model.logp_and_grad, chunk_flow)
         if self.plain:
             steps = plain_steps(cfg, sched, chunk_start, limit, states, bufs, scratch)
         else:  # K3 on the card, drawing its normals; the plain pieces on the CPU
@@ -564,22 +592,25 @@ class MclmcChunkRunner:
         def one_draw():
             z_ = z
             for _ in range(cfg.steps_per_draw):
-                _, g_mid = model.logp_and_grad(z_)
+                _, g_mid = logp_and_grad(z_)
                 z_ = steps.kick(states, z_, g_mid)
-                logp, g = model.logp_and_grad(z_)
+                logp, g = logp_and_grad(z_)
                 z_ = steps.settle(states, z_, logp, g)
 
         if isinstance(steps, KernelMclmcSteps):
-            graph = self._capture(steps, z, one_draw)
+            graph = self._capture(steps, z, one_draw, logp_and_grad)
             for _ in range(limit):
                 graph.replay()
         else:
             for _ in range(limit):
                 one_draw()
         states = update_low_rank(cfg, states, bufs, chunk_start, limit, sched)
+        if cfg.flow is not None:
+            states, bufs = mclmc_flow_chunk_end(cfg, model, states, bufs, chunk_flow,
+                                                chunk_start, limit, sched)
         return states, bufs
 
-    def _capture(self, steps, z, one_draw):
+    def _capture(self, steps, z, one_draw, logp_and_grad):
         """One draw of this chunk in a CUDA graph (``step_kernel.StepGraph``);
         the log density runs once first on a side stream."""
         from .mclmc_kernel import mclmc_kernel
@@ -590,7 +621,7 @@ class MclmcChunkRunner:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            self.model.logp_and_grad(z.clone())
+            logp_and_grad(z.clone())
         torch.cuda.current_stream(device).wait_stream(side)
         graph = StepGraph(mclmc_kernel, device)
         try:
@@ -608,10 +639,31 @@ class MclmcChunkRunner:
         return graph
 
 
+def mclmc_flow_chunk_end(cfg: MclmcConfig, model: ModelDef, states: MclmcState,
+                         bufs: MclmcBuffers, chunk_flow, chunk_start: int, limit: int,
+                         sched: Schedule):
+    """Flow adaptation's chunk boundary (``nutpie_tpu/sampler/mclmc.py:380-418``,
+    through ``state.flow_boundary``): in warmup chunks each chain's flow
+    trains on the chunk's valid rows (``row < limit``, not divergent) and
+    the chain is re-based; then the chunk's draws go to model space through
+    ``chunk_flow``, the flows that drew them (logp ``logp_z - logdet``, the
+    gradient pushed through)."""
+    out = flow_boundary(cfg.flow, model.logp_and_grad, states, chunk_flow, bufs.position,
+                        bufs.gradient, bufs.diverging, limit, chunk_start < sched.num_tune)
+    vecs, flts = states.vecs.clone(), states.flts.clone()
+    vecs[:, M_VEC["position"]] = out.position
+    vecs[:, M_VEC["gradient"]] = out.gradient
+    flts[:, M_FLT["logp"]] = out.logp
+    states = states.replace(vecs=vecs, flts=flts, **out.fields)
+    scalars = bufs.scalars.clone()
+    slot = MCLMC_SCALAR_SLOTS["logp"]
+    scalars[..., slot] = scalars[..., slot] - out.logdets
+    return states, bufs._replace(position=out.xs, scalars=scalars, gradient=out.grads_x)
+
+
 def make_mclmc_chunk_runner(model: ModelDef, cfg: MclmcConfig, chunk_len: int, dtype,
                             plain: bool = False) -> MclmcChunkRunner:
-    """The MCLMC chunk runner (the JAX function's call semantics, without
-    its flow branch)."""
+    """The MCLMC chunk runner (the JAX function's call semantics)."""
     return MclmcChunkRunner(model, cfg, chunk_len, dtype, plain=plain)
 
 
@@ -620,8 +672,10 @@ def init_mclmc_chains(model: ModelDef, cfg: MclmcConfig, seed: int, n_chains: in
     """Positions from the NUTS init search (``run.init_chains``, with its
     step search and init-quality retry), then the MCLMC state: a unit
     velocity from ``normal(fold_in(key, 5))``, the gradient-based initial
-    inverse mass, ``log(step_size)``, empty Welford windows, and under
-    low-rank adaptation the identity metric."""
+    inverse mass, ``log(step_size)``, empty Welford windows, under
+    low-rank adaptation the identity metric, and under flow adaptation an
+    identity inverse mass with each chain's initial flow and empty window
+    (the initial flow is an exact identity, so base space is model space)."""
     from .run import init_chains
 
     nuts_states, ok = init_chains(model, NutsConfig(adapt=cfg.adapt), seed, n_chains,
@@ -633,7 +687,8 @@ def init_mclmc_chains(model: ModelDef, cfg: MclmcConfig, seed: int, n_chains: in
     u = threefry.normal(threefry.fold_in_data(key, 5), (dim,), dtype)
     u = u / torch.sqrt(torch.sum(u * u, dim=-1))[:, None]
     adapt_vecs = torch.zeros((C, N_ADAPT_VEC, dim), dtype=dtype, device=pos.device)
-    adapt_vecs[:, ADAPT_VEC_SLOTS["inv_mass"]] = init_inv_mass_from_gradient(grad).to(dtype)
+    adapt_vecs[:, ADAPT_VEC_SLOTS["inv_mass"]] = (
+        1.0 if cfg.flow is not None else init_inv_mass_from_gradient(grad).to(dtype))
     adapt_flts = torch.zeros((C, N_ADAPT_FLT), dtype=dtype, device=pos.device)
     flts = torch.stack([logp.to(dtype), torch.full_like(logp, math.log(cfg.step_size),
                                                         dtype=dtype)], dim=1)
@@ -641,6 +696,8 @@ def init_mclmc_chains(model: ModelDef, cfg: MclmcConfig, seed: int, n_chains: in
     if cfg.low_rank is not None:
         basis, log_eigs = identity_metric(C, dim, cfg.low_rank.max_rank, dtype, pos.device)
         metric = dict(lr_basis=basis, lr_log_eigs=log_eigs)
+    if cfg.flow is not None:
+        metric = flow_fields(init_flow_window(cfg.flow, dim, key, dtype))
     states = MclmcState(
         key=key.clone(),
         vecs=torch.stack([pos.to(dtype), grad.to(dtype), u], dim=1).contiguous(),

@@ -137,7 +137,7 @@ def mc_config(cfg: MclmcConfig, n_chains: int, dim: int, chunk_len: int, rank: i
                   use_grad_based_estimate=int(ac.use_grad_based_estimate),
                   switch_freq=ac.switch_freq, early_switch_freq=ac.early_switch_freq,
                   n_chains=n_chains, dim=dim, chunk_len=chunk_len, lr_rank=rank,
-                  **plan_fields(plan))
+                  fixed_metric=int(not ac.update_mass_matrix), **plan_fields(plan))
     return McConfig(
         mk=mk,
         max_energy_error=cfg.max_energy_error,
@@ -180,7 +180,9 @@ def _check_chunk(cfg: MclmcConfig, states: MclmcState, keys, bufs: MclmcBuffers,
         "mass_matrix_inv": (C, L, dim), "z": (C, dim), "velocity": (C, dim),
         "run_flts": (C, N_RUN_FLT), "step": (C,),
     }
-    tensors = dict(states.tensors(), keys=keys, position=bufs.position,
+    # the state's fields the kernel reads (a flow's are the log density's)
+    tensors = dict({k: t for k, t in states.tensors().items() if k in shapes}, keys=keys,
+                   position=bufs.position,
                    scalars=bufs.scalars, z=scratch.z, velocity=scratch.velocity,
                    run_flts=scratch.flts, step=scratch.step)
     for name in ("gradient", "mass_matrix_inv"):

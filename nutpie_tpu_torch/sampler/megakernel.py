@@ -44,7 +44,8 @@ def supports(cfg: NutsConfig) -> bool:
 
     Exactly the JAX kernel's exclusions
     (``nutpie_tpu/sampler/megakernel.py:62-71``): no flow or low-rank
-    adaptation, no microcanonical kinetic, no ``store_*`` buffer;
+    adaptation (nor the fixed metric, which only flow reaches in the JAX
+    package), no microcanonical kinetic, no ``store_*`` buffer;
     ``sample.route`` sends those to the step kernel.  Every step-size
     method and ``target_integration_time`` run in the kernel.  It also
     needs a model with a ``kernel_model`` (the radon log density it
@@ -52,6 +53,7 @@ def supports(cfg: NutsConfig) -> bool:
     """
     return (
         cfg.flow is None
+        and cfg.adapt.update_mass_matrix
         and cfg.low_rank is None
         and cfg.kinetic != "microcanonical"
         and not cfg.store_divergences

@@ -25,7 +25,14 @@ trajectory edge in ``flts`` slots 10/11, a draw starts from ``h0 =
 -logp``, and the U-turn checks use the velocity itself.  With
 ``store_divergences`` the state carries four more rows (``DIV_SLOTS``):
 the start, its gradient, the end and the momentum of a draw's divergent
-leapfrog, NaN until one diverges, committed with the draw.
+leapfrog, NaN until one diverges, committed with the draw.  Under flow
+adaptation (``NutsConfig.flow``) the machine moves in each chain's flow
+base space under an identity inverse mass that is never re-estimated
+(``AdaptConfig.update_mass_matrix=False``); the log density it is handed
+is the pulled-back one (``transforms.flow.flow_logp_and_grad``), and with
+``use_orbit`` each leaf enters a uniform reservoir over the draw's
+trajectory (the state's ``orbit`` rows, committed into the
+``orbit_position`` / ``orbit_gradient`` buffers with the draw).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops import threefry
+from ..transforms.flow import FlowConfig, init_flow_window
 from .adapt import AdaptConfig, Schedule, diag_adapt_init, diag_adapt_update
 from .isokinetic import apply_A, apply_At, iso_metric, update_velocity
 from .low_rank import identity_metric, lr_sample_momentum, lr_velocity, lr_velocity_rows
@@ -49,13 +57,13 @@ from .state import (
     N_INT,
     N_VEC_BASE,
     N_VEC_DIV,
+    ADAPT_VEC_SLOTS,
     VEC_SLOTS,
     NutsMachineState,
-    tree_where,
+    flow_fields,
     where as _w,
 )
 
-_FLOW_ITEM = "ROADMAP.md queue 1: flow adaptation"
 KINETICS = ("exact_normal", "microcanonical")
 
 
@@ -93,20 +101,22 @@ class NutsConfig:
     # package allocates them there alone), so without flow it is a no-op
     store_transformed: bool = False
     low_rank: Optional[LowRankConfig] = None
-    flow: Optional[object] = None
+    flow: Optional[FlowConfig] = None
     adapt: AdaptConfig = dataclasses.field(
         default_factory=lambda: AdaptConfig(num_tune=300)
     )
 
     def __post_init__(self):
-        if self.flow is not None:
-            raise NotImplementedError(f"flow adaptation: {_FLOW_ITEM}")
         if self.kinetic not in KINETICS:
             raise ValueError(f"unknown kinetic {self.kinetic!r}; expected one of {KINETICS}")
 
     @property
     def micro(self) -> bool:
         return self.kinetic == "microcanonical"
+
+    @property
+    def use_orbit(self) -> bool:
+        return self.flow is not None and self.flow.use_orbit
 
 
 def n_vec_rows(cfg: NutsConfig) -> int:
@@ -182,6 +192,15 @@ class ChunkBuffers(NamedTuple):
     divergence_end: Optional[torch.Tensor] = None
     divergence_momentum: Optional[torch.Tensor] = None
     divergence_start_gradient: Optional[torch.Tensor] = None
+    # flow adaptation with store_transformed: the draws and gradients in the
+    # flow's base space and the flow's mu, [C, L, dim] each (the runner
+    # fills them at the chunk's end, before the model-space conversion)
+    transformed_position: Optional[torch.Tensor] = None
+    transformed_gradient: Optional[torch.Tensor] = None
+    transformation_mu: Optional[torch.Tensor] = None
+    # flow adaptation with use_orbit: each draw's orbit leaf, [C, L, dim]
+    orbit_position: Optional[torch.Tensor] = None
+    orbit_gradient: Optional[torch.Tensor] = None
 
     def _slot(self, name):
         return self.scalars[..., SCALAR_SLOTS[name]]
@@ -217,14 +236,18 @@ def init_buffers(chunk_len: int, dim: int, dtype, n_chains: int,
     cfg = cfg or NutsConfig()
     lr = cfg.low_rank
     div = {name: f(L, dim) for name in DIV_BUFFERS} if cfg.store_divergences else {}
+    orbit = ({"orbit_position": f(L, dim), "orbit_gradient": f(L, dim)}
+             if cfg.use_orbit else {})
+    # low-rank and flow adaptation read the chunk's gradients at its end
+    need_gradient = cfg.store_gradient or lr is not None or cfg.flow is not None
     return ChunkBuffers(
         position=f(L, dim),
         scalars=f(L, N_SCALAR_SLOTS),
-        gradient=f(L, dim) if cfg.store_gradient or lr is not None else None,
+        gradient=f(L, dim) if need_gradient else None,
         mass_matrix_inv=f(L, dim) if cfg.store_mass_matrix else None,
         mass_matrix_eigvals=(f(L, lr.max_rank)
                              if lr is not None and cfg.store_mass_matrix else None),
-        **div,
+        **div, **orbit,
     )
 
 
@@ -304,6 +327,14 @@ def init_machine_state(cfg: NutsConfig, key: torch.Tensor, position, gradient,
     position = position.to(dtype)
     gradient = gradient.to(dtype)
     adapt_vecs, adapt_flts = diag_adapt_init(cfg.adapt, gradient, dtype)
+    extra = {}
+    if cfg.flow is not None:
+        # the identity metric in the flow's base space (the initial flow is
+        # an exact identity, so base space is model space here)
+        adapt_vecs[:, ADAPT_VEC_SLOTS["inv_mass"]] = 1.0
+        extra = flow_fields(init_flow_window(cfg.flow, dim, key, dtype))
+        if cfg.flow.use_orbit:
+            extra["orbit"] = torch.zeros((n, 2, dim), dtype=dtype, device=device)
     vecs = torch.zeros((n, n_vec_rows(cfg), dim), dtype=dtype, device=device)
     vecs[:, VEC_SLOTS["position"]] = position
     vecs[:, VEC_SLOTS["gradient"]] = gradient
@@ -314,15 +345,14 @@ def init_machine_state(cfg: NutsConfig, key: torch.Tensor, position, gradient,
     flts[:, FLT_SLOTS["logw_sub"]] = -math.inf
     ints = torch.zeros((n, N_INT), dtype=torch.int32, device=device)
     ints[:, INT_SLOTS["direction"]] = 1
-    metric = {}
     if cfg.low_rank is not None:
         basis, log_eigs = identity_metric(n, dim, cfg.low_rank.max_rank, dtype, device)
-        metric = dict(lr_basis=basis, lr_log_eigs=log_eigs)
+        extra = dict(lr_basis=basis, lr_log_eigs=log_eigs)
     return NutsMachineState(
         key=key, adapt_vecs=adapt_vecs, adapt_flts=adapt_flts, vecs=vecs,
         ckpt_p=torch.zeros((n, D, dim), dtype=dtype, device=device),
         ckpt_s=torch.zeros((n, D, dim), dtype=dtype, device=device),
-        flts=flts, ints=ints, **metric,
+        flts=flts, ints=ints, **extra,
     )
 
 
@@ -526,6 +556,17 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
 
     sum_acc = _w(active, flt("sum_acc") + acc, flt("sum_acc"))
     n_leaves = _w(active, in_n_leaves + 1, in_n_leaves)
+
+    orbit = s.orbit
+    if orbit is not None:
+        # the uniform-leaf reservoir over the draw's trajectory, on its own
+        # fold of the step's key: uniform(fold_in(ku, 1)), ku the key of
+        # the step's three uniforms
+        ku = threefry.fold_in_data(threefry.fold_in_data(s.key, 3), in_total_steps.to(torch.int64))
+        u_orb = threefry.uniform1(threefry.fold_in_data(ku, 1)).to(dtype)
+        take_orbit = active & (u_orb * n_leaves.to(dtype) <= 1.0)
+        orbit = torch.stack([_w(take_orbit, z_new, orbit[:, 0]),
+                             _w(take_orbit, g_new, orbit[:, 1])], dim=1)
     total_steps = _w(active, in_total_steps + 1, in_total_steps)
 
     abs_idx = torch.where(fwd, int_("right_idx") + 1, int_("left_idx") - 1)
@@ -703,6 +744,9 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
         if cfg.store_divergences:
             for buf, row in DIV_BUFFERS.items():
                 getattr(bufs, buf)[at] = div_rows[DIV_SLOTS[row] - N_VEC_BASE][done_rows]
+        if bufs.orbit_position is not None:
+            bufs.orbit_position[at] = orbit[done_rows, 0]
+            bufs.orbit_gradient[at] = orbit[done_rows, 1]
 
     # adaptation (tuning draws only)
     adapt_vecs, adapt_flts = s.adapt_vecs, s.adapt_flts
@@ -740,6 +784,7 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
         vecs=vecs,
         ckpt_p=ckpt_p,
         ckpt_s=ckpt_s,
+        orbit=orbit,
         flts=_pack(FLT_SLOTS, N_FLT, dict(
             logp=_w(draw_done, prop_logp, flt("logp")),
             eps=in_eps, h0=in_h0, logw_traj=logw_traj, prop_logp=prop_logp,
@@ -765,5 +810,7 @@ def leapfrog_finish(cfg: NutsConfig, sched: Schedule, mom_gauss: torch.Tensor,
             cfg, sched, state,
             mom_gauss[rows, next_idx_c], jitter_us[rows, next_idx_c],
         )
-        state = tree_where(restart, started, state)
+        # start_draw writes vecs, flts and ints alone
+        state = state.replace(**{name: _w(restart, getattr(started, name), getattr(state, name))
+                                 for name in ("vecs", "flts", "ints")})
     return state, bufs

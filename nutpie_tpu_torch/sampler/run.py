@@ -14,6 +14,10 @@ loops where the JAX package used ``while_loop``:
   and ``jnp.median`` do (``torch.median`` returns the lower one).
 - ``update_low_rank``: the low-rank metric's chunk-boundary update
   (``nutpie_tpu/sampler/run.py:450-475``), after the rescue.
+- ``flow_chunk_end``: flow adaptation's chunk boundary
+  (``nutpie_tpu/sampler/run.py:477-549``), after the rescue: the Fisher
+  distance of each draw, the flow update of warmup chunks, the draws in
+  model space.
 - ``draw_randoms``: the per-draw momentum normals and jitter uniforms,
   keyed by absolute draw index, so streams do not depend on chunking.
 - ``make_chunk_runner``: the chunk runner of every model without a
@@ -36,6 +40,8 @@ import torch
 
 from ..model import ModelDef
 from ..ops import threefry
+from ..transforms.flow import pulled_back
+from ..transforms.flow import median as _median
 from .adapt import Schedule, flts_set, pool_adapt_state
 from .isokinetic import apply_A, apply_At, iso_metric, update_velocity
 from .low_rank import estimate_low_rank
@@ -48,7 +54,16 @@ from .nuts import (
     metric_velocity,
     start_draw,
 )
-from .state import NutsMachineState, state_with, tree_where, where
+from .state import (
+    FLOW_FIELDS,
+    WINDOW_FIELDS,
+    NutsMachineState,
+    flow_boundary,
+    flow_params,
+    state_with,
+    tree_where,
+    where,
+)
 from .step_kernel import KernelSteps, PlainSteps, StepGraph, step_kernel
 
 # machine steps a CUDA graph holds, replayed between two "all done?" reads
@@ -209,13 +224,6 @@ def init_chains(model: ModelDef, cfg: NutsConfig, seed: int, n_chains: int,
     return states, ok
 
 
-def _median(x: torch.Tensor) -> torch.Tensor:
-    """Median of a 1-D tensor, averaging the two middle values (numpy's rule)."""
-    s, _ = torch.sort(x)
-    n = s.shape[0]
-    return 0.5 * (s[(n - 1) // 2] + s[n // 2])
-
-
 def fleet_depth_cap(cfg: NutsConfig, bufs, limit: int) -> torch.Tensor:
     """Fleet-relative tree-depth cap from one warmup chunk's step counts.
 
@@ -269,7 +277,10 @@ def rescue_trapped(states: NutsMachineState, chunk_start: int, limit: int,
         # would read it on the host
         return where(trapped, leaf.index_select(0, donor.reshape(1)).expand_as(leaf), leaf)
 
-    names = ("vecs", "flts", "adapt_vecs", "adapt_flts", "lr_basis", "lr_log_eigs")
+    # the adaptation state whole, as the JAX package's tree_map over `adapt`:
+    # under flow adaptation the flow and its training window too
+    names = ("vecs", "flts", "adapt_vecs", "adapt_flts", "lr_basis", "lr_log_eigs",
+             *FLOW_FIELDS, *WINDOW_FIELDS)
     return states.replace(**{name: teleport(t) for name, t in states.tensors().items()
                              if name in names})
 
@@ -298,6 +309,49 @@ def update_low_rank(cfg: NutsConfig, states: NutsMachineState, bufs,
     due = valid.sum(dim=1) >= 8
     return states.replace(lr_basis=where(due, new.basis, states.lr_basis),
                           lr_log_eigs=where(due, new.log_eigs, states.lr_log_eigs))
+
+
+def flow_chunk_end(cfg: NutsConfig, model: ModelDef, states: NutsMachineState, bufs,
+                   chunk_flow, chunk_start: int, limit: int, sched: Schedule,
+                   train: bool):
+    """Flow adaptation's chunk boundary, after the rescue
+    (``nutpie_tpu/sampler/run.py:477-549``).
+
+    Each draw's Fisher distance ``mean((z + grad_z)^2)`` goes into its
+    scalars slot, from the committed base-space rows (the JAX machine step
+    computes it at the commit from the same rows).  With
+    ``store_transformed`` the base-space rows become the
+    ``transformed_position`` / ``transformed_gradient`` buffers and the
+    chunk flow's mu ``transformation_mu``.  Where ``train`` (warmup
+    chunks), ``state.flow_boundary`` trains each chain's flow on the
+    chunk's valid rows (with ``use_orbit`` the orbit rows after them) and
+    re-bases the chain.  Last, the chunk's draws go to model space through
+    ``chunk_flow``, the flow that drew them: ``x = F(z)``, logp ``logp_z -
+    logdet``, the gradient pushed through the flow.  (The JAX package
+    converts through the flow after the rescue, which for a trapped chain
+    is the donor's: ROADMAP.md queue 3 lists that fault of the reference.)
+    """
+    fcfg = cfg.flow
+    slots = SCALAR_SLOTS
+    scalars = bufs.scalars.clone()
+    scalars[..., slots["fisher_distance"]] = torch.mean(
+        torch.square(bufs.position + bufs.gradient), dim=-1)
+    bufs = bufs._replace(scalars=scalars)
+    if cfg.store_transformed:
+        C, L, dim = bufs.position.shape
+        bufs = bufs._replace(
+            transformed_position=bufs.position, transformed_gradient=bufs.gradient,
+            transformation_mu=chunk_flow.mu[:, None, :].expand(C, L, dim).contiguous())
+    orbit = (bufs.orbit_position, bufs.orbit_gradient) if fcfg.use_orbit else None
+    out = flow_boundary(fcfg, model.logp_and_grad, states, chunk_flow, bufs.position,
+                        bufs.gradient, bufs.diverging, limit, chunk_start < sched.num_tune,
+                        train=train, orbit=orbit)
+    if train:
+        states = state_with(states.replace(**out.fields), position=out.position,
+                            gradient=out.gradient, logp=out.logp)
+    scalars = bufs.scalars.clone()
+    scalars[..., slots["logp"]] = scalars[..., slots["logp"]] + (-out.logdets)
+    return states, bufs._replace(position=out.xs, scalars=scalars, gradient=out.grads_x)
 
 
 def draw_randoms(keys: torch.Tensor, chunk_start: int, chunk_len: int,
@@ -388,13 +442,15 @@ class StepChunkRunner:
         # chunk's own, which the kernel updates in place
         states = start_draw(cfg, sched, state_with(states, done=False),
                             mom[:, 0], jit[:, 0]).clone()
+        chunk_flow = flow_params(states)
+        logp_and_grad = pulled_back(cfg.flow, self.model.logp_and_grad, chunk_flow)
         args = (cfg, sched, chunk_start, limit, states, mom, jit, bufs,
                 self.adapt_frozen)
         steps = PlainSteps(*args) if self.plain else step_kernel.chunk(*args)
         unroll = self.unroll or (CUDA_UNROLL if states.vecs.is_cuda else 1)
         z_new, carry = steps.begin(states)
         if isinstance(steps, KernelSteps):
-            graph = self._capture(steps, states, z_new, unroll)
+            graph = self._capture(steps, states, z_new, unroll, logp_and_grad)
             while True:
                 graph.replay()
                 if bool(states.done.all()):
@@ -402,17 +458,21 @@ class StepChunkRunner:
         else:
             while True:
                 for _ in range(unroll):
-                    logp, grad = self.model.logp_and_grad(z_new)
+                    logp, grad = logp_and_grad(z_new)
                     states, z_new, carry = steps.advance(states, z_new, carry, logp, grad)
                 if bool(states.done.all()):
                     break
         if not self.adapt_frozen:
             states = rescue_trapped(states, chunk_start, limit, sched)
         states = update_low_rank(cfg, states, bufs, chunk_start, limit, sched)
+        if cfg.flow is not None:
+            states, bufs = flow_chunk_end(cfg, self.model, states, bufs, chunk_flow,
+                                          chunk_start, limit, sched,
+                                          train=not self.adapt_frozen)
         return states, bufs
 
     def _capture(self, steps: KernelSteps, states: NutsMachineState, z_new,
-                 unroll: int) -> StepGraph:
+                 unroll: int, logp_and_grad) -> StepGraph:
         """``unroll`` machine steps of this chunk in a CUDA graph; the log
         density runs once first on a side stream (torch's warm-up before a
         capture), which also builds its per-device constants."""
@@ -421,13 +481,13 @@ class StepChunkRunner:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            self.model.logp_and_grad(z_new)
+            logp_and_grad(z_new)
         torch.cuda.current_stream(device).wait_stream(side)
 
         def machine_steps():
             z = z_new
             for _ in range(unroll):
-                logp, grad = self.model.logp_and_grad(z)
+                logp, grad = logp_and_grad(z)
                 _, z, _ = steps.advance(states, z, None, logp, grad)
 
         graph = StepGraph(step_kernel, device)
@@ -450,8 +510,8 @@ def make_chunk_runner(model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
                       pool_mass_matrix: bool = False, unroll=None,
                       adapt_frozen: bool = False, pool_step_size: bool = False,
                       plain: bool = False) -> StepChunkRunner:
-    """Build the step runner (the JAX function's call semantics, without its
-    flow branch).  ``unroll=None`` captures ``CUDA_UNROLL`` machine steps a
+    """Build the step runner (the JAX function's call semantics; its
+    ``flow_train`` is ``not adapt_frozen``).  ``unroll=None`` captures ``CUDA_UNROLL`` machine steps a
     graph on the card and checks for the chunk's end every step on the
     CPU."""
     return StepChunkRunner(model, cfg, chunk_len, dtype,

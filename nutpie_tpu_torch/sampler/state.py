@@ -12,14 +12,24 @@ gives the CUDA kernels one flat ABI: seven tensors plus the key data.
 Under low-rank adaptation the state also carries the metric's factors
 (``lr_basis [C, dim, R]``, ``lr_log_eigs [C, R]``; the JAX package's
 ``LowRankAdaptState.metric``); they are None under the diagonal metric.
+Under flow adaptation it carries each chain's flow (``flow_<field>`` for
+every field of ``transforms.flow.FlowParams``, the JAX package's
+``FlowAdaptState.flow``), ``flow_updates [C]`` and the training window
+(``win_draws``, ``win_grads [C, W, dim]``, ``win_valid [C, W]``), and with
+``use_orbit`` the orbit reservoir's rows (``orbit [C, 2, dim]``: the JAX
+state's ``orbit_z`` and ``orbit_g``).  Every present field is in
+``tensors()``, so ``tree_where``, ``clone``, the checkpoint and the rescue
+carry them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+
+from ..transforms.flow import FlowParams, FlowWindow, chunk_flow_update, chunk_to_model_space
 
 # [dim]-vector slots of vecs.  The first 12 are trajectory state reset at
 # each draw start; position/gradient persist across draws.
@@ -126,9 +136,35 @@ WELFORD = {
 }
 
 
+@dataclasses.dataclass(kw_only=True)
+class FlowStateFields:
+    """The fields of flow adaptation in a chain state (None otherwise),
+    shared by ``NutsMachineState`` and ``mclmc.MclmcState``: each chain's
+    flow (``FLOW_FIELDS``, ``FlowParams``' order), its update count and the
+    training window (``WINDOW_FIELDS``)."""
+
+    flow_mu: Optional[torch.Tensor] = None
+    flow_log_sigma: Optional[torch.Tensor] = None
+    flow_w1: Optional[torch.Tensor] = None
+    flow_w1u: Optional[torch.Tensor] = None
+    flow_w1v: Optional[torch.Tensor] = None
+    flow_b1: Optional[torch.Tensor] = None
+    flow_w2: Optional[torch.Tensor] = None
+    flow_b2: Optional[torch.Tensor] = None
+    flow_hh_v: Optional[torch.Tensor] = None
+    flow_tail_s: Optional[torch.Tensor] = None
+    flow_tail_log_t: Optional[torch.Tensor] = None
+    flow_masks: Optional[torch.Tensor] = None
+    flow_updates: Optional[torch.Tensor] = None  # [C] int32
+    win_draws: Optional[torch.Tensor] = None     # [C, W, dim]
+    win_grads: Optional[torch.Tensor] = None     # [C, W, dim]
+    win_valid: Optional[torch.Tensor] = None     # [C, W] bool
+
+
 @dataclasses.dataclass
-class NutsMachineState:
-    """Complete state of the flattened NUTS machine for C chains."""
+class NutsMachineState(FlowStateFields):
+    """Complete state of the flattened NUTS machine for C chains (the flow
+    fields of ``FlowStateFields`` are keyword-only)."""
 
     key: torch.Tensor         # [C, 2] int64 raw Threefry key data
     adapt_vecs: torch.Tensor  # [C, 9, dim]
@@ -141,6 +177,9 @@ class NutsMachineState:
     # the low-rank metric (None under the diagonal metric)
     lr_basis: Optional[torch.Tensor] = None     # [C, dim, R] orthonormal columns
     lr_log_eigs: Optional[torch.Tensor] = None  # [C, R] log eigenvalues
+    # the orbit reservoir (use_orbit): a uniformly chosen leaf of the
+    # draw's trajectory, its position and its gradient
+    orbit: Optional[torch.Tensor] = None         # [C, 2, dim]
 
     def replace(self, **changes) -> "NutsMachineState":
         return dataclasses.replace(self, **changes)
@@ -191,6 +230,75 @@ class NutsMachineState:
 
     def adapt_flt(self, name: str) -> torch.Tensor:
         return self.adapt_flts[:, ADAPT_FLT_SLOTS[name]]
+
+
+# the state's fields of a flow's parameters, in FlowParams' order, and of
+# its training window
+FLOW_FIELDS = tuple(f"flow_{name}" for name in FlowParams._fields)
+WINDOW_FIELDS = ("flow_updates", "win_draws", "win_grads", "win_valid")
+assert (FLOW_FIELDS + WINDOW_FIELDS
+        == tuple(f.name for f in dataclasses.fields(FlowStateFields)))
+
+
+def flow_params(state) -> Optional[FlowParams]:
+    """The chains' flows of a state under flow adaptation (else None)."""
+    if state.flow_mu is None:
+        return None
+    return FlowParams(*(getattr(state, name) for name in FLOW_FIELDS))
+
+
+def flow_window(state) -> FlowWindow:
+    return FlowWindow(flow_params(state), state.flow_updates, state.win_draws,
+                      state.win_grads, state.win_valid)
+
+
+def flow_fields(win: FlowWindow) -> dict:
+    """A window's state fields by name (for ``replace``)."""
+    out = dict(zip(FLOW_FIELDS, win.flow))
+    out.update(flow_updates=win.flow_updates, win_draws=win.win_draws,
+               win_grads=win.win_grads, win_valid=win.win_valid)
+    return out
+
+
+class FlowBoundary(NamedTuple):
+    """What ``flow_boundary`` gives a runner to write: the state's new flow
+    fields with the re-based chains' position, gradient and logp (None
+    where nothing trained), and the chunk's rows in model space."""
+
+    fields: Optional[dict]
+    position: Optional[torch.Tensor]
+    gradient: Optional[torch.Tensor]
+    logp: Optional[torch.Tensor]
+    xs: torch.Tensor       # [C, L, dim]
+    logdets: torch.Tensor  # [C, L]
+    grads_x: torch.Tensor  # [C, L, dim]
+
+
+def flow_boundary(fcfg, logp_and_grad, states, chunk_flow: FlowParams, draws, grads,
+                  diverging, limit: int, in_warmup: bool, train: bool = True,
+                  orbit=None) -> FlowBoundary:
+    """Flow adaptation's chunk boundary, common to the NUTS and MCLMC
+    runners.  Where ``train``, ``transforms.flow.chunk_flow_update`` rolls
+    the chunk's valid rows (``row < limit`` and not divergent; the
+    ``orbit`` rows ``(positions, gradients)`` after them, valid with their
+    draws) into each chain's window, trains and re-bases the chain.  Then
+    the chunk's base-space rows go to model space through ``chunk_flow``,
+    the flows that drew them: ``x = F(z)``, the log-determinants (logp is
+    ``logp_z - logdet``) and the gradients pushed through."""
+    fields = position = gradient = logp = None
+    if train:
+        rows = torch.arange(draws.shape[1], device=draws.device)
+        rows_ok = (rows[None, :] < limit) & ~diverging
+        pos, grad = draws, grads
+        if orbit is not None:
+            pos, grad = torch.cat([draws, orbit[0]], dim=1), torch.cat([grads, orbit[1]], dim=1)
+            rows_ok = torch.cat([rows_ok, rows_ok], dim=1)
+        win, position, gradient, logp = chunk_flow_update(
+            fcfg, logp_and_grad, flow_window(states), states.position, states.gradient,
+            states.logp, pos, grad, rows_ok, in_warmup=in_warmup)
+        fields = flow_fields(win)
+    xs, logdets, grads_x = chunk_to_model_space(fcfg, chunk_flow, draws, grads)
+    return FlowBoundary(fields, position, gradient, logp, xs, logdets, grads_x)
 
 
 def state_with(state: NutsMachineState, *, position=None, gradient=None,

@@ -54,6 +54,16 @@ The commit also writes the optional buffers the chunk has (``gradient``,
 the four divergence buffers from the state's divergence rows, which the
 kernel's instantiations with those rows carry: ``vecs`` then has 18 rows).
 
+Flow adaptation runs the kernel under a fixed metric (``MkConfig.
+fixed_metric``, from ``update_mass_matrix=False``: the Welford windows run
+on, the inverse mass stays, the step-size shift is 0), a runtime field of
+every instantiation.  With ``use_orbit`` the state carries the orbit
+reservoir's rows (``orbit [C, 2, dim]``): each step's first half draws the
+reservoir's uniform beside the step's three (``orbit_u [C]``, scratch), the
+second half replaces the rows by the new point and its gradient with
+probability one over the draw's leaves, and the commit writes them into
+the ``orbit_position`` / ``orbit_gradient`` buffers.
+
 There is no fallback between the two.  ``launches`` counts the kernel's
 launches the card executes (one per machine step and one per chunk),
 graph replays included, and nothing else.
@@ -82,17 +92,10 @@ from .nuts import (
 )
 from .state import N_ADAPT_FLT, N_ADAPT_VEC, N_FLT, N_INT, VEC_SLOTS, NutsMachineState
 
-FIXED_METRIC_ITEM = "ROADMAP.md queue 1: a fixed mass matrix on the card"
-
-
 def unsupported(cfg: NutsConfig) -> Optional[str]:
-    """What of this configuration the step kernel leaves out, with its
-    ``ROADMAP.md`` item, or None.  (The port's ``NutsConfig`` already
-    refuses flow.)"""
+    """What of this configuration the step kernel leaves out, or None."""
     if cfg.low_rank is not None and not 0 < cfg.low_rank.max_rank <= MAX_RANK:
         return f"low-rank max_rank {cfg.low_rank.max_rank}: the step kernel takes 1..{MAX_RANK}"
-    if not cfg.adapt.update_mass_matrix:
-        return f"update_mass_matrix=False: {FIXED_METRIC_ITEM}"
     return None
 
 
@@ -254,7 +257,8 @@ class StepPtrs(ctypes.Structure):
         "adapt_flts", "mom", "jit", "pos_out", "scal_out", "z_new", "u3",
         "stagnant", "logp", "grad", "lr_basis", "lr_log_eigs", "edge_v", "ckpt_v",
         "grad_out", "minv_out", "eig_out", "div_start_out", "div_end_out", "div_mom_out",
-        "div_grad_out", "mc_rows", "mc_dke",
+        "div_grad_out", "mc_rows", "mc_dke", "orbit", "orbit_u", "orbit_pos_out",
+        "orbit_grad_out",
     )]
 
 
@@ -361,14 +365,21 @@ def _check_chunk(cfg: NutsConfig, states: NutsMachineState, mom, jit, bufs: Chun
         "scalars": (C, L, bufs.scalars.shape[-1]),
         "gradient": (C, L, dim), "mass_matrix_inv": (C, L, dim),
         "mass_matrix_eigvals": (C, L, R), **{name: (C, L, dim) for name in DIV_BUFFERS},
+        "orbit": (C, 2, dim), "orbit_position": (C, L, dim), "orbit_gradient": (C, L, dim),
     }
     optional = {name: getattr(bufs, name)
-                for name in ("gradient", "mass_matrix_inv", "mass_matrix_eigvals", *DIV_BUFFERS)
+                for name in ("gradient", "mass_matrix_inv", "mass_matrix_eigvals", *DIV_BUFFERS,
+                             "orbit_position", "orbit_gradient")
                 if getattr(bufs, name) is not None}
     if cfg.store_divergences and len(optional.keys() & DIV_BUFFERS.keys()) != len(DIV_BUFFERS):
         raise ValueError("step kernel: store_divergences needs the four divergence buffers")
-    tensors = dict(states.tensors(), mom=mom, jit=jit, position=bufs.position,
-                   scalars=bufs.scalars, **optional)
+    if cfg.use_orbit != (states.orbit is not None) or cfg.use_orbit != (
+            bufs.orbit_position is not None and bufs.orbit_gradient is not None):
+        raise ValueError("step kernel: use_orbit needs the state's orbit rows and both "
+                         "orbit buffers, and nothing else has them")
+    # the state's fields the kernel reads (a flow's are the log density's)
+    tensors = dict({k: t for k, t in states.tensors().items() if k in shapes}, mom=mom,
+                   jit=jit, position=bufs.position, scalars=bufs.scalars, **optional)
     for name, t in tensors.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"step kernel: {name} has shape {tuple(t.shape)}, "
@@ -425,6 +436,9 @@ class KernelSteps:
         if cfg.micro:
             self.mc_rows = torch.empty((C, 2, dim), dtype=self.dtype, device=self.device)
             self.mc_dke = torch.empty((C,), dtype=self.dtype, device=self.device)
+        # use_orbit: each step's reservoir uniform (first half -> second)
+        self.orbit_u = (torch.empty((C,), dtype=torch.float32, device=self.device)
+                        if cfg.use_orbit else None)
         self.scal = schedule_tensor(chunk_start, limit, sched, self.device)
         self.keep = (mom, jit, bufs)
         ptr = lambda t: None if t is None else t.data_ptr()
@@ -442,7 +456,9 @@ class KernelSteps:
             div_start_out=ptr(bufs.divergence_start), div_end_out=ptr(bufs.divergence_end),
             div_mom_out=ptr(bufs.divergence_momentum),
             div_grad_out=ptr(bufs.divergence_start_gradient),
-            mc_rows=ptr(self.mc_rows), mc_dke=ptr(self.mc_dke),
+            mc_rows=ptr(self.mc_rows), mc_dke=ptr(self.mc_dke), orbit=ptr(states.orbit),
+            orbit_u=ptr(self.orbit_u), orbit_pos_out=ptr(bufs.orbit_position),
+            orbit_grad_out=ptr(bufs.orbit_gradient),
         )
 
     def _launch(self, half: str, states: NutsMachineState) -> None:

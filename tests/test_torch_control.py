@@ -70,7 +70,8 @@ def test_pause_resume_abort():
                       chunk_size=16)
     _until(lambda: sampler._draws_done >= 16, "a chunk")
     sampler.pause()
-    time.sleep(0.3)  # the chunk in flight may still land
+    # parked at a chunk boundary, the chunk that was in flight stored
+    assert sampler.wait_paused(DEADLINE_S), "timed out waiting for the loop to park"
     paused_at = sampler._draws_done
     time.sleep(0.3)
     assert sampler._draws_done == paused_at, "the loop ran on while paused"

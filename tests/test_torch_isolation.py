@@ -106,7 +106,8 @@ def test_cuda_without_card_raises():
 # the route each configuration takes on radon, or None where it still
 # raises naming its ROADMAP item
 _CARD_ROUTES = {"store_divergences": "step", "step_size_adapt_method": "megakernel",
-                "target_integration_time": "megakernel", "sampler": "mclmc"}
+                "target_integration_time": "megakernel", "sampler": "mclmc",
+                "adaptation": "step"}
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -117,10 +118,10 @@ _CARD_ROUTES = {"store_divergences": "step", "step_size_adapt_method": "megakern
     dict(target_integration_time=2.0),
 ])
 def test_unported_configs_raise_on_card_path(kwargs):
-    """Flow raises naming its ROADMAP item; Adam and the target time take
-    the chunk kernel on radon, the divergence rows the step kernel (as in
-    the JAX package), MCLMC the MCLMC kernel, and then only the missing
-    card stops the run."""
+    """Adam and the target time take the chunk kernel on radon, the
+    divergence rows and flow adaptation the step kernel (as in the JAX
+    package), MCLMC the MCLMC kernel, and then only the missing card stops
+    the run."""
     expected = _CARD_ROUTES.get(next(iter(kwargs)))
     if expected is None:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -130,7 +131,8 @@ def test_unported_configs_raise_on_card_path(kwargs):
     from nutpie_tpu_torch.sample import _make_settings, config_from_settings, route
 
     options = dict(kwargs)
-    settings = _make_settings(options.pop("sampler", "nuts"), "diag", 0)
+    settings = _make_settings(options.pop("sampler", "nuts"), options.pop("adaptation", "diag"),
+                              0)
     settings.update(options)
     assert route(config_from_settings(settings), radon()) == expected
     if not torch.cuda.is_available():
@@ -151,25 +153,24 @@ def test_model_without_kernel_raises_on_card_path():
 
 
 def test_unported_options_raise():
-    """The refusals that remain, each naming its ROADMAP item: flow
-    adaptation and a fixed mass matrix (which only flow reaches through
-    ``sample``, so it is asked of the route); the MCLMC sampler takes its
-    own route."""
+    """No refusal remains for flow adaptation or a fixed mass matrix: flow
+    (NUTS) and the fixed metric (which only flow reaches through
+    ``sample``, so it is asked of the route) take the step kernel, even on
+    radon, whose chunk kernel takes neither; MCLMC with flow takes the
+    MCLMC kernel; without a card only CUDA is refused."""
     from nutpie_tpu_torch.sample import _make_settings, config_from_settings, route
 
     m = compile_model_def(radon())
-    for kwargs, item in ((dict(sampler="mclmc"), None),
-                         (dict(adaptation="flow"), "flow adaptation")):
-        if item is None:
-            cfg = config_from_settings(_make_settings(kwargs["sampler"], "diag", 0))
-            assert route(cfg, radon()) == "mclmc"
-            continue
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1: {item}"):
-            nutpie_tpu_torch.sample(m, chains=2, tune=2, draws=2, device="cpu", **kwargs)
+    for sampler, expected in (("mclmc", "mclmc"), ("nuts", "step")):
+        cfg = config_from_settings(_make_settings(sampler, "flow", 0), device="cpu")
+        assert cfg.flow is not None and not cfg.adapt.update_mass_matrix
+        assert route(cfg, radon()) == expected
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                nutpie_tpu_torch.sample(m, sampler=sampler, adaptation="flow", chains=2,
+                                        tune=2, draws=2, device="cuda")
     cfg = NutsConfig(adapt=AdaptConfig(num_tune=8, update_mass_matrix=False))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1: a fixed mass matrix on the card"):
-        route(cfg, radon())
+    assert route(cfg, radon()) == "step"
 
 
 def test_launches_stay_zero_on_cpu_tensors():

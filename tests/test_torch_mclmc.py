@@ -234,8 +234,12 @@ def test_init_matches_jax(low_rank):
 
 
 def test_config_refuses_flow():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: flow adaptation"):
-        pmc.MclmcConfig(flow=object())
+    """A flow configuration is taken (flow adaptation is ported); an unknown
+    trajectory is refused."""
+    from nutpie_tpu_torch.transforms.flow import FlowConfig
+
+    cfg = pmc.MclmcConfig(flow=FlowConfig(num_layers=2))
+    assert cfg.need_gradient and cfg.flow.num_layers == 2
     with pytest.raises(ValueError, match="trajectory"):
         pmc.MclmcConfig(trajectory="spiral")
     assert dataclasses.replace(pmc.MclmcConfig(), steps_per_draw=2).steps_per_draw == 2

@@ -12,7 +12,8 @@
 - A checkpointed run resumed at a chunk boundary reproduces the
   uninterrupted run bitwise; pause and abort act at chunk boundaries.
 - The Zarr layout of an MCLMC run is the JAX package's.
-- Flow adaptation with MCLMC raises naming its ``ROADMAP.md`` item.
+- Flow adaptation with MCLMC runs (``test_torch_flow_sample.py`` holds its
+  moments and its checkpoint).
 """
 
 import json
@@ -215,6 +216,12 @@ def test_zarr_layout_matches_jax():
 
 
 def test_flow_refused():
-    m = compile_model_def(tm.eight_schools())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: flow adaptation"):
-        _sample(m, adaptation="flow", chains=2, tune=2, draws=2)
+    """Flow adaptation with MCLMC, refused until it was ported, now runs: a
+    short run with a small flow, MCLMC's statistics and finite draws."""
+    m = compile_model_def(tm.eight_schools()).with_transform_adapt(
+        num_layers=2, hidden=8, train_steps=5, window=32)
+    trace = _sample(m, adaptation="flow", chains=2, tune=48, draws=16, seed=3, chunk_size=16)
+    assert list(trace.sample_stats.data_vars) == ["logp", "energy_error", "diverging",
+                                                  "step_size", "n_steps"]
+    theta = np.asarray(trace.posterior["theta"].values)
+    assert theta.shape == (2, 16, 8) and np.isfinite(theta).all()

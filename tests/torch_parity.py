@@ -34,6 +34,20 @@ def jax_state_arrays(state) -> dict:
     if hasattr(a, "metric"):
         out["adapt.metric.basis"] = np.asarray(a.metric.basis)
         out["adapt.metric.log_eigs"] = np.asarray(a.metric.log_eigs)
+    if hasattr(a, "flow"):
+        out.update(flow_arrays(a, "adapt"))
+    if getattr(state, "orbit_z", None) is not None:
+        out["orbit_z"], out["orbit_g"] = np.asarray(state.orbit_z), np.asarray(state.orbit_g)
+    return out
+
+
+def flow_arrays(win, prefix: str) -> dict:
+    """The flow and window leaves of a JAX ``FlowAdaptState`` or
+    ``FlowWindow`` under ``prefix``."""
+    out = {f"{prefix}.flow.{name}": np.asarray(value)
+           for name, value in win.flow._asdict().items()}
+    for name in ("flow_updates", "win_draws", "win_grads", "win_valid"):
+        out[f"{prefix}.{name}"] = np.asarray(getattr(win, name))
     return out
 
 
@@ -58,12 +72,21 @@ def jax_state_from_arrays(template, arrays: dict):
         adapt = adapt._replace(metric=a.metric._replace(
             basis=jnp.asarray(arrays["adapt.metric.basis"]),
             log_eigs=jnp.asarray(arrays["adapt.metric.log_eigs"])))
+    if hasattr(a, "flow"):
+        adapt = adapt._replace(
+            flow=a.flow._replace(**{name: jnp.asarray(arrays[f"adapt.flow.{name}"])
+                                    for name in a.flow._fields}),
+            **{name: jnp.asarray(arrays[f"adapt.{name}"])
+               for name in ("flow_updates", "win_draws", "win_grads", "win_valid")})
+    extra = {}
+    if getattr(template, "orbit_z", None) is not None:
+        extra = dict(orbit_z=jnp.asarray(arrays["orbit_z"]), orbit_g=jnp.asarray(arrays["orbit_g"]))
     key = template.rng_key
     raw = jnp.asarray(arrays["rng_key"], jnp.uint32)
     if getattr(key, "dtype", None) != np.uint32:
         raw = jax.random.wrap_key_data(raw)
     return template._replace(
-        rng_key=raw, adapt=adapt,
+        rng_key=raw, adapt=adapt, **extra,
         **{name: jnp.asarray(arrays[name]) for name in ("vecs", "ckpt_p", "ckpt_s", "flts", "ints")},
     )
 
@@ -78,7 +101,7 @@ def assert_state_close(port_arrays: dict, jax_arrays: dict, rtol: float,
     assert port_arrays.keys() == jax_arrays.keys()
     for name, ref in jax_arrays.items():
         got = port_arrays[name]
-        if name in ("ints", "rng_key"):
+        if name in ("ints", "rng_key") or not np.issubdtype(np.asarray(ref).dtype, np.floating):
             np.testing.assert_array_equal(got, ref, err_msg=name)
         else:
             np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol, err_msg=name)
