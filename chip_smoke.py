@@ -324,7 +324,7 @@ each under the fixed metric, in each chain's flow base space):
     the least ESS over ``x[..., 0:100:10]`` above 1000, the mean Fisher
     distance of the last 200 draws below 0.1, printed beside the JAX
     package's CPU margins (``tests/reference/flow_gate_margins.json``,
-    only read).  The same model and flow as a float32 fleet of 64 chains
+    only read).  The same model and flow as a float32 fleet of ``FLOW_FLEET_CHAINS`` chains
     under the float32 recipe: finite draws, v's mean within 0.1 of 0 and
     sd within 0.1 of 1, K2 launched once a chunk and once a machine step
     (all from graph replays), K1 never; divergences, the Fisher tail,
@@ -334,6 +334,42 @@ each under the fixed metric, in each chain's flow base space):
     float32, flows trained every ``FLOW_MCLMC_FREQ`` draws: its bars, K3
     launched once a chunk and twice a step.  K2's and K3's fixed-metric
     steps timed (events, device time, the plain version, the byte bound).
+
+The Stan frontend (``compile_stan_model``: the program's interpreter,
+batched over chains by ``torch.func.vmap``, captured in the step
+runner's CUDA graphs around K2; vmap's per-example fallback warning is an
+error for the whole script):
+
+17. ``stan_parity``: float64, ``STAN_PARITY_CHAINS`` chains.  The Stan
+    radon (``STAN_RADON``: ``models/radon.py``'s unconstrained layout)
+    against ``nt.models.radon()``: its logp equal up to one constant
+    (spread under 1e-9) and its gradient to 1e-10, and the card's equal
+    to the CPU's (1e-12 / 1e-10); K2 around the Stan logp against its
+    plain version over one frozen chunk (``STAN_PARITY_DRAWS``, trees to
+    depth ``STAN_PARITY_MAXDEPTH``): ints exact, floats to rtol 1e-6 /
+    atol 1e-8, the machine steps replayed from graphs.  The same for
+    ``STAN_CENSORED``, a data ``if`` in a loop of 64 observations.  The
+    seconds of each part are printed.
+18. ``stan``: ``sample()`` on the Stan radon with ``y_new =
+    normal_rng(intercept, sigma)``, the main phase's configuration (2048
+    chains x (300 + ``STAN_DRAWS``), pooled, seed 42, float32), K1's and
+    K2's launch counts set to 0 just before: K1 never, K2 more than once.
+    Draws finite, max split R-hat below 1.05, each monitored column's
+    mean within 5 combined MCSE of the main phase's K1 trace; the
+    logp+grad of the Stan radon and of ``nt.models.radon()`` by CUDA
+    events over graph replays (``_logp_graph_ms``) and their ratio;
+    ``STAN_YNEW_ROWS`` rows of ``y_new`` recomputed on the CPU from the
+    card's positions and keys (to 1e-5 relative).  Then K2 at the same
+    shapes (``_stan_k2_main_shapes``): the warmup phase's tuned float32
+    fleet as a Stan radon fleet, one frozen ``STAN_F32_DRAWS``-draw chunk
+    through the runner's graphs against the plain version (the float32
+    shares at ``F32_MIN_SHARE_STEPS`` / ``F32_MIN_SHARE_DRAWS``), and
+    K2's ``advance`` a machine step over it by events, by device time
+    under ``torch.profiler``, the plain version's, and its byte and
+    operation bounds.  Prints wall, gradients/s, min bulk-ESS/s,
+    divergences and the wall's split into logp+grad (the machine steps
+    times the graph-replay ms), K2 (times its device ms), captures and
+    the rest.
 
 Every phase that reads split R-hat and bulk ESS (``column_diagnostics``)
 also computes them on the card with ``diagnostics_device`` and holds
@@ -362,6 +398,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -1063,6 +1100,7 @@ def phase_main(ctx):
     assert max(rhat) < 1.05, f"split R-hat {max(rhat)} on a monitored column"
     div_post = int(raw["stats"]["diverging"][:, TUNE:].sum())
     ctx["launches"] = launches
+    ctx["main_ess"] = ess  # the stan phase holds its means to this trace
     readings = {"wall_s": wall, "gradients": grads, "grads_per_s": grads / wall,
                 "min_bulk_ess": min_ess, "min_ess_per_s": min_ess / wall,
                 "min_ess_per_grad": min_ess / grads, "max_rhat": float(max(rhat)),
@@ -2591,7 +2629,8 @@ def _timed_steps(model, cfg, sched, states, chunk: int, start: int = 0):
     return ms, n_steps, bufs
 
 
-def _device_step_ms(model, cfg, sched, states, chunk: int, max_steps: int) -> dict:
+def _device_step_ms(model, cfg, sched, states, chunk: int, max_steps: int,
+                    start: int = 0) -> dict:
     """K2's advance and the logp+grad call per machine step by device time
     under ``torch.profiler``, over the first ``max_steps`` steps of the same
     chunk (a host that falls behind the card stretches an event pair, not a
@@ -2599,7 +2638,7 @@ def _device_step_ms(model, cfg, sched, states, chunk: int, max_steps: int) -> di
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    st, _, steps = _prepared(cfg, sched, states, 0, chunk, True)
+    st, _, steps = _prepared(cfg, sched, states, start, chunk, True)
     z_new, carry = steps.begin(st)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2613,12 +2652,13 @@ def _device_step_ms(model, cfg, sched, states, chunk: int, max_steps: int) -> di
     return {k: 1e3 * v / max_steps for k, v in dev.items()}
 
 
-def _plain_step_ms(model, cfg, sched, states, chunk: int, max_steps: int) -> dict:
+def _plain_step_ms(model, cfg, sched, states, chunk: int, max_steps: int,
+                   start: int = 0) -> dict:
     """The plain advance per machine step by CUDA events after a
     synchronize, over the first ``max_steps`` steps of the same chunk."""
     import torch
 
-    st, _, plain = _prepared(cfg, sched, states, 0, chunk, True, plain=True)
+    st, _, plain = _prepared(cfg, sched, states, start, chunk, True, plain=True)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     total, n = 0.0, 0
     z_new, carry = plain.begin(st)
@@ -4159,7 +4199,7 @@ def phase_micro(ctx):
 # The reference gate's configuration (tests/test_flow.py:242-288): the
 # 100-d funnel at scale 1 (101 x coordinates beside v), the flow and the
 # run; ESS and Fisher thresholds.  The float32 fleet runs the same model
-# and flow config at 64 chains under the float32 recipe
+# and flow config at FLOW_FLEET_CHAINS chains under the float32 recipe
 # (sample._apply_f32_flow_recipe), which adds its learning-rate decay (the
 # config's rate and steps win; 3e-4 and 1600 steps, the recipe's, took
 # 105.6 s of training in a 127.4 s run of this script on an H100 80GB
@@ -4171,7 +4211,10 @@ FLOW_GATE = dict(num_layers=5, hidden=32, train_steps=800, window=600, learning_
                  num_diag_updates=2, extension_share=0.4)
 FLOW_GATE_RUN = dict(chains=2, tune=1200, draws=1000, seed=1, transform_update_freq=150)
 FLOW_GATE_ESS, FLOW_GATE_FISHER = 1000.0, 0.1
-FLOW_FLEET_CHAINS = 64
+# the float32 fleet's chains: 64 until the Stan phases brought the script
+# near its time limit (its trainings are bound by the card, about linear
+# in the chains)
+FLOW_FLEET_CHAINS = 32
 FLOW_MCLMC_CHAINS, FLOW_MCLMC_TUNE, FLOW_MCLMC_DRAWS, FLOW_MCLMC_FREQ = 64, 800, 2000, 200
 # the parity fleets: 64 chains of the funnel under seeded flows whose
 # couplings act (FLOW_PERTURB: the scale of each field's normals); K3's
@@ -4663,6 +4706,393 @@ def phase_flow(ctx):
     assert abs(mc["x_mean"] - 1.0) < 0.3 and abs(mc["x_sd"] - 3.0) < 0.5, mc
 
 
+# ---------------------------------------------------------------------------
+# The Stan frontend on the card: a Stan program compiled by
+# compile_stan_model, its per-chain interpreter batched over chains by
+# torch.func.vmap and captured in the step runner's CUDA graphs around K2
+
+# radon as a Stan program: the unconstrained layout of models/radon.py
+# (intercept | county_raw_z | log county_sd | floor_effect | cf_raw_z |
+# log cf_sd | log sigma), so its log density equals radon's up to a
+# constant.  GQ adds a draw that puts the expansion's keys to work
+STAN_RADON = """
+data {
+  int<lower=1> N; int<lower=2> J;
+  array[N] int<lower=1, upper=J> county;
+  vector[N] floor_x; vector[N] y;
+  matrix[J, J - 1] basis;
+}
+parameters {
+  real intercept;
+  vector[J - 1] county_raw_z;
+  real<lower=0> county_sd;
+  real floor_effect;
+  vector[J - 1] cf_raw_z;
+  real<lower=0> cf_sd;
+  real<lower=0> sigma;
+}
+transformed parameters {
+  vector[J] county_effect = (basis * county_raw_z) * county_sd;
+  vector[J] cf_effect = (basis * cf_raw_z) * cf_sd;
+}
+model {
+  intercept ~ normal(0, 10);
+  county_raw_z ~ std_normal();
+  cf_raw_z ~ std_normal();
+  county_sd ~ normal(0, 1);
+  cf_sd ~ normal(0, 1);
+  floor_effect ~ normal(0, 2);
+  sigma ~ normal(0, 1.5);
+  y ~ normal(intercept + county_effect[county] + floor_effect * floor_x
+             + cf_effect[county] .* floor_x, sigma);
+}
+"""
+STAN_RADON_GQ = "generated quantities { real y_new = normal_rng(intercept, sigma); }"
+# a data `if` inside a loop of STAN_CENSORED_N observations: the loop
+# cannot be batched over n (its condition reads cens[n]), so it unrolls,
+# each branch decided on the host
+STAN_CENSORED = """
+data { int<lower=1> N; vector[N] y; array[N] int<lower=0, upper=1> cens; real c; }
+parameters { real mu; real<lower=0> sigma; }
+model {
+  mu ~ normal(0, 5);
+  sigma ~ normal(0, 2);
+  for (n in 1:N) {
+    if (cens[n] == 1) target += normal_lccdf(c | mu, sigma);
+    else y[n] ~ normal(mu, sigma);
+  }
+}
+"""
+STAN_CENSORED_N = 64
+STAN_PARITY_CHAINS = 64
+# frozen chunk of the float64 K2 parity on each Stan model: a fresh fleet's
+# trees run to the depth cap, and the plain version calls the log density
+# eagerly (on an H100, 4 draws of both models took 35.4 s and 2 and 1
+# draws 30.8 s), so the trees stop at depth STAN_PARITY_MAXDEPTH; the
+# censored pair 2 -> 1 draw when the script neared its time limit
+STAN_PARITY_DRAWS = {"radon": 2, "censored": 1}
+STAN_PARITY_MAXDEPTH = 5
+# the stan phase: the main path's configuration (2048 chains, 300 tune,
+# pooled, NutsSettings.Diag(42)) with posterior draws STAN_DRAWS (300
+# until the script neared its time limit)
+STAN_DRAWS = 100
+# logp+grad timing: calls a captured graph holds, and its replays
+STAN_TIMING_CALLS, STAN_TIMING_REPLAYS = 8, 10
+# K2 at the stan phase's shapes: a frozen chunk of the tuned fleet (its
+# fleet depth cap bounds the trees, and is printed), held to the plain
+# version and timed; device time over its first STAN_DEVICE_STEPS steps,
+# the plain advance over STAN_PLAIN_STEPS
+STAN_F32_DRAWS = 2
+STAN_DEVICE_STEPS, STAN_PLAIN_STEPS = 32, 8
+# rows of y_new recomputed on the CPU from the card's positions and keys
+STAN_YNEW_ROWS = 64
+
+
+def _stan_radon(gq: bool):
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.models.radon import _zero_sum_basis, simulate_radon_data
+
+    y, cidx, floor_x, _ = simulate_radon_data(42)
+    code = STAN_RADON + (STAN_RADON_GQ if gq else "")
+    return nt.compile_stan_model(code).with_data(
+        N=len(y), J=85, county=cidx + 1, floor_x=floor_x, y=y, basis=_zero_sum_basis(85))
+
+
+def _stan_censored():
+    import numpy as np
+
+    import nutpie_tpu_torch as nt
+
+    rng = np.random.default_rng(3)
+    y = 1.0 + 2.0 * rng.standard_normal(STAN_CENSORED_N)
+    c = 2.5
+    cens = (y > c).astype(np.int64)
+    return nt.compile_stan_model(STAN_CENSORED).with_data(
+        N=STAN_CENSORED_N, y=np.minimum(y, c), cens=cens, c=c)
+
+
+def _stan_k2_frozen(failed, tag, model, seed, n: int, step_search: bool = True) -> dict:
+    """K2 with a Stan log density against its plain version over one
+    frozen chunk of ``n`` draws from a fresh float64 fleet, trees to depth
+    ``STAN_PARITY_MAXDEPTH``: ints exact, floats to rtol 1e-6 / atol 1e-8
+    (the runner captures the log density in its graphs).  Without
+    ``step_search`` the fleet starts at the configuration's initial step
+    size: the search calls the log density eagerly some hundred times, which
+    for the censored model's unrolled loop took most of its pair's 13.5 s
+    on an H100."""
+    import numpy as np
+    import torch
+
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS, NutsConfig
+    from nutpie_tpu_torch.sampler.run import init_chains
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    cfg = NutsConfig(adapt=AdaptConfig(num_tune=TUNE), maxdepth=STAN_PARITY_MAXDEPTH)
+    sched = make_schedule(cfg.adapt, TUNE, cfg.initial_depth_cap)
+    states, ok = init_chains(model, cfg, seed, STAN_PARITY_CHAINS, np.zeros(model.ndim),
+                             torch.float64, device=DEVICE, step_search=step_search)
+    assert bool(ok.all()), f"{tag}: chain initialization failed"
+    replays = step_kernel.replays
+    (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, states, 0, n, n, True)
+    err = _held(failed, _check_frozen_f64, tag, s_k, b_k, s_p, b_p)
+    if step_kernel.replays == replays:
+        failed.append(f"{tag}: no graph replay (the log density was not captured)")
+    leapfrogs = b_k.scalars[..., SCALAR_SLOTS["n_steps"]]
+    return {"draws": n, "held": err is not None, "step_search": step_search,
+            "ints_equal": bool(torch.equal(s_k.ints, s_p.ints)),
+            "max_abs_err_position": max_abs(b_k.position, b_p.position),
+            "leapfrogs_mean": float(leapfrogs.mean()), "leapfrogs_max": int(leapfrogs.max()),
+            "graph_replays": step_kernel.replays - replays, "rtol": 1e-6, "atol": 1e-8}
+
+
+def phase_stan_parity(ctx):
+    """The Stan frontend against the port's own references on the card,
+    float64, ``STAN_PARITY_CHAINS`` chains: the Stan radon's logp and
+    gradient against ``nt.models.radon()`` (to rounding, up to the
+    constant) and against the same program on the CPU; K2 with the Stan
+    logp against its plain version over one frozen chunk; the censored
+    model (a data ``if`` in a loop of 64 observations) on the card against
+    the CPU, captured and stepped the same way."""
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+
+    failed: list = []
+    seconds = {}
+    t0 = time.perf_counter()
+    stan = _stan_radon(gq=False)._make_model(0)
+    ref = nt.models.radon()
+    assert stan.ndim == ref.ndim == 173, (stan.ndim, ref.ndim)
+    x_host = np.random.default_rng(5).normal(size=(STAN_PARITY_CHAINS, stan.ndim)) * 0.3
+    x = torch.as_tensor(x_host, device=DEVICE)
+    ls, gs = stan.logp_and_grad(x)
+    lr, gr = ref.logp_and_grad(x)
+    lc, gc_ = stan.logp_and_grad(torch.as_tensor(x_host))
+    offset = (ls - lr).cpu().numpy()
+    radon = {"logp_offset": float(offset.mean()),
+             "offset_spread": float(offset.max() - offset.min()),
+             "grad_max_rel_err": max_rel(gs, gr),
+             "card_vs_cpu_logp_max_rel": max_rel(ls.cpu(), lc),
+             "card_vs_cpu_grad_max_rel": max_rel(gs.cpu(), gc_)}
+    # rounding of the two formulas' sums: logp is about 1e3 in magnitude
+    if not (radon["offset_spread"] < 1e-9 and radon["grad_max_rel_err"] < 1e-10
+            and radon["card_vs_cpu_logp_max_rel"] < 1e-12
+            and radon["card_vs_cpu_grad_max_rel"] < 1e-10):
+        failed.append(f"stan radon parity: {radon}")
+    seconds["radon_logp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    radon["k2_frozen"] = _stan_k2_frozen(failed, "stan radon K2 frozen chunk", stan, 31,
+                                         STAN_PARITY_DRAWS["radon"])
+    seconds["radon_k2_frozen"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cens = _stan_censored()._make_model(0)
+    xc_host = np.random.default_rng(6).normal(size=(STAN_PARITY_CHAINS, cens.ndim))
+    lk, gk = cens.logp_and_grad(torch.as_tensor(xc_host, device=DEVICE))
+    lh, gh = cens.logp_and_grad(torch.as_tensor(xc_host))
+    censored = {"observations": STAN_CENSORED_N,
+                "card_vs_cpu_logp_max_rel": max_rel(lk.cpu(), lh),
+                "card_vs_cpu_grad_max_rel": max_rel(gk.cpu(), gh)}
+    if not (censored["card_vs_cpu_logp_max_rel"] < 1e-12
+            and censored["card_vs_cpu_grad_max_rel"] < 1e-10):
+        failed.append(f"stan censored parity: {censored}")
+    seconds["censored_logp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    censored["k2_frozen"] = _stan_k2_frozen(failed, "stan censored K2 frozen chunk", cens, 32,
+                                            STAN_PARITY_DRAWS["censored"], step_search=False)
+    seconds["censored_k2_frozen"] = time.perf_counter() - t0
+    ctx["stan_parity"] = {name: (r["k2_frozen"]["max_abs_err_position"],
+                                 r["k2_frozen"]["draws"])
+                          for name, r in (("radon", radon), ("censored", censored))}
+    emit({"phase": "stan_parity", "chains": STAN_PARITY_CHAINS, "dtype": "float64",
+          "radon": radon, "censored": censored, "seconds": seconds, "failed": failed})
+    assert not failed, failed
+
+
+def _logp_graph_ms(model, x) -> float:
+    """ms of one logp+grad call at ``x``'s shapes, from CUDA events around
+    replays of a graph that holds ``STAN_TIMING_CALLS`` calls (the way the
+    step runner replays them)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        model.logp_and_grad(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(STAN_TIMING_CALLS):
+            model.logp_and_grad(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    ms, _ = _event_ms(graph.replay, STAN_TIMING_REPLAYS)
+    return ms / STAN_TIMING_CALLS
+
+
+def _stan_fleet(ctx, model):
+    """The warmup phase's float32 radon fleet (K1 through the 300 tuning
+    draws at ``CHAINS`` chains, pooled, under the fleet depth cap) as a
+    fleet of the Stan radon: the same unconstrained layout, the logp and
+    gradient slots recomputed by the Stan program's density (radon's plus
+    a constant).  Returns (cfg, sched, states)."""
+    from nutpie_tpu_torch.sampler.state import FLT_SLOTS, VEC_SLOTS
+
+    _, cfg, sched, states = ctx["warm32"]
+    logp, grad = model.logp_and_grad(states.vecs[:, VEC_SLOTS["position"]])
+    vecs, flts = states.vecs.clone(), states.flts.clone()
+    vecs[:, VEC_SLOTS["gradient"]] = grad
+    flts[:, FLT_SLOTS["logp"]] = logp
+    return cfg, sched, states.replace(vecs=vecs, flts=flts)
+
+
+def _stan_k2_main_shapes(failed, model, cfg, sched, warm) -> dict:
+    """K2 around the Stan radon's log density at the stan phase's shapes
+    (``CHAINS`` chains, dim 173, float32, the main path's configuration),
+    from the tuned fleet (``_stan_fleet``): one frozen
+    ``STAN_F32_DRAWS``-draw chunk through the runner's graphs against the
+    plain version, held by the float32 shares at the bars of the GLM's
+    main shapes (``F32_MIN_SHARE_STEPS``, ``F32_MIN_SHARE_DRAWS``); then
+    K2's ``advance`` a machine step over the same chunk by CUDA events
+    around eager launches (``_timed_steps``), by device time under
+    ``torch.profiler`` (its first ``STAN_DEVICE_STEPS`` steps), the plain
+    advance's (``STAN_PLAIN_STEPS``), and its byte and operation bounds
+    from this chunk's trees.  Failed bars go to ``failed``."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    n, dim = STAN_F32_DRAWS, model.ndim
+    replays = step_kernel.replays
+    (s_k, b_k), (_, b_p) = _steps_both(model, cfg, sched, warm, TUNE, n, n, True)
+    f32 = _held(failed, _f32_shares, n, s_k, b_k, b_p) or {}
+    f32["graph_replays"] = step_kernel.replays - replays
+    if f32["graph_replays"] == 0:
+        failed.append("stan float32 chunk: no graph replay (the log density was not captured)")
+    if f32.get("share_equal_n_steps", 0.0) < F32_MIN_SHARE_STEPS:
+        failed.append(f"stan float32 n_steps share {f32.get('share_equal_n_steps')}")
+    if f32.get("share_draws_within_tol", 0.0) < F32_MIN_SHARE_DRAWS:
+        failed.append(f"stan float32 draws share {f32.get('share_draws_within_tol')}")
+    del s_k, b_k, b_p
+
+    ms, n_steps, bufs = _timed_steps(model, cfg, sched, warm, n, start=TUNE)
+    dev = _device_step_ms(model, cfg, sched, warm, n, min(n_steps, STAN_DEVICE_STEPS),
+                          start=TUNE)
+    plain = _plain_step_ms(model, cfg, sched, warm, n, STAN_PLAIN_STEPS, start=TUNE)
+    work = step_bytes(bufs.scalars, n, CHAINS, n_steps, dim, warm.ckpt_p.shape[1], 4)
+    t_bytes = 1e3 * work["advance_bytes"] / PEAK_BYTES / n_steps
+    t_ops = 1e3 * step_ops(work, dim) / PEAK_F32_OPS / n_steps
+    bound = max(t_bytes, t_ops)
+    torch.cuda.synchronize()
+    return {"float32": {"draws": n, "tol": F32_TOL, "bars": [F32_MIN_SHARE_STEPS,
+                                                             F32_MIN_SHARE_DRAWS], **f32},
+            "depth_cap": int(sched.depth_cap), "machine_steps": n_steps,
+            "ms": ms["advance"], "device_ms": dev["advance"], "plain_ms": plain["advance"],
+            "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops,
+            "share_of_bound": bound / ms["advance"],
+            "device_share_of_bound": bound / dev["advance"] if dev["advance"] else None,
+            "logp_grad_ms_eager": ms["logp_grad"], "logp_grad_device_ms": dev["logp_grad"]}
+
+
+def phase_stan(ctx):
+    """``sample()`` on the Stan radon at the main path's width: 2048 chains
+    x (300 tune + ``STAN_DRAWS``), pooled, seed 42, float32, through the
+    step route with K1's and K2's launch counts set to 0 just before: K1
+    never, K2 more than once.  Draws finite, max split R-hat below 1.05,
+    each monitored column's posterior mean within 5 combined MCSE of the
+    main phase's K1 trace.  Prints wall, gradients/s, min bulk-ESS/s,
+    divergences, the logp+grad ms of the Stan radon and of
+    ``nt.models.radon()`` (graph replays, ``_logp_graph_ms``) and their
+    ratio, and ``y_new`` on ``STAN_YNEW_ROWS`` rows recomputed on the CPU
+    from the card's positions and keys (to 1e-5 relative).  Then K2 at
+    these shapes against its plain version and timed
+    (``_stan_k2_main_shapes``), and the wall's split."""
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.sample import chunk_length, expand_keys
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+    from nutpie_tpu_torch.settings import NutsSettings
+
+    compiled = _stan_radon(gq=True)
+    model = compiled._make_model(0)
+    torch.cuda.synchronize()
+    _zero_counts(step_kernel, chunk_kernel)
+    t0 = time.perf_counter()
+    raw = nt.sample(compiled, progress_bar=False, chains=CHAINS, tune=TUNE, draws=STAN_DRAWS,
+                    seed=42, pool_mass_matrix=True, pool_step_size=True, device="cuda",
+                    return_raw_trace=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = chunk_kernel.launches, step_kernel.launches
+    graphs = {"graph_replays": step_kernel.replays, "capture_s": step_kernel.capture_s}
+    assert k1 == 0, f"K1 launched {k1} times on a Stan model"
+    assert k2 > 0, "K2 never launched"
+
+    pos = raw["position"]
+    assert pos.shape == (CHAINS, TUNE + STAN_DRAWS, model.ndim), pos.shape
+    assert np.isfinite(pos).all(), "non-finite draws"
+    grads = int(raw["stats"]["n_steps"].astype(np.int64).sum())
+    post = pos[:, TUNE:, :]
+    ess, rhat = column_diagnostics(post, MONITORED)
+    min_ess = float(np.min(ess))
+    assert max(rhat) < 1.05, f"split R-hat {max(rhat)} on a monitored column"
+    div_post = int(raw["stats"]["diverging"][:, TUNE:].sum())
+
+    k1_post, k1_ess = ctx["main_raw"]["position"][:, TUNE:, :], ctx["main_ess"]
+    worst = 0.0
+    for c, e_s, e_k in zip(MONITORED, ess, k1_ess):
+        se = math.hypot(post[:, :, c].std() / math.sqrt(e_s), k1_post[:, :, c].std() / math.sqrt(e_k))
+        worst = max(worst, abs(float(post[:, :, c].mean() - k1_post[:, :, c].mean())) / se)
+    assert worst < 5.0, f"a posterior mean {worst:.2f} combined MCSE from K1's"
+
+    x = torch.as_tensor(post[:, -1, :], device=DEVICE)
+    stan_ms = _logp_graph_ms(model, x)
+    radon_ms = _logp_graph_ms(nt.models.radon(), x)
+    failed: list = []
+    shapes = _stan_k2_main_shapes(failed, model, *_stan_fleet(ctx, model))
+    settings = NutsSettings.Diag(42)
+    settings.update(num_chains=CHAINS, num_tune=TUNE, num_draws=STAN_DRAWS)
+    chunk_len = chunk_length(settings, CHAINS, model.ndim, 4)
+    steps = k2 - math.ceil((TUNE + STAN_DRAWS) / chunk_len)
+    split = {"machine_steps": steps, "logp_grad_s": steps * stan_ms / 1e3,
+             "k2_s": steps * shapes["device_ms"] / 1e3, "capture_s": graphs["capture_s"],
+             "timed": "logp+grad by CUDA events over graph replays, K2 by device time"}
+    split["rest_s"] = wall - split["logp_grad_s"] - split["k2_s"] - split["capture_s"]
+
+    # y_new on the CPU from the card's positions and the same keys
+    rng = np.random.default_rng(7)
+    rows = [(int(c), int(d)) for c, d in zip(rng.integers(0, CHAINS, STAN_YNEW_ROWS),
+                                             rng.integers(0, TUNE + STAN_DRAWS, STAN_YNEW_ROWS))]
+    kr = torch.stack([expand_keys(42, c + 1, 1, d, "cpu")[c, 0] for c, d in rows])
+    xr = torch.as_tensor(np.stack([pos[c, d] for c, d in rows]))
+    cpu = model.expand_fn(xr, kr)["y_new"].numpy()
+    card = np.array([raw["expanded"]["y_new"][c, d] for c, d in rows])
+    y_new_rel = float(np.max(np.abs(cpu - card) / np.maximum(np.abs(cpu), 1e-6)))
+    assert y_new_rel < 1e-5, f"y_new on the card parts from the CPU's by {y_new_rel}"
+
+    readings = {"wall_s": wall, "gradients": grads, "grads_per_s": grads / wall,
+                "min_bulk_ess": min_ess, "min_ess_per_s": min_ess / wall,
+                "max_rhat": float(max(rhat)), "posterior_divergences": div_post,
+                "max_mean_gap_mcse_vs_k1": worst}
+    ctx["stan_k2"] = {"launches": k2, **graphs, **shapes, "logp_grad_ms": stan_ms,
+                      "radon_logp_grad_ms": radon_ms, "ratio": stan_ms / radon_ms}
+    emit({"phase": "stan", "chains": CHAINS, "tune": TUNE, "draws": STAN_DRAWS,
+          "dtype": "float32", "k1_launches": k1, "k2_launches": k2, **graphs, **readings,
+          "logp_grad_ms_per_step": {"stan_radon": stan_ms, "radon_model": radon_ms,
+                                    "ratio": stan_ms / radon_ms,
+                                    "chains": CHAINS, "timed": "CUDA events over graph replays"},
+          "k2_main_shapes": shapes, "chunk_len": chunk_len, "split_of_wall": split,
+          "y_new_rows": STAN_YNEW_ROWS, "y_new_max_rel_err": y_new_rel,
+          "card": ctx["card"], "failed": failed})
+    assert not failed, failed
+
+
 # K1's phases first, while K2's and K3's libraries compile
 PHASES = {
     "build": phase_build,
@@ -4684,13 +5114,15 @@ PHASES = {
     "options_parity": phase_options_parity,
     "options": phase_options,
     "control": phase_control,
+    "stan_parity": phase_stan_parity,
+    "stan": phase_stan,
     "profile": phase_profile,
 }
 # phases whose results a later phase reads
 NEEDS = {"timing": ("warmup",), "micro": ("step_parity",),
          "step_timing": ("step_parity", "lowrank_parity", "micro"),
          "options_parity": ("warmup", "step_parity"), "options": ("main", "options_parity", "warmup", "step_parity"),
-         "control": ("main", "glm"), "flow": ("flow_parity",)}
+         "control": ("main", "glm"), "flow": ("flow_parity",), "stan": ("main", "warmup")}
 
 
 def main() -> int:
@@ -4716,6 +5148,9 @@ def main() -> int:
               file=sys.stderr)
         return 3
 
+    # vmap's per-example fallback (an operation without a batching rule)
+    # would hide a loop over chains inside the Stan log density: an error
+    warnings.filterwarnings("error", message="There is a performance drop")
     start = time.perf_counter()
     ctx: dict = {}
     asked = {p for p in args.phases.split(",") if p}
@@ -4818,6 +5253,27 @@ def main() -> int:
                 "bound_ms": ctx["flow_k2_timing"]["bound_ms"],
                 "bound_by": "bytes",
                 "share_of_bound": ctx["flow_k2_timing"]["share_of_bound"],
+                "library_ms": None,
+                "parity": "ok",
+            },
+            "stan_radon": {
+                "shapes": f"{CHAINS} chains, dim 173, float32 (the Stan radon program's "
+                          "interpreted log density in the runner's graphs)",
+                **{k: v for k, v in ctx["stan_k2"].items() if k != "float32"},
+                "timed_at": f"{CHAINS} chains, dim 173, float32, a {STAN_F32_DRAWS}-draw "
+                            "frozen chunk of the tuned fleet",
+                "max_abs_err": ctx["stan_parity"]["radon"][0],
+                "max_abs_err_at": f"{STAN_PARITY_CHAINS} chains, dim 173, float64, a "
+                                  f"{ctx['stan_parity']['radon'][1]}-draw frozen chunk "
+                                  f"of a fresh fleet, trees to depth {STAN_PARITY_MAXDEPTH}",
+                "censored_max_abs_err": ctx["stan_parity"]["censored"][0],
+                "censored_max_abs_err_at": f"{STAN_PARITY_CHAINS} chains, dim 2, float64, a "
+                                           f"{ctx['stan_parity']['censored'][1]}-draw frozen "
+                                           "chunk of a fresh fleet, trees to depth "
+                                           f"{STAN_PARITY_MAXDEPTH}",
+                "float32_shares": ctx["stan_k2"]["float32"],
+                "float32_shares_at": f"{CHAINS} chains, dim 173, float32, a "
+                                     f"{STAN_F32_DRAWS}-draw frozen chunk of the tuned fleet",
                 "library_ms": None,
                 "parity": "ok",
             },

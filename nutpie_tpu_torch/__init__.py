@@ -5,7 +5,8 @@ JAX package stays the reference; this package imports nothing of it.  The
 first slice covers the main path: NUTS with the gradient-based diagonal
 mass-matrix adaptation over a fleet of chains on the radon model, where
 every chunk of draws on the card runs through one hand-written CUDA kernel
-(``csrc/megakernel.cu``); every other model runs through the step kernel
+(``csrc/megakernel.cu``); every other model, a Stan program compiled by
+``compile_stan_model`` among them, runs through the step kernel
 (``csrc/step_kernel.cu``), and ``sampler="mclmc"`` through the MCLMC
 kernel (``csrc/mclmc.cu``).  On the CPU the same paths run the kernels'
 plain torch versions.  ``sample`` runs in the background with the JAX
@@ -16,6 +17,7 @@ __version__ = "0.1.0"
 
 from . import models
 from .frontends.pyfunc import from_pyfunc
+from .frontends.stan import CompiledStanModel, compile_stan_model, prune_stan_cache
 from .model import CompiledModel
 from .progress import ChainProgress
 from .sample import sample
@@ -25,6 +27,9 @@ __all__ = [
     "__version__",
     "sample",
     "from_pyfunc",
+    "compile_stan_model",
+    "CompiledStanModel",
+    "prune_stan_cache",
     "CompiledModel",
     "NutsSettings",
     "MclmcSettings",

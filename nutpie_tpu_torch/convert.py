@@ -32,6 +32,11 @@ Welford accumulators ``adapt.{draws,grads}_{cur,bg}.{mean,m2,count}``
 adaptation ``adapt.metric.basis`` / ``adapt.metric.log_eigs``;
 ``mclmc_state_from_arrays`` and ``mclmc_state_to_arrays`` carry it into
 the port's :class:`MclmcState` and back.
+
+A Stan model (``compile_stan_model``) carries no weights: its data and its
+unconstrained parameters are the state, and both packages take them as
+numpy arrays (``with_data(**data)``; points ``[C, dim]`` for the logp), so
+no conversion function is needed for it.
 """
 
 from __future__ import annotations

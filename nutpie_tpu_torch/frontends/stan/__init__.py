@@ -1,0 +1,35 @@
+"""Stan frontend: a Stan -> torch compiler for the card.
+
+The port of ``nutpie_tpu/frontends/stan``.  The lexer, parser, AST and
+errors are copies of the JAX package's, so a program parses to the same
+tree and a syntax error reads the same in both.  The interpreter walks the
+tree per chain and is batched over chains with ``torch.func.vmap``; its
+log density runs inside the step runner's CUDA graphs on the card (K2
+around it, ``sampler/run.py``) and through K2's plain version on the CPU.
+Data stay on the host for control flow and are held on the device once
+per device and dtype for the math.
+
+Supported: the core Stan language (data/transformed data/parameters/
+transformed parameters/model/generated quantities blocks, scalar/vector/
+matrix/array/tuple/complex types, lower/upper/simplex/ordered/...
+constraints, control flow, the distributions and math library of the JAX
+package, ``reduce_sum`` and ``map_rect``).  Unsupported constructs raise
+``StanCompileError`` at compile time with a source location; so do the
+functionals not ported yet (``functionals.UNPORTED``).
+
+API parity: ``compile_stan_model(code=..., filename=...)`` and
+``CompiledStanModel.with_data(...)`` mirror the reference
+(``python/nutpie/compile_stan.py:250-386``); ``prune_stan_cache`` exists
+for API compatibility.
+"""
+
+from .api import CompiledStanModel, compile_stan_model, prune_stan_cache
+from .errors import StanCompileError, StanRuntimeError
+
+__all__ = [
+    "compile_stan_model",
+    "CompiledStanModel",
+    "prune_stan_cache",
+    "StanCompileError",
+    "StanRuntimeError",
+]

@@ -43,6 +43,10 @@ class ModelDef:
         Batched ``x[N, ndim] -> dict[name, [N, *shape]]`` posterior
         expansion.  Defaults to slicing the flat vector into the parameter
         variables.
+    expand_needs_rng:
+        The expansion draws random numbers (a Stan program's generated
+        quantities with ``_rng`` calls): ``expand_fn(x, keys[N, 2])`` then
+        takes one Threefry key per row (``sample.expand_keys``).
     expanded_variables / param_variables:
         Metadata for the expanded outputs and the unconstrained slices.
     init_point_fn:
@@ -59,6 +63,7 @@ class ModelDef:
     ndim: int
     logp_fn: Callable[[torch.Tensor], torch.Tensor]
     expand_fn: Optional[Callable[[torch.Tensor], dict]] = None
+    expand_needs_rng: bool = False
     expanded_variables: tuple[Variable, ...] = ()
     param_variables: tuple[Variable, ...] = ()
     dim_sizes: dict = dataclasses.field(default_factory=dict)
@@ -204,6 +209,7 @@ def make_model(
     logp_fn: Callable,
     *,
     expand_fn: Optional[Callable] = None,
+    expand_needs_rng: bool = False,
     expanded_vars: Optional[
         Sequence[tuple[str, Any, tuple[int, ...], Optional[Sequence[str]]]]
     ] = None,
@@ -239,6 +245,7 @@ def make_model(
         ndim=ndim,
         logp_fn=logp_fn,
         expand_fn=expand_fn,
+        expand_needs_rng=expand_needs_rng,
         expanded_variables=tuple(evars) if evars is not None else (),
         param_variables=tuple(pvars) if pvars is not None else (),
         dim_sizes=dim_sizes,

@@ -46,6 +46,7 @@ import torch
 from . import __version__ as _version
 from .checkpoint import load_state, save_state
 from .model import CompiledModel, ModelDef
+from .ops import threefry
 from .progress import ChainProgress, make_progress_handlers
 from .sampler import megakernel, step_kernel
 from .sampler.adapt import AdaptConfig, make_schedule
@@ -324,11 +325,28 @@ def chunk_to_host(bufs: dict, expanded: dict, limit: int,
     }
 
 
-def expand_chunk(model: ModelDef, position: torch.Tensor) -> dict:
-    """Expand ``[C, L, dim]`` positions in one batched call over ``C*L`` rows."""
+def expand_keys(seed: int, C: int, L: int, chunk_start: int, device) -> torch.Tensor:
+    """The generated quantities' keys of a chunk, ``[C, L, 2]``: chain c's
+    draw d (absolute) takes ``fold_in(fold_in(key(seed ^ 0x6A09E667), c),
+    d)``, as ``nutpie_tpu/sample.py:524-540`` derives them, so a draw's
+    random numbers do not depend on the chunking."""
+    master = threefry.key(seed ^ 0x6A09E667, device)
+    ckeys = threefry.fold_in_data(master, torch.arange(C, device=device))
+    draws = torch.arange(L, device=device) + int(chunk_start)
+    return threefry.fold_in_data(ckeys[:, None, :], draws[None, :])
+
+
+def expand_chunk(model: ModelDef, position: torch.Tensor, chunk_start: int = 0,
+                 seed: int = 0) -> dict:
+    """Expand ``[C, L, dim]`` positions in one batched call over ``C*L`` rows
+    (with one key a row where the expansion draws random numbers)."""
     C, L, dim = position.shape
     with torch.no_grad():
-        out = model.expand_fn(position.reshape(C * L, dim))
+        if model.expand_needs_rng:
+            keys = expand_keys(seed, C, L, chunk_start, position.device)
+            out = model.expand_fn(position.reshape(C * L, dim), keys.reshape(C * L, 2))
+        else:
+            out = model.expand_fn(position.reshape(C * L, dim))
     return {k: v.reshape((C, L) + tuple(v.shape[1:])) for k, v in out.items()}
 
 
@@ -609,7 +627,8 @@ class _BackgroundSampler:
                     states, bufs = run_chunk(states, start, limit, sched)
                     if capped and start + limit <= cap_until:
                         sched = sched._replace(depth_cap=fleet_depth_cap(cfg, bufs, limit))
-                    launched = (start, limit, transfer.start(self._chunk_tensors(states, bufs)))
+                    launched = (start, limit,
+                                transfer.start(self._chunk_tensors(states, bufs, start)))
                     start += limit
                     chunk_idx += 1
             if pending is not None:
@@ -621,7 +640,7 @@ class _BackgroundSampler:
         if sink is not None:
             sink.finalize(self._draws_done)
 
-    def _chunk_tensors(self, states, bufs) -> dict:
+    def _chunk_tensors(self, states, bufs, chunk_start: int) -> dict:
         """The device tensors of a launched chunk that the host reads, by
         ``group/name``: its buffers (the gradient only where the user asked
         for it; low-rank adaptation allocates it for its own update), its
@@ -629,7 +648,8 @@ class _BackgroundSampler:
         counters and step sizes, taken after the chunk)."""
         out = {f"bufs/{k}": v for k, v in bufs._asdict().items()
                if v is not None and (k != "gradient" or self._settings.store_gradient)}
-        for k, v in expand_chunk(self._model, bufs.position).items():
+        for k, v in expand_chunk(self._model, bufs.position, chunk_start,
+                                 self._seed).items():
             out[f"expanded/{k}"] = v
         for k in ("draw_idx", "divergence_count", "total_steps", "eps"):
             out[f"snap/{k}"] = getattr(states, k).clone()
