@@ -114,8 +114,8 @@ from a CUDA graph) at the logistic GLM's width from ``bench_glm.py``
    byte bound beside them (``step_bytes``: each row the fused launch
    touches read once and written once) and the diagonal plan with its
    resident chains an SM; then the whole chunk through the runner's
-   CUDA graphs at ``unroll`` 1, 4, 8 and 16 (host wall, and the machine
-   steps each ran).  Then the
+   CUDA graphs at each of ``UNROLLS`` machine steps a graph (host wall,
+   and the machine steps each ran).  Then the
    same for K2's low-rank branch at the low-rank path's shapes (below):
    one frozen ``LR_F32_CHUNK``-draw chunk of the float32 parity fleet, K2 with R = 32
    and with R = 0 (the same fleet without its metric), the logp+grad
@@ -330,7 +330,7 @@ each under the fixed metric, in each chain's flow base space):
     (all from graph replays), K1 never; divergences, the Fisher tail,
     ESS, ESS/s, gradients/s, the wall, the seconds of each flow training
     and of the captures read.  MCLMC with flow on
-    ``tests/test_mclmc.py:98-108``'s Gaussian, 64 chains x (800 + 2000),
+    ``tests/test_mclmc.py:98-108``'s Gaussian, 64 chains x (800 + 1000),
     float32, flows trained every ``FLOW_MCLMC_FREQ`` draws: its bars, K3
     launched once a chunk and twice a step.  K2's and K3's fixed-metric
     steps timed (events, device time, the plain version, the byte bound).
@@ -371,12 +371,43 @@ error for the whole script):
     times the graph-replay ms), K2 (times its device ms), captures and
     the rest.
 
+Stan's looping functionals (``integrate_1d``, the ODE solvers with their
+adjoint, the DAE and algebraic solvers; a log density that calls a
+solver reads the device to stop, so the step runner calls it eagerly
+around K2):
+
+19. ``stan_functionals_parity``: float64.  Each program of
+    ``tests/torch_stan_programs.py:FUNCTIONAL_CASES`` (one per functional,
+    22) at ``FUNCTIONAL_POINTS`` points: logp and gradient on the card
+    equal the CPU's to 1e-12; the ODE on exponential decay against ``10
+    exp(-k t)`` and its gradient in k (``DECAY_TOL``); the Lotka-Volterra
+    case study (Carpenter's predator-prey case study, 8 parameters, 20
+    output times) at ``LV_PARITY_CHAINS`` points against the CPU, and K2
+    around its eager log density bitwise its plain version over one
+    frozen chunk (``LV_PARITY_DRAWS``, trees to ``LV_PARITY_MAXDEPTH``;
+    every K2 launch eager, no graph replay).
+20. ``stan_ode``: ``sample()`` of the case study as written (the old ODE
+    interface, its ``CompiledStanModel``) at ``LV_CHAINS`` chains x
+    (``LV_TUNE`` + ``LV_DRAWS``), trees to ``LV_MAXDEPTH``, float32, the
+    chains started within ``LV_INIT_HALF_WIDTH`` of the posterior means
+    (``_lv_near``: ``sample()``'s own start holds the fleet at the solver's
+    cap), K1's and K2's counts set to 0 just before: K1 never,
+    K2 more than once, no replay.  Draws finite.  A short run: it samples,
+    it does not converge.  Prints wall, the init's seconds and calls,
+    gradients/s, R-hat over theta, the solver's counts (intervals at the
+    cap), the logp+grad ms a call by events, the Dormand-Prince attempts
+    an output interval (forward and adjoint, mean and max), K2 at these
+    shapes against its plain version (float32 shares, bitwise or not) and
+    timed (events, device time, the plain advance, its bound) and the
+    wall's split.
+
 Every phase that reads split R-hat and bulk ESS (``column_diagnostics``)
 also computes them on the card with ``diagnostics_device`` and holds
 them to the host's to rtol ``DIAG_RTOL``.
 
 Then the script's seconds, the kernels line (K1; K2 with its low-rank
-branch, its microcanonical instantiations and its fixed metric; K3 with
+branch, its microcanonical instantiations, its fixed metric and the
+eager route around the case study; K3 with
 its low-rank form and its fixed metric), the card line, and the
 last line
 
@@ -496,8 +527,9 @@ GLM_PROFILE_TUNE, GLM_PROFILE_DRAWS = 4, 4
 # the script, then 4, then 2, cut for its time limit)
 STEP_PARITY_CHAINS, ILL_DIM, ILL_CHAINS, ILL_DRAWS = 64, 1000, 16, 2
 # step_parity's float64 GLM: a fresh warmup window, then a frozen chunk
-# (8 + 16 draws until the script outran its time limit on a slower host)
-GLM_F64_WARM, GLM_F64_FROZEN = 4, 8
+# (8 + 16 draws until the script outran its time limit on a slower host,
+# 4 + 8 until the Stan functionals' phases joined the script)
+GLM_F64_WARM, GLM_F64_FROZEN = 2, 4
 # the timing phase's float64 chunk is held against its plain version over
 # its first draws (the whole 128-draw chunk until a slower host took the
 # script past its time limit), and timed whole
@@ -513,7 +545,9 @@ LAPLACE_SD_TOL = 0.25
 # about 0.01 sd of Monte Carlo error): the mean and the mode of this
 # posterior differ by up to 0.24 sd, its skew
 IMPORTANCE_SD_TOL = 0.05
-UNROLLS = (1, 4, 8, 16)
+# machine steps a graph in the unroll sweeps: the runner's 8 beside 1 (1, 4,
+# 8 and 16 until the Stan functionals' phases joined the script)
+UNROLLS = (1, 8)
 # the card's diagnostics (diagnostics_device) against the host's, float64
 DIAG_RTOL = 1e-6
 # where the GLM path runs
@@ -2790,9 +2824,9 @@ K2_GLM_OPTIONS = {
     "target_time": ({"target_time": 0.5, "extra_doublings": 1}, {}),
 }
 # 8 + 8 draws until the MCLMC and microcanonical phases joined the script;
-# cut to 4 + 4 for its time limit (every option's branch still runs in
-# both windows)
-OPTIONS_CHAINS, OPTIONS_DRAWS = 16, 2
+# cut to 4 + 4, 2 + 2 and, when the Stan functionals' phases joined, 1 + 1
+# for its time limit (every option's branch still runs in both windows)
+OPTIONS_CHAINS, OPTIONS_DRAWS = 16, 1
 DIV_STATS = ("divergence_start", "divergence_end", "divergence_momentum",
              "divergence_start_gradient")
 # the options phase's fixed step size for radon: the main phase's final
@@ -4215,7 +4249,8 @@ FLOW_GATE_ESS, FLOW_GATE_FISHER = 1000.0, 0.1
 # near its time limit (its trainings are bound by the card, about linear
 # in the chains)
 FLOW_FLEET_CHAINS = 32
-FLOW_MCLMC_CHAINS, FLOW_MCLMC_TUNE, FLOW_MCLMC_DRAWS, FLOW_MCLMC_FREQ = 64, 800, 2000, 200
+# (posterior draws 2000 until the Stan functionals' phases joined the script)
+FLOW_MCLMC_CHAINS, FLOW_MCLMC_TUNE, FLOW_MCLMC_DRAWS, FLOW_MCLMC_FREQ = 64, 800, 1000, 200
 # the parity fleets: 64 chains of the funnel under seeded flows whose
 # couplings act (FLOW_PERTURB: the scale of each field's normals); K3's
 # funnel fleet tunes FLOW_K3_TUNE draws (its first chunk held against the
@@ -5093,6 +5128,406 @@ def phase_stan(ctx):
     assert not failed, failed
 
 
+# ---------------------------------------------------------------------------
+# Stan's looping functionals on the card: integrate_1d, the ODE solvers with
+# their adjoint, the DAE and algebraic solvers (frontends/stan/functionals.py),
+# and the Lotka-Volterra case study sampled through K2 around its eager logp
+
+# the programs of tests/torch_stan_programs.py: one per functional, and the
+# case study (Carpenter's "Predator-Prey Population Dynamics", posteriordb
+# hudson_lynx_hare-lotka_volterra: 8 parameters, 2 states, 20 output times,
+# rtol 1e-5, atol 1e-3, 500 steps) on data simulated from seed 0
+FUNCTIONAL_POINTS = 4
+# exponential decay y' = -k y, y(0) = 10, read at DECAY_TIMES against
+# 10 exp(-k t), at rtol = atol = 1e-10
+STAN_DECAY = """
+functions { vector decay(real t, vector y, real k) { return -k * y; } }
+data { int N; array[N] real ts; }
+parameters { real k; }
+model {
+  array[N] vector[1] ys = ode_rk45_tol(decay, [10.0]', 0.0, ts, 1e-10, 1e-10, 100000, k);
+  for (n in 1:N) target += ys[n, 1];
+}
+"""
+DECAY_TIMES = (0.5, 1.0, 2.0, 4.0)
+DECAY_RATES = (0.5, 1.0, 2.0)
+DECAY_TOL = 1e-7
+# K2 around the case study's eager logp against its plain version: float64,
+# a fresh fleet within LV_INIT_HALF_WIDTH of the posterior means, one frozen
+# chunk of LV_PARITY_DRAWS, trees to depth LV_PARITY_MAXDEPTH
+LV_PARITY_CHAINS = 64
+LV_PARITY_DRAWS, LV_PARITY_MAXDEPTH = 1, 3
+LV_INIT_HALF_WIDTH = 0.25
+# the stan_ode run: sample() of the case study as written, LV_CHAINS chains
+# x (LV_TUNE + LV_DRAWS), trees to depth LV_MAXDEPTH, float32, seed 42, the
+# step search started at LV_INITIAL_STEP, init_mean the posterior means,
+# the start narrowed (_lv_near): sample()'s own start (+-2) took this run
+# 285.5 s on an H100 80GB HBM3 at 700 W, 153.0 s of it in the init, with
+# 223 output intervals at the cap (PERF.md section 6)
+LV_CHAINS = 256
+LV_TUNE, LV_DRAWS, LV_MAXDEPTH, LV_INITIAL_STEP = 8, 8, 3, 0.01
+# K2 at the run's shapes, from a fresh fleet: a frozen LV_TIMED_DRAWS-draw
+# chunk (trees to depth LV_PARITY_MAXDEPTH) against its plain version by the
+# float32 shares, then timed (_lv_k2_timing), and LV_PLAIN_STEPS of the
+# plain advance
+LV_TIMED_DRAWS, LV_PLAIN_STEPS = 1, 2
+
+
+def _stan_programs():
+    """``tests/torch_stan_programs.py`` of this checkout (no JAX there)."""
+    path = os.path.join(ROOT, "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import torch_stan_programs
+
+    return torch_stan_programs
+
+
+def _lv_near(model):
+    """``model`` with its chains started within ``LV_INIT_HALF_WIDTH`` of
+    ``init_mean`` in the unconstrained space, where ``sample()``'s start
+    (+-2) puts chains whose solves run to their cap and hold the fleet
+    there (ROADMAP queue 3)."""
+    from nutpie_tpu_torch.ops import threefry
+
+    def init_point(key_data, init_mean):
+        return init_mean + threefry.uniform(key_data, (model.ndim,), init_mean.dtype,
+                                            -LV_INIT_HALF_WIDTH, LV_INIT_HALF_WIDTH)
+
+    return dataclasses.replace(model, init_point_fn=init_point)
+
+
+def _lv_compiled():
+    """The case study as written, compiled and bound to its data (the
+    ``CompiledStanModel`` a user passes to ``sample()``), its model's start
+    narrowed by ``_lv_near`` (``sample()`` takes no width for it), and the
+    case study's posterior means in the unconstrained space."""
+    import numpy as np
+
+    import nutpie_tpu_torch as nt
+
+    p = _stan_programs()
+    compiled = nt.compile_stan_model(p.LOTKA_VOLTERRA).with_data(**p.lotka_volterra_data())
+    # the model compile_stan_model memoizes for sample(), its start narrowed
+    object.__setattr__(compiled, "_model_def_cache", _lv_near(compiled._make_model(0)))
+    return compiled, np.log(np.array(p.LV_THETA + p.LV_Z_INIT + (0.25, 0.25)))
+
+
+def _lv_fleet(model, center, n_chains, dtype, seed, maxdepth):
+    """A fresh fleet of the case study on the card, no step search."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.nuts import NutsConfig
+    from nutpie_tpu_torch.sampler.run import init_chains
+
+    cfg = NutsConfig(adapt=AdaptConfig(num_tune=TUNE), maxdepth=maxdepth)
+    sched = make_schedule(cfg.adapt, TUNE, cfg.initial_depth_cap)
+    states, ok = init_chains(model, cfg, seed, n_chains, center, dtype, device=DEVICE,
+                             step_search=False)
+    assert bool(ok.all()), "case-study chains failed to initialize"
+    return cfg, sched, states
+
+
+def phase_stan_functionals_parity(ctx):
+    """Stan's looping functionals on the card, float64: each program of
+    ``FUNCTIONAL_CASES`` (22 functionals) at ``FUNCTIONAL_POINTS`` seeded
+    points against the CPU (logp and gradient to 1e-12 relative to the
+    largest); the ODE on exponential decay against ``10 exp(-k t)`` and its
+    gradient in k (``DECAY_TOL``); the case study's logp and gradient at
+    ``LV_PARITY_CHAINS`` points against the CPU, and K2 around its eager
+    log density bitwise its plain version over one frozen chunk (every
+    K2 launch eager, no graph replay)."""
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.sampler.nuts import SCALAR_SLOTS
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    failed: list = []
+    seconds = {}
+    t0 = time.perf_counter()
+    functionals = {}
+    for name, (code, data) in sorted(_stan_programs().FUNCTIONAL_CASES.items()):
+        t1 = time.perf_counter()
+        model = nt.compile_stan_model(code).with_data(**data())._make_model(0)
+        x = np.random.default_rng(3).normal(size=(FUNCTIONAL_POINTS, model.ndim)) * 0.3
+        lk, gk = model.logp_and_grad(torch.as_tensor(x, device=DEVICE))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        lc, gc_ = model.logp_and_grad(torch.as_tensor(x))
+        r = {"logp": max_rel(lk.cpu(), lc), "grad": max_rel(gk.cpu(), gc_),
+             "finite": bool(torch.isfinite(lk).all() and torch.isfinite(gk).all()),
+             "eager_logp": model.eager_logp, "card_s": t2 - t1,
+             "cpu_s": time.perf_counter() - t2}
+        functionals[name] = r
+        if not (r["finite"] and r["logp"] < 1e-12 and r["grad"] < 1e-12):
+            failed.append(f"{name} on the card against the CPU: {r}")
+    seconds["functionals"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ts = np.array(DECAY_TIMES)
+    decay = nt.compile_stan_model(STAN_DECAY).with_data(N=len(ts), ts=ts)._make_model(0)
+    k = np.array(DECAY_RATES)
+    ld, gd = decay.logp_and_grad(torch.as_tensor(k[:, None], device=DEVICE))
+    exact = (10 * np.exp(-k[:, None] * ts)).sum(1)
+    dexact = (-10 * ts * np.exp(-k[:, None] * ts)).sum(1)
+    decay_r = {"rates": list(DECAY_RATES), "times": list(DECAY_TIMES),
+               "logp_max_rel": float(np.max(np.abs(ld.cpu().numpy() - exact) / exact)),
+               "grad_max_rel": float(np.max(np.abs(gd.cpu().numpy()[:, 0] - dexact)
+                                            / np.abs(dexact))), "tol": DECAY_TOL}
+    if not (decay_r["logp_max_rel"] < DECAY_TOL and decay_r["grad_max_rel"] < DECAY_TOL):
+        failed.append(f"exponential decay: {decay_r}")
+    seconds["decay"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    compiled, center = _lv_compiled()
+    model = compiled._make_model(0)
+    cfg, sched, states = _lv_fleet(model, center, LV_PARITY_CHAINS, torch.float64, 31,
+                                   LV_PARITY_MAXDEPTH)
+    x = states.vecs[:, 0]
+    lk, gk = model.logp_and_grad(x)
+    lc, gc_ = model.logp_and_grad(x.cpu())
+    lv = {"chains": LV_PARITY_CHAINS, "card_vs_cpu_logp_max_rel": max_rel(lk.cpu(), lc),
+          "card_vs_cpu_grad_max_rel": max_rel(gk.cpu(), gc_)}
+    if not (lv["card_vs_cpu_logp_max_rel"] < 1e-12 and lv["card_vs_cpu_grad_max_rel"] < 1e-12):
+        failed.append(f"case study on the card against the CPU: {lv}")
+    launches, replays = step_kernel.launches, step_kernel.replays
+    n = LV_PARITY_DRAWS
+    (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, states, 0, n, n, True)
+    leapfrogs = b_k.scalars[..., SCALAR_SLOTS["n_steps"]]
+    lv["k2_frozen"] = {
+        "draws": n, "maxdepth": LV_PARITY_MAXDEPTH,
+        "bitwise": bool(bitwise_equal(b_k.position, b_p.position)
+                        and bitwise_equal(b_k.scalars, b_p.scalars)
+                        and torch.equal(s_k.ints, s_p.ints)
+                        and bitwise_equal(s_k.vecs, s_p.vecs)),
+        "max_abs_err_position": max_abs(b_k.position, b_p.position),
+        "k2_launches": step_kernel.launches - launches,
+        "graph_replays": step_kernel.replays - replays,
+        "leapfrogs_mean": float(leapfrogs.float().mean()), "leapfrogs_max": int(leapfrogs.max())}
+    if not lv["k2_frozen"]["bitwise"]:
+        failed.append(f"K2 around the case study's logp is not bitwise its plain version: "
+                      f"{lv['k2_frozen']}")
+    if lv["k2_frozen"]["k2_launches"] == 0 or lv["k2_frozen"]["graph_replays"] != 0:
+        failed.append(f"the case study did not take the eager K2 route: {lv['k2_frozen']}")
+    seconds["lotka_volterra"] = time.perf_counter() - t0
+    ctx["lv_parity"] = lv["k2_frozen"]
+    emit({"phase": "stan_functionals_parity", "dtype": "float64", "points": FUNCTIONAL_POINTS,
+          "functionals": functionals, "decay": decay_r, "lotka_volterra": lv,
+          "seconds": seconds, "failed": failed})
+    assert not failed, failed
+
+
+def _lv_k2_timing(model, cfg, sched, states, chunk: int):
+    """K2 around the case study's eager log density over one frozen chunk
+    of ``states``: a first run launches it step by step with each
+    logp+grad between (each call by CUDA events) and keeps the log
+    densities and gradients; the same advances then run again from the same
+    start on those inputs, no log density between them, each by CUDA
+    events after a synchronize, and once more under one ``torch.profiler``
+    session for device time (None where it returns no K2 row); each rerun's
+    draws are bitwise the first's.  Returns (ms per step by part, steps,
+    the chunk's buffers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    st, bufs, steps = _prepared(cfg, sched, states, 0, chunk, True)
+    z_new, carry = steps.begin(st)
+    inputs, call_ms = [], 0.0
+    while not bool(st.done.all()):
+        ev[0].record()
+        logp, grad = model.logp_and_grad(z_new)
+        ev[1].record()
+        inputs.append((logp, grad))
+        st, z_new, carry = steps.advance(st, z_new, carry, logp, grad)
+        torch.cuda.synchronize()
+        call_ms += ev[0].elapsed_time(ev[1])
+
+    def rerun(timed: bool) -> float:
+        st, rbufs, steps = _prepared(cfg, sched, states, 0, chunk, True)
+        z_new, carry = steps.begin(st)
+        total = 0.0
+        for logp, grad in inputs:
+            if timed:
+                torch.cuda.synchronize()
+                ev[0].record()
+            st, z_new, carry = steps.advance(st, z_new, carry, logp, grad)
+            if timed:
+                ev[1].record()
+                torch.cuda.synchronize()
+                total += ev[0].elapsed_time(ev[1])
+        torch.cuda.synchronize()
+        assert bitwise_equal(rbufs.position, bufs.position), "K2's rerun parts from its run"
+        return total
+
+    n = len(inputs)
+    advance_ms = rerun(True) / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rerun(False)
+    rows = [r[0] for r in _device_rows(prof) if _is_k2(r[1])]
+    return ({"logp_grad": call_ms / n, "advance": advance_ms,
+             "device_advance": 1e3 * sum(rows) / n if rows else None}, n, bufs)
+
+
+def _lv_k2_run_shapes(failed, model, center) -> dict:
+    """K2 around the case study's eager log density at the stan_ode run's
+    shapes (``LV_CHAINS`` chains, dim 8, float32, the held form), from a
+    fresh fleet: one frozen ``LV_TIMED_DRAWS``-draw chunk through the
+    runner's eager route against the plain version, held by the float32
+    shares at the bars of the GLM's main shapes (``F32_MIN_SHARE_STEPS``,
+    ``F32_MIN_SHARE_DRAWS``), and whether it is bitwise; then timed
+    (``_lv_k2_timing``), the plain advance, and the byte and operation
+    bounds from that chunk's trees.  Failed bars go to ``failed``."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    n = LV_TIMED_DRAWS
+    cfg, sched, fleet = _lv_fleet(model, center, LV_CHAINS, torch.float32, 43,
+                                  LV_PARITY_MAXDEPTH)
+    replays = step_kernel.replays
+    (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, fleet, 0, n, n, True)
+    f32 = _held(failed, _f32_shares, n, s_k, b_k, b_p) or {}
+    f32["bitwise"] = bool(bitwise_equal(b_k.position, b_p.position)
+                          and bitwise_equal(b_k.scalars, b_p.scalars)
+                          and torch.equal(s_k.ints, s_p.ints))
+    f32["max_abs_err_position"] = max_abs(b_k.position, b_p.position)
+    f32["graph_replays"] = step_kernel.replays - replays
+    if f32["graph_replays"]:
+        failed.append("the case study's K2 chunk replayed a graph (not the eager route)")
+    if f32.get("share_equal_n_steps", 0.0) < F32_MIN_SHARE_STEPS:
+        failed.append(f"case study float32 n_steps share {f32.get('share_equal_n_steps')}")
+    if f32.get("share_draws_within_tol", 0.0) < F32_MIN_SHARE_DRAWS:
+        failed.append(f"case study float32 draws share {f32.get('share_draws_within_tol')}")
+    del s_k, b_k, s_p, b_p
+
+    ms, n_steps, bufs = _lv_k2_timing(model, cfg, sched, fleet, n)
+    plain = _plain_step_ms(model, cfg, sched, fleet, n, LV_PLAIN_STEPS)
+    work = step_bytes(bufs.scalars, n, LV_CHAINS, n_steps, model.ndim, fleet.ckpt_p.shape[1], 4)
+    t_bytes = 1e3 * work["advance_bytes"] / PEAK_BYTES / n_steps
+    t_ops = 1e3 * step_ops(work, model.ndim) / PEAK_F32_OPS / n_steps
+    bound = max(t_bytes, t_ops)
+    return {"float32": {"draws": n, "tol": F32_TOL,
+                        "bars": [F32_MIN_SHARE_STEPS, F32_MIN_SHARE_DRAWS], **f32},
+            "machine_steps": n_steps, "ms": ms["advance"], "device_ms": ms["device_advance"],
+            "plain_ms": plain["advance"], "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops,
+            "logp_grad_ms_eager": ms["logp_grad"],
+            "plan": dataclasses.asdict(step_kernel.diag_plan(LV_CHAINS, model.ndim,
+                                                             torch.float32, DEVICE))}
+
+
+def _lv_attempts() -> dict:
+    """Dormand-Prince attempts per output interval of the last solve, its
+    forward and its adjoint: mean and max over the fleet and intervals."""
+    from nutpie_tpu_torch.frontends.stan.functionals import ATTEMPTS
+
+    out = {}
+    for part in ("forward", "backward"):
+        a = ATTEMPTS[part].double()
+        out[part] = {"mean": float(a.mean()), "max": int(a.max()),
+                     "fleet_max_per_interval_sum": int(a.max(0).values.sum())}
+    return out
+
+
+def phase_stan_ode(ctx):
+    """``sample()`` on the case study as written (the old ODE interface,
+    which the port differentiates): the ``CompiledStanModel`` of
+    ``_lv_compiled`` at ``LV_CHAINS`` chains x (``LV_TUNE`` + ``LV_DRAWS``),
+    trees to depth ``LV_MAXDEPTH``, seed 42, float32 (the card's default),
+    the chains started within ``LV_INIT_HALF_WIDTH`` of the posterior
+    means (``_lv_near``),
+    K1's and K2's launch counts set to 0 just before: K1 never, K2 more than
+    once, no graph replay (the eager route).  Draws finite, of the expected
+    shape.  A short run: it samples, it does not converge.  Prints wall,
+    the init's seconds (``init_s``) and log density calls, gradients/s,
+    R-hat over theta, the solver's counts (``functionals.SOLVES``: attempt
+    loops, intervals at the cap), the logp+grad ms a call by CUDA events at
+    the last draws and the Dormand-Prince attempts per output interval
+    there, forward and adjoint; then K2 at these shapes
+    (``_lv_k2_run_shapes``) and the wall's split."""
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.stan.functionals import SOLVES
+    from nutpie_tpu_torch.sample import chunk_length
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+    from nutpie_tpu_torch.settings import NutsSettings
+
+    compiled, center = _lv_compiled()
+    model = compiled._make_model(0)
+    failed: list = []
+    torch.cuda.synchronize()
+    _zero_counts(step_kernel, chunk_kernel)
+    SOLVES.update(dict.fromkeys(SOLVES, 0))
+    t0 = time.perf_counter()
+    handle = nt.sample(compiled, progress_bar=False, chains=LV_CHAINS, tune=LV_TUNE,
+                       draws=LV_DRAWS, seed=42, init_mean=center, maxdepth=LV_MAXDEPTH,
+                       initial_step=LV_INITIAL_STEP, device="cuda", return_raw_trace=True,
+                       blocking=False)
+    raw = handle.wait()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, replays = chunk_kernel.launches, step_kernel.launches, step_kernel.replays
+    solves = dict(SOLVES)
+    assert k1 == 0, f"K1 launched {k1} times on a Stan model"
+    assert k2 > 0, "K2 never launched"
+    assert replays == 0, f"{replays} graph replays on the eager route"
+    pos = raw["position"]
+    assert pos.shape == (LV_CHAINS, LV_TUNE + LV_DRAWS, model.ndim), pos.shape
+    assert np.isfinite(pos).all(), "non-finite draws"
+    grads = int(raw["stats"]["n_steps"].astype(np.int64).sum())
+    post = pos[:, LV_TUNE:, :]
+    _, rhat = column_diagnostics(post, [0, 1, 2, 3])
+    div = int(raw["stats"]["diverging"].sum())
+    settings = NutsSettings.Diag(42)
+    settings.update(num_chains=LV_CHAINS, num_tune=LV_TUNE, num_draws=LV_DRAWS,
+                    maxdepth=LV_MAXDEPTH)
+    chunk_len = chunk_length(settings, LV_CHAINS, model.ndim, 4)
+    machine_steps = k2 - math.ceil((LV_TUNE + LV_DRAWS) / chunk_len)
+
+    x = torch.as_tensor(post[:, -1, :], device=DEVICE, dtype=torch.float32)
+    call_ms, _ = _event_ms(lambda: model.logp_and_grad(x), 2)
+    attempts = _lv_attempts()
+
+    t1 = time.perf_counter()
+    ctx["lv_k2"] = {"launches": k2, **_lv_k2_run_shapes(failed, model, center)}
+    k2_s = time.perf_counter() - t1
+
+    dev = ctx["lv_k2"]["device_ms"]
+    split = {"machine_steps": machine_steps, "init_s": handle.init_s,
+             "logp_grad_s": machine_steps * call_ms / 1e3,
+             "k2_s": machine_steps * dev / 1e3 if dev is not None else None,
+             "chunk_len": chunk_len,
+             "timed": "the init by the host's clock (sample()'s init_s), logp+grad by CUDA "
+                      "events around eager calls at the last draws, K2 by device time at "
+                      "these shapes"}
+    split["rest_s"] = wall - split["init_s"] - split["logp_grad_s"] - (split["k2_s"] or 0.0)
+    split["shares"] = {k: None if split[k] is None else split[k] / wall
+                       for k in ("init_s", "logp_grad_s", "k2_s", "rest_s")}
+    emit({"phase": "stan_ode", "chains": LV_CHAINS, "tune": LV_TUNE, "draws": LV_DRAWS,
+          "maxdepth": LV_MAXDEPTH, "dtype": "float32", "init_half_width": LV_INIT_HALF_WIDTH,
+          "k1_launches": k1, "k2_launches": k2, "graph_replays": replays, "wall_s": wall,
+          "init_s": handle.init_s, "init_logp_calls": solves["backward"] - machine_steps,
+          "solves": solves, "gradients": grads, "grads_per_s": grads / wall,
+          "rhat_theta": [float(r) for r in rhat], "max_rhat_theta": float(max(rhat)),
+          "divergences": div, "logp_grad_ms_per_call": call_ms,
+          "logp_grad_at": "the run's last draws, events",
+          "dopri_attempts_per_interval": attempts,
+          "k2": {**ctx["lv_k2"], "timed_at": f"{LV_CHAINS} chains, dim 8, float32, a "
+                                             f"{LV_TIMED_DRAWS}-draw frozen chunk of a fresh "
+                                             f"fleet, trees to depth {LV_PARITY_MAXDEPTH}",
+                 "seconds": k2_s},
+          "split_of_wall": split, "card": ctx["card"], "failed": failed})
+    assert not failed, failed
+
+
 # K1's phases first, while K2's and K3's libraries compile
 PHASES = {
     "build": phase_build,
@@ -5116,6 +5551,8 @@ PHASES = {
     "control": phase_control,
     "stan_parity": phase_stan_parity,
     "stan": phase_stan,
+    "stan_functionals_parity": phase_stan_functionals_parity,
+    "stan_ode": phase_stan_ode,
     "profile": phase_profile,
 }
 # phases whose results a later phase reads
@@ -5274,6 +5711,24 @@ def main() -> int:
                 "float32_shares": ctx["stan_k2"]["float32"],
                 "float32_shares_at": f"{CHAINS} chains, dim 173, float32, a "
                                      f"{STAN_F32_DRAWS}-draw frozen chunk of the tuned fleet",
+                "library_ms": None,
+                "parity": "ok",
+            },
+            "stan_lotka_volterra": {
+                "shapes": f"{LV_CHAINS} chains, dim 8, float32 (the Lotka-Volterra case "
+                          "study's log density called eagerly between launches: its ODE "
+                          "solve reads the device to stop)",
+                **{k: v for k, v in ctx["lv_k2"].items() if k != "float32"},
+                "timed_at": f"{LV_CHAINS} chains, dim 8, float32, a {LV_TIMED_DRAWS}-draw "
+                            f"frozen chunk of a fresh fleet, trees to depth {LV_PARITY_MAXDEPTH}",
+                "float32_shares": ctx["lv_k2"]["float32"],
+                "float32_shares_at": f"{LV_CHAINS} chains, dim 8, float32, the same chunk "
+                                     "as timed_at, through the runner's eager route",
+                "max_abs_err": ctx["lv_parity"]["max_abs_err_position"],
+                "max_abs_err_at": f"{LV_PARITY_CHAINS} chains, dim 8, float64, a "
+                                  f"{LV_PARITY_DRAWS}-draw frozen chunk of a fresh fleet, "
+                                  f"trees to depth {LV_PARITY_MAXDEPTH}",
+                "bitwise": ctx["lv_parity"]["bitwise"],
                 "library_ms": None,
                 "parity": "ok",
             },

@@ -13,9 +13,13 @@ Supported: the core Stan language (data/transformed data/parameters/
 transformed parameters/model/generated quantities blocks, scalar/vector/
 matrix/array/tuple/complex types, lower/upper/simplex/ordered/...
 constraints, control flow, the distributions and math library of the JAX
-package, ``reduce_sum`` and ``map_rect``).  Unsupported constructs raise
-``StanCompileError`` at compile time with a source location; so do the
-functionals not ported yet (``functionals.UNPORTED``).
+package) and every functional of the JAX package: ``reduce_sum``,
+``map_rect``, ``integrate_1d``, the ODE solvers with their adjoint, the
+DAE solvers and the algebraic solvers (``functionals.py``).  A log
+density that calls an ODE, DAE or algebraic solver loops until the data
+say stop, so the step runner calls it eagerly around K2 (the model's
+``eager_logp``).  Unsupported constructs raise ``StanCompileError`` at
+compile time with a source location.
 
 API parity: ``compile_stan_model(code=..., filename=...)`` and
 ``CompiledStanModel.with_data(...)`` mirror the reference

@@ -12,7 +12,7 @@ from torch.func import vmap
 from ...model import CompiledModel, ModelDef, make_model
 from . import xp
 from .errors import StanRuntimeError
-from .functionals import refuse_unported
+from .functionals import solver_calls
 from .interpreter import StanInterpreter
 from .parser import parse
 
@@ -50,8 +50,10 @@ class CompiledStanModel(CompiledModel):
     attach trace metadata.  Instead of holding a dlopened C++ library the
     model holds the parsed AST; binding data resolves shapes and constraint
     transforms and yields batched torch logp/expand functions.  A program
-    that calls a functional not yet ported is refused here, when it is
-    compiled (``functionals.refuse_unported``).
+    whose log density calls a solver that loops until the data say stop
+    (an ODE, DAE or algebraic solver: ``functionals.solver_calls``) gets a
+    model marked ``eager_logp``, which the step runner calls eagerly
+    around K2 instead of capturing it in a CUDA graph.
     """
 
     code: str = ""
@@ -65,9 +67,7 @@ class CompiledStanModel(CompiledModel):
     def __post_init__(self):
         object.__setattr__(self, "coords", dict(self._coords))
         object.__setattr__(self, "dims", dict(self._dims))
-        program = parse(self.code)
-        refuse_unported(program)
-        object.__setattr__(self, "_program", program)
+        object.__setattr__(self, "_program", parse(self.code))
 
     def with_data(self, *, seed=None, **data: Any) -> "CompiledStanModel":
         return dataclasses.replace(
@@ -126,6 +126,7 @@ class CompiledStanModel(CompiledModel):
             expanded_vars=expanded_vars,
             param_vars=interp.param_variables(),
             coords=self._coords,
+            eager_logp=bool(solver_calls(self._program)),
         )
         object.__setattr__(self, "_model_def_cache", model)
         return model
@@ -156,7 +157,7 @@ def compile_stan_model(
         code = Path(filename).read_text()
     if model_name is None:
         model_name = Path(filename).stem if filename else "model"
-    # parses eagerly, so syntax errors and unported functionals surface here
+    # parses eagerly, so syntax errors surface here
     return CompiledStanModel(
         code=code,
         _dims=dict(dims or {}),

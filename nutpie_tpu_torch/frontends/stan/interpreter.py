@@ -503,6 +503,7 @@ class StanInterpreter:
         self.exec_stmts(program.transformed_data, env, ctx)
         env = {k: _to_host(v) for k, v in env.items()}
         self.base_env = env
+        stan_functionals.check_dae_grids(self)
 
         # ---- parameter layout
         self.params: list[dict] = []
@@ -1491,8 +1492,6 @@ class StanInterpreter:
         name = node.name
         if name == "target":
             return ctx.target
-        if name in stan_functionals.UNPORTED:
-            stan_functionals.refuse_unported(node)
         if name in stan_functionals.FUNCTIONAL_NAMES:
             return stan_functionals.eval_functional(self, name, node, env,
                                                     ctx)

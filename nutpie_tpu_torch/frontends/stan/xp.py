@@ -65,6 +65,12 @@ def fdtype() -> torch.dtype:
     return _EV.dtype
 
 
+def current() -> tuple:
+    """``(dtype, device, cache)`` of the running evaluation, to re-enter it
+    later (a solver's backward runs after the evaluation has ended)."""
+    return _EV.dtype, _EV.device, _EV.cache
+
+
 def _upload(arr: np.ndarray, dtype) -> torch.Tensor:
     cache = _EV.cache
     if cache is None:

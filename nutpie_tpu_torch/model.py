@@ -58,6 +58,11 @@ class ModelDef:
         gradient (a model with an analytic gradient installs it here).
     kernel_model:
         Device-side log density for the CUDA chunk kernel, or None.
+    eager_logp:
+        The log density reads the device to decide when to stop (a Stan
+        program's ODE, DAE or algebraic solver), so no CUDA graph can hold
+        it: the step runner calls it eagerly around K2 on the card, and
+        the runners that capture it (MCLMC, flow adaptation) refuse it.
     """
 
     ndim: int
@@ -72,6 +77,7 @@ class ModelDef:
     reparameterized_names: tuple[str, ...] = ()
     logp_grad_fn: Optional[Callable] = None
     kernel_model: Optional[Any] = None
+    eager_logp: bool = False
 
     def __post_init__(self):
         if not self.param_variables:
@@ -221,6 +227,7 @@ def make_model(
     reparameterized_names: Sequence[str] = (),
     logp_grad_fn: Optional[Callable] = None,
     kernel_model: Optional[Any] = None,
+    eager_logp: bool = False,
 ) -> ModelDef:
     """Convenience constructor resolving variable metadata."""
     dim_sizes: dict[str, int] = {}
@@ -254,4 +261,5 @@ def make_model(
         reparameterized_names=tuple(reparameterized_names),
         logp_grad_fn=logp_grad_fn,
         kernel_model=kernel_model,
+        eager_logp=eager_logp,
     )

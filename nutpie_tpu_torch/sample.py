@@ -51,6 +51,7 @@ from .progress import ChainProgress, make_progress_handlers
 from .sampler import megakernel, step_kernel
 from .sampler.adapt import AdaptConfig, make_schedule
 from .sampler.megakernel import make_megakernel_chunk_runner
+from .sampler.run import eager_unsupported
 from .sampler.mclmc import (
     MCLMC_SCALAR_SLOTS,
     MclmcConfig,
@@ -433,7 +434,13 @@ def route(cfg, model: ModelDef) -> str:
     kernel runs (``step_kernel.unsupported``: each of its refusals holds
     for whichever kernel the configuration would take).  Flow adaptation
     takes ``"step"`` (K2 around the pulled-back log density) or, under
-    MCLMC, ``"mclmc"``."""
+    MCLMC, ``"mclmc"``.  A model whose log density runs eagerly
+    (``ModelDef.eager_logp``) takes ``"step"`` under NUTS without flow;
+    MCLMC and flow adaptation capture it, and refuse it
+    (``eager_unsupported``)."""
+    why = eager_unsupported(cfg, model)
+    if why is not None:
+        raise NotImplementedError(why)
     if isinstance(cfg, MclmcConfig):
         return "mclmc"
     why = step_kernel.unsupported(cfg)
@@ -495,6 +502,8 @@ class _BackgroundSampler:
         )
         # the zarr writer in use ("native" or "threads" for a local store)
         self.zarr_writer: Optional[str] = None
+        # host seconds the chains' initialization took (None until it ends)
+        self.init_s: Optional[float] = None
         self._transfer: Optional[ChunkTransfer] = None
 
         # control state
@@ -544,10 +553,12 @@ class _BackgroundSampler:
         n_chains, dtype, device = self._n_chains, self._dtype, self._device
         mclmc = self.route == "mclmc"
         init = init_mclmc_chains if mclmc else init_chains
+        t0 = time.perf_counter()
         states, ok = init(
             model, cfg, self._seed, n_chains, self._init_mean, dtype, device=device,
             num_try_init=settings.num_try_init,
         )
+        self.init_s = time.perf_counter() - t0
         if not bool(ok.all()):
             bad = int((~ok).sum())
             raise RuntimeError(

@@ -564,6 +564,11 @@ class MclmcChunkRunner:
 
     def __init__(self, model: ModelDef, cfg: MclmcConfig, chunk_len: int, dtype,
                  plain: bool = False):
+        from .run import eager_unsupported
+
+        why = eager_unsupported(cfg, model)
+        if why is not None:
+            raise NotImplementedError(why)
         self.model = model
         self.cfg = cfg
         self.chunk_len = chunk_len

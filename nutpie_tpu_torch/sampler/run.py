@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import math
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -87,7 +88,9 @@ def find_initial_step(cfg: NutsConfig, logp_and_grad, state: NutsMachineState,
 
     Doubles/halves the step size until the worst energy error of a
     4-leapfrog probe crosses ``log(target_accept)``, backs off a factor 4
-    and starts dual averaging there.
+    and starts dual averaging there.  Each chain's result is the JAX
+    function's under ``jax.vmap``; the probes of chains whose outcome is
+    already decided evaluate at their start instead (``accept_prob``).
     """
     dtype = state.vecs.dtype
     key = threefry.fold_in_data(state.key, 6)
@@ -104,16 +107,24 @@ def find_initial_step(cfg: NutsConfig, logp_and_grad, state: NutsMachineState,
         p0 = metric_momentum(cfg, state, gauss)
         h0 = -state.logp + 0.5 * torch.sum(p0 * metric_velocity(cfg, state, p0), dim=1)
 
-    def accept_prob(log_eps, n_steps: int = 4):
+    def accept_prob(log_eps, live, settled, n_steps: int = 4):
+        # the worst energy error of each chain's probe.  A chain that is not
+        # ``live``, or whose probe is ``settled`` (its outcome decided by
+        # the worst error so far), evaluates the log density at its start
+        # instead of moving on: its result is not read, and each chain's
+        # row is its own, so the live chains' bits are the same, while a
+        # chain that has reached a costly region (an ODE solve at its step
+        # cap) no longer holds the fleet there
         eps = torch.exp(log_eps)[:, None]
         z, p, g = state.position, p0, state.gradient
         worst = torch.zeros_like(log_eps)
         ke = torch.zeros_like(log_eps)
         for _ in range(n_steps):
+            live = live & ~settled(worst)
             if cfg.micro:
                 u_half, dke1 = update_velocity(p, -apply_At(*metric, g), 0.5 * eps[:, 0], dim)
                 z = z + eps * apply_A(*metric, u_half)
-                logp_new, g = logp_and_grad(z)
+                logp_new, g = logp_and_grad(torch.where(live[:, None], z, state.position))
                 g = g.to(dtype)
                 p, dke2 = update_velocity(u_half, -apply_At(*metric, g), 0.5 * eps[:, 0], dim)
                 ke = ke + dke1 + dke2
@@ -121,26 +132,31 @@ def find_initial_step(cfg: NutsConfig, logp_and_grad, state: NutsMachineState,
             else:
                 p_half = p + 0.5 * eps * g
                 z = z + eps * metric_velocity(cfg, state, p_half)
-                logp_new, g = logp_and_grad(z)
+                logp_new, g = logp_and_grad(torch.where(live[:, None], z, state.position))
                 g = g.to(dtype)
                 p = p_half + 0.5 * eps * g
                 h = -logp_new.to(dtype) + 0.5 * torch.sum(
                     p * metric_velocity(cfg, state, p), dim=1)
             a = h0 - h
             a = torch.where(torch.isfinite(a), a, torch.full_like(a, -math.inf))
-            worst = torch.minimum(worst, a)
+            worst = torch.where(live, torch.minimum(worst, a), worst)
         return worst
 
     log_target = math.log(cfg.adapt.target_accept)
     log_eps = state.adapt_flt("log_step")
-    a0 = accept_prob(log_eps)
+    # the first probe sets the direction and whether the search runs at
+    # all (a non-finite probe stops it): settled once the worst is -inf
+    a0 = accept_prob(log_eps, torch.ones_like(log_eps, dtype=torch.bool),
+                     lambda worst: worst == -math.inf)
     direction = torch.where(a0 > log_target, 1.0, -1.0).to(dtype)
     keep_going = a0 > -math.inf
     for _ in range(max_iters):
         if not bool(keep_going.any()):
             break
         log_eps_new = log_eps + direction * math.log(2.0)
-        a = accept_prob(log_eps_new)
+        # a later probe decides only whether it crosses log_target, which
+        # the worst so far settles once it is at or below it
+        a = accept_prob(log_eps_new, keep_going, lambda worst: worst <= log_target)
         crossed = torch.where(direction > 0, a <= log_target, a > log_target)
         log_eps_out = torch.where(crossed & (direction > 0), log_eps, log_eps_new)
         log_eps = torch.where(keep_going, log_eps_out, log_eps)
@@ -388,6 +404,27 @@ def pool_chunk_start(states: NutsMachineState, pool_mass_matrix: bool,
     return states.replace(adapt_vecs=adapt_vecs, adapt_flts=adapt_flts)
 
 
+# the ROADMAP item that ports the eager forms of the captured runners
+EAGER_ITEM = "Solver-bearing Stan models under MCLMC and flow"
+
+
+def eager_unsupported(cfg, model: ModelDef) -> Optional[str]:
+    """Why no runner takes this eager log density under ``cfg``, or None:
+    MCLMC's draw and flow's Adam step are captured in CUDA graphs, which a
+    log density that reads the device to stop (``ModelDef.eager_logp``)
+    cannot join."""
+    if not model.eager_logp:
+        return None
+    if getattr(cfg, "flow", None) is not None:
+        what = "flow adaptation"
+    elif not isinstance(cfg, NutsConfig):
+        what = "MCLMC"
+    else:
+        return None
+    return (f"{what} does not take a log density that runs eagerly (a Stan program's "
+            f"ODE, DAE or algebraic solver) yet: ROADMAP queue 1, \"{EAGER_ITEM}\"")
+
+
 class StepChunkRunner:
     """``run_chunk(states, chunk_start, limit, sched) -> (states, bufs)``.
 
@@ -408,15 +445,22 @@ class StepChunkRunner:
     CUDA graph (``StepGraph``; the run's graphs share one memory pool) and
     replayed until every chain is done.  The capture is the card's path:
     a log density that cannot be captured (one that syncs with the host,
-    or copies host data to the device after its first call) raises.
-    ``plain=True`` runs the kernel's plain version, step by step, on any
-    device (the comparisons on the card use it).
+    or copies host data to the device after its first call) raises.  A
+    model marked ``eager_logp`` (its log density decides on the device
+    when to stop, as a Stan program's ODE solver does) takes the eager
+    route instead, decided before anything runs: the same K2 launches,
+    with the log density called between them.  ``plain=True`` runs the
+    kernel's plain version, step by step, on any device (the comparisons
+    on the card use it).
     """
 
     def __init__(self, model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
                  pool_mass_matrix: bool = False, unroll=None,
                  adapt_frozen: bool = False, pool_step_size: bool = False,
                  plain: bool = False):
+        why = eager_unsupported(cfg, model)
+        if why is not None:
+            raise NotImplementedError(why)
         self.model = model
         self.cfg = cfg
         self.chunk_len = chunk_len
@@ -449,7 +493,7 @@ class StepChunkRunner:
         steps = PlainSteps(*args) if self.plain else step_kernel.chunk(*args)
         unroll = self.unroll or (CUDA_UNROLL if states.vecs.is_cuda else 1)
         z_new, carry = steps.begin(states)
-        if isinstance(steps, KernelSteps):
+        if isinstance(steps, KernelSteps) and not self.model.eager_logp:
             graph = self._capture(steps, states, z_new, unroll, logp_and_grad)
             while True:
                 graph.replay()

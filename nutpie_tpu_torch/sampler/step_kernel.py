@@ -77,7 +77,7 @@ from typing import Optional
 
 import torch
 
-from ..ops import build
+from ..ops import build, graphs
 from .abi import MkConfig, dtype_suffix, raise_on, sampler_config, schedule_tensor
 from .adapt import Schedule
 from .nuts import (
@@ -503,9 +503,9 @@ class StepGraph:
     """Machine steps of one chunk captured once in a CUDA graph and replayed.
 
     ``capture(fn)`` runs ``fn`` (log densities and ``advance`` launches on
-    one chunk's ``KernelSteps``) under capture on a side stream, into the
-    memory pool ``pool`` (one the caller's earlier graphs used, or a new
-    one); ``replay()`` runs it on the current stream and adds its step
+    one chunk's ``KernelSteps``) under capture (``ops.graphs.capture``),
+    into the memory pool ``pool`` (one the caller's earlier graphs used, or
+    a new one); ``replay()`` runs it on the current stream and adds its step
     kernel launches to ``launches``.  The work is queued, not run, by the
     capture.
     """
@@ -517,18 +517,8 @@ class StepGraph:
         self.launches = 0
 
     def capture(self, fn, pool=None) -> None:
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
         before = self.owner.captured
-        with torch.cuda.device(self.device), torch.cuda.stream(side):
-            # thread-local: CUDA work of another thread (the caller of a
-            # non-blocking sample()) neither breaks nor joins the capture
-            self.graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            try:
-                fn()
-            finally:
-                self.graph.capture_end()
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        graphs.capture(fn, self.device, self.graph, pool)
         self.launches = self.owner.captured - before
 
     def replay(self) -> None:

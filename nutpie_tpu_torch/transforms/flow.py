@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import threefry
+from ..ops import graphs, threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -440,7 +440,8 @@ def train_flow(cfg: FlowConfig, params: FlowParams, xs, gs, valid):
         _adam_step(cfg, params, st, xs, gs, valid)
     rest = cfg.train_steps - 1
     if rest > 0 and xs.is_cuda:
-        graph = _capture(lambda: _adam_step(cfg, params, st, xs, gs, valid), xs.device)
+        graph, _ = graphs.capture(lambda: _adam_step(cfg, params, st, xs, gs, valid),
+                                  xs.device)
         for _ in range(rest):
             graph.replay()
     else:
@@ -453,24 +454,6 @@ def train_flow(cfg: FlowConfig, params: FlowParams, xs, gs, valid):
     best_p = [torch.where(_per_chain(better, a), a, b) for a, b in zip(p, st.best_p)]
     best_l = torch.where(better, l_fin, st.best_l)
     return params._replace(**dict(zip(TRAINED, best_p))), best_l, best_l < loss0
-
-
-def _capture(fn, device) -> "torch.cuda.CUDAGraph":
-    """``fn`` captured in a CUDA graph on a side stream (its work queued,
-    not run); the caller replays it on the current stream."""
-    graph = torch.cuda.CUDAGraph()
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.device(device), torch.cuda.stream(side):
-        # thread-local: another thread's CUDA work neither breaks nor joins it
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            fn()
-        finally:
-            graph.capture_end()
-    current.wait_stream(side)
-    return graph
 
 
 def median(x: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,13 @@ on the host).  For each, the logp and gradient on the card equal the
 CPU's to rounding (rtol 1e-12 / 1e-10), and one frozen chunk through K2,
 its machine steps replayed from the runner's CUDA graphs with the Stan
 log density captured in them, equals K2's plain version: ints exact,
-floats to rtol 1e-6 / atol 1e-8.  vmap's per-example fallback warning is
-an error here.
+floats to rtol 1e-6 / atol 1e-8.  The Lotka-Volterra case study takes
+the eager route (its ODE solve reads the device to stop): its logp and
+gradient equal the CPU's, and K2 around it is bitwise its plain version.
+vmap's per-example fallback warning is an error here.
 """
+
+import inspect
 
 import numpy as np
 import pytest
@@ -81,3 +85,60 @@ def test_stan_radon_on_the_card(n_chains):
 @pytest.mark.parametrize("n_chains", [4, 37])
 def test_data_if_in_a_loop_on_the_card(n_chains):
     _check(_censored(), n_chains, 12)
+
+
+def test_lotka_volterra_on_the_eager_route():
+    """The Lotka-Volterra case study (its ODE solve loops until the data
+    say stop): logp and gradient on the card equal the CPU's (1e-12), and
+    a frozen 1-draw chunk through K2 around the eagerly called log density
+    (no graph replay) is bitwise its plain version."""
+    from torch_stan_programs import LOTKA_VOLTERRA, LV_THETA, LV_Z_INIT, lotka_volterra_data
+
+    model = nt.compile_stan_model(LOTKA_VOLTERRA).with_data(**lotka_volterra_data())._make_model(0)
+    assert model.eager_logp
+    center = np.log(np.array(LV_THETA + LV_Z_INIT + (0.25, 0.25)))
+    x = center + np.random.default_rng(13).uniform(-0.25, 0.25, size=(8, model.ndim))
+    lk, gk = model.logp_and_grad(torch.as_tensor(x, device="cuda"))
+    lc, gc = model.logp_and_grad(torch.as_tensor(x))
+    assert _rel(lk, lc) < 1e-12 and _rel(gk, gc) < 1e-12
+
+    cfg = NutsConfig(adapt=AdaptConfig(num_tune=100), maxdepth=3)
+    sched = make_schedule(cfg.adapt, 100, cfg.initial_depth_cap)
+    states, ok = init_chains(model, cfg, 13, 8, center, torch.float64, device="cuda",
+                             step_search=False)
+    assert bool(ok.all())
+    replays, launches = step_kernel.replays, step_kernel.launches
+    kernel = make_chunk_runner(model, cfg, 1, torch.float64, adapt_frozen=True)
+    plain = make_chunk_runner(model, cfg, 1, torch.float64, adapt_frozen=True, plain=True)
+    s_k, b_k = kernel(states, 0, 1, sched)
+    torch.cuda.synchronize()
+    assert step_kernel.replays == replays and step_kernel.launches > launches
+    s_p, b_p = plain(states, 0, 1, sched)
+    torch.cuda.synchronize()
+    assert torch.equal(s_k.ints, s_p.ints)
+    assert torch.equal(b_k.position, b_p.position)
+
+
+def test_lotka_volterra_solver_graphs_are_kept():
+    """The case study's Dormand-Prince graphs are kept across log density
+    calls at the same shapes (one set per call site, role and shapes, with
+    the model's data on the device): repeated calls, around one at another
+    chain count, give the bits of the first, and the second set of shapes
+    keeps graphs of its own."""
+    from torch_stan_programs import LOTKA_VOLTERRA, LV_THETA, LV_Z_INIT, lotka_volterra_data
+
+    model = nt.compile_stan_model(LOTKA_VOLTERRA).with_data(**lotka_volterra_data())._make_model(0)
+    center = np.log(np.array(LV_THETA + LV_Z_INIT + (0.25, 0.25)))
+    rng = np.random.default_rng(17)
+    x = torch.as_tensor(center + rng.uniform(-0.25, 0.25, size=(8, model.ndim)), device="cuda")
+    y = torch.as_tensor(center + rng.uniform(-0.25, 0.25, size=(5, model.ndim)), device="cuda")
+    first = model.logp_and_grad(x)
+    interp = inspect.getclosurevars(model.logp_fn).nonlocals["interp"]
+    cache = interp.device_cache(x.device, torch.float64)
+    kept = {k for k in cache if k[0] == "solver"}
+    assert {k[2] for k in kept} == {"forward", "backward", "measurement"}
+    for _ in range(2):
+        again = model.logp_and_grad(x)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+        model.logp_and_grad(y)
+    assert len({k for k in cache if k[0] == "solver"}) == 2 * len(kept)

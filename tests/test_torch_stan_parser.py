@@ -7,8 +7,8 @@ each string constant that opens a program block) parses to an AST whose
 message, line and column.  So do malformed programs.  Three constructs
 the compiler does not implement (``jacobian +=``, ``profile`` blocks and
 foreach loops) raise a ``StanCompileError`` at their location in the port
-(the JAX package misreads them: ROADMAP queue 3), and every functional
-that is not ported yet is refused by name when the program is compiled.
+(the JAX package misreads them: ROADMAP queue 3), and every looping
+functional compiles and evaluates as in the JAX package.
 """
 
 import ast
@@ -21,8 +21,8 @@ from nutpie_tpu.frontends.stan import errors as jerrors
 from nutpie_tpu.frontends.stan.parser import parse as jparse
 import nutpie_tpu_torch as nt
 from nutpie_tpu_torch.frontends.stan import StanCompileError
-from nutpie_tpu_torch.frontends.stan.functionals import UNPORTED, UNPORTED_ITEM
 from nutpie_tpu_torch.frontends.stan.parser import parse as tparse
+from torch_stan_programs import FUNCTIONAL_CASES
 
 pytestmark = pytest.mark.filterwarnings("error:There is a performance drop")
 
@@ -107,12 +107,25 @@ def test_language_gaps_raise_compile_errors(name):
     assert (err.value.line, err.value.col) == (line, col)
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_functional_is_refused_at_compile_time(name):
-    code = ("functions { real f(real x) { return x; } }\n"
-            "parameters { real x; }\n"
-            f"model {{\n  target += {name}(f, x);\n}}")
-    with pytest.raises(StanCompileError, match=re.escape(UNPORTED_ITEM)) as err:
-        nt.compile_stan_model(code)
-    assert name in str(err.value)
-    assert (err.value.line, err.value.col) == (4, 13)
+@pytest.mark.parametrize("name", sorted(FUNCTIONAL_CASES))
+def test_functional_compiles_and_evaluates_as_in_jax(name):
+    """Every functional the port once refused compiles, and its program's
+    log density at two seeded points is the JAX package's (float64, rtol
+    1e-9), with a finite gradient (``test_torch_stan_functionals.py``
+    holds the gradients to the JAX package's)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    import nutpie_tpu as nj
+
+    code, data = FUNCTIONAL_CASES[name]
+    assert f"{name}(" in code
+    jm = nj.compile_stan_model(code=code).with_data(**data())._make_model(0)
+    tm = nt.compile_stan_model(code).with_data(**data())._make_model(0)
+    x = np.random.default_rng(5).normal(size=(2, tm.ndim)) * 0.3
+    lt, gt = tm.logp_and_grad(torch.as_tensor(x))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(jax.vmap(jm.logp_fn)(jnp.asarray(x))),
+                               rtol=1e-9, atol=1e-12)
+    assert torch.isfinite(gt).all()
