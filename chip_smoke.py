@@ -106,6 +106,17 @@ from a CUDA graph) at the logistic GLM's width from ``bench_glm.py``
    approximation of the same data and within ``IMPORTANCE_SD_TOL`` of
    the posterior mean by importance sampling from that approximation.  Prints wall, gradients/s, min bulk-ESS, ESS/s, min-ESS per
    gradient, posterior divergences and the host wall per machine step.
+8b. ``distributed``: the main paths through ``nutpie_tpu_torch.parallel``
+   in a one-rank NCCL group (``initialize_distributed`` with a
+   ``tcp://127.0.0.1`` store on ``cuda:0``; the card host has one card):
+   radon through K1 at the main phase's settings (2048 chains, seed 42,
+   pooled, chunk 128, float32), 300 + ``DIST_DRAWS`` draws, its raw trace
+   bitwise the main phase's first draws and its fleet depth cap the main
+   phase's; the GLM through K2 (10,240 chains x (``DIST_GLM_TUNE`` +
+   ``DIST_GLM_DRAWS``) in chunks of ``DIST_GLM_CHUNK``, pooled), bitwise
+   the same run made before the group existed.  Prints the backend, world size, NCCL's version, the
+   collectives' calls, bytes and seconds (CUDA events) a chunk boundary,
+   and the phase's seconds; the group is destroyed at its end.
 9. ``step_timing``: one frozen 32-draw chunk at the GLM main shapes, step
    by step, launched one by one: K2's ``advance`` and the logp+grad call
    by CUDA events around each call (and by device time under
@@ -513,6 +524,15 @@ EARLY_END = 90
 # the GLM path (bench_glm.py:17-22; its 700 draws cut to 300) and its
 # monitored columns (bench_glm.py:68)
 GLM_CHAINS, GLM_TUNE, GLM_DRAWS, GLM_CHUNK = 10240, 300, 300, 32
+# the distributed phase: radon's posterior draws (the main phase's first
+# TUNE + DIST_DRAWS), and the GLM's draws, each run twice.  The GLM's run
+# took 9.8 s at 32 + 32 in chunks of 32 (the phase 24.4 s of its 20) and
+# 6.3 s at 8 + 8 in chunks of 8 (the phase 19.5 s): the first warmup
+# draws' trees are the deepest.  4 + 4 in chunks of 4 keeps two
+# boundaries, the fleet depth cap measured on the first chunk and a
+# frozen posterior chunk
+DIST_DRAWS = 128
+DIST_GLM_TUNE, DIST_GLM_DRAWS, DIST_GLM_CHUNK = 4, 4, 4
 GLM_N_DATA, GLM_DIM = 2048, 64
 GLM_MONITORED = list(range(0, GLM_DIM, max(1, GLM_DIM // 24)))
 # the GLM profile's cut of tune and draws (the trace of every launch of the
@@ -1111,9 +1131,10 @@ def phase_main(ctx):
     torch.cuda.synchronize()
     chunk_kernel.launches = 0
     t0 = time.perf_counter()
-    raw = nt.sample(compiled, progress_bar=False, chains=CHAINS, tune=TUNE, draws=DRAWS, seed=42,
-                    pool_mass_matrix=True, pool_step_size=True, device="cuda",
-                    return_raw_trace=True)
+    handle = nt.sample(compiled, progress_bar=False, chains=CHAINS, tune=TUNE, draws=DRAWS,
+                       seed=42, pool_mass_matrix=True, pool_step_size=True, device="cuda",
+                       return_raw_trace=True, blocking=False)
+    raw = handle.wait()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = chunk_kernel.launches
@@ -1142,6 +1163,7 @@ def phase_main(ctx):
     eps = raw["stats"]["step_size"][:, TUNE:]
     ctx["main_readings"] = dict(readings, step_size=float(np.median(eps)))
     ctx["main_raw"] = raw  # the control phase holds its runs to it bitwise
+    ctx["main_depth_cap"] = handle.depth_cap  # frozen after the chunk ending at 256
     emit({
         "phase": "main", "chains": CHAINS, "tune": TUNE, "draws": DRAWS,
         "chunk_len": chunk_len, "chunks": n_chunks, "kernel_launches": launches,
@@ -5528,6 +5550,104 @@ def phase_stan_ode(ctx):
     assert not failed, failed
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _collectives_reading(collectives, n_chunks: int) -> dict:
+    """The mesh's collectives over a run of ``n_chunks`` chunks: calls,
+    bytes and seconds (CUDA events) a chunk boundary."""
+    return {"calls_per_boundary": collectives.calls / n_chunks,
+            "bytes_gathered_per_boundary": collectives.bytes / n_chunks,
+            "collective_s_per_boundary": collectives.seconds() / n_chunks}
+
+
+def phase_distributed(ctx):
+    """The main paths through a one-rank NCCL group (``nutpie_tpu_torch.
+    parallel``): radon through K1 at the main phase's settings, cut to
+    ``DIST_DRAWS`` posterior draws, bitwise the main phase's first draws;
+    the GLM through K2, pooled, bitwise the same run without the group."""
+    import torch
+    import torch.distributed as dist
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.pyfunc import compile_model_def
+    from nutpie_tpu_torch.parallel import collectives, initialize_distributed
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    t_phase = time.perf_counter()
+    glm = compile_model_def(_glm_model())
+    glm_kw = dict(chains=GLM_CHAINS, tune=DIST_GLM_TUNE, draws=DIST_GLM_DRAWS, seed=42,
+                  chunk_size=DIST_GLM_CHUNK, precision="float32", pool_mass_matrix=True,
+                  pool_step_size=True, device="cuda", progress_bar=False,
+                  return_raw_trace=True)
+    # without the group first: inside it, sample() takes the group up
+    assert not dist.is_initialized()
+    glm_alone = nt.sample(glm, **glm_kw)
+    t0 = time.perf_counter()
+    mesh = initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, timeout=300.0)
+    init_s = time.perf_counter() - t0
+    try:
+        assert mesh.size == 1 and mesh.group is not None and mesh.device.type == "cuda"
+        backend = dist.get_backend()
+        assert backend == "nccl", backend
+
+        n_draws = TUNE + DIST_DRAWS
+        n_chunks = math.ceil(n_draws / CHUNK)
+        collectives.reset(timing=True)
+        _zero_counts(step_kernel, chunk_kernel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = nt.sample(compile_model_def(nt.models.radon()), progress_bar=False,
+                           chains=CHAINS, tune=TUNE, draws=DIST_DRAWS, seed=42,
+                           pool_mass_matrix=True, pool_step_size=True, device="cuda",
+                           return_raw_trace=True, blocking=False)
+        raw = handle.wait()
+        torch.cuda.synchronize()
+        radon = {"wall_s": time.perf_counter() - t0, "chunks": n_chunks,
+                 "k1_launches": chunk_kernel.launches, "k2_launches": step_kernel.launches,
+                 "depth_cap": handle.depth_cap, **_collectives_reading(collectives, n_chunks)}
+        assert radon["k1_launches"] == n_chunks and radon["k2_launches"] == 0, radon
+        bad = _raw_diff(raw, ctx["main_raw"])
+        assert not bad, f"radon in the group differs from the main phase in {bad}"
+        assert handle.depth_cap == ctx["main_depth_cap"], \
+            f"depth cap {handle.depth_cap} against the main phase's {ctx['main_depth_cap']}"
+
+        n_chunks = math.ceil((DIST_GLM_TUNE + DIST_GLM_DRAWS) / DIST_GLM_CHUNK)
+        collectives.reset(timing=True)
+        _zero_counts(step_kernel, chunk_kernel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        glm_group = nt.sample(glm, **glm_kw)
+        torch.cuda.synchronize()
+        glm_reading = {"wall_s": time.perf_counter() - t0, "chunks": n_chunks,
+                       "k1_launches": chunk_kernel.launches,
+                       "k2_launches": step_kernel.launches,
+                       **_collectives_reading(collectives, n_chunks)}
+        assert glm_reading["k1_launches"] == 0 and glm_reading["k2_launches"] > 0, glm_reading
+        bad = _raw_diff(glm_group, glm_alone)
+        assert not bad, f"the GLM in the group differs from its run alone in {bad}"
+    finally:
+        collectives.reset()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit({"distributed": {
+        "backend": backend, "world_size": mesh.size, "nccl_version": torch.cuda.nccl.version(),
+        "group_init_s": init_s,
+        "radon": {"shapes": f"{CHAINS} chains x ({TUNE} + {DIST_DRAWS}), chunk {CHUNK}, "
+                            "pooled, float32, through K1", "bitwise_vs_main": True, **radon},
+        "glm": {"shapes": f"{GLM_CHAINS} chains x ({DIST_GLM_TUNE} + {DIST_GLM_DRAWS}), "
+                          f"chunk {DIST_GLM_CHUNK}, pooled, float32, through K2",
+                "bitwise_vs_no_group": True, **glm_reading},
+        "seconds": time.perf_counter() - t_phase, "card": ctx["card"],
+    }})
+
+
 # K1's phases first, while K2's and K3's libraries compile
 PHASES = {
     "build": phase_build,
@@ -5536,6 +5656,7 @@ PHASES = {
     "warmup": phase_warmup,
     "timing": phase_timing,
     "build_steps": phase_build_steps,
+    "distributed": phase_distributed,
     "step_parity": phase_step_parity,
     "lowrank_parity": phase_lowrank_parity,
     "glm": phase_glm,
@@ -5559,7 +5680,8 @@ PHASES = {
 NEEDS = {"timing": ("warmup",), "micro": ("step_parity",),
          "step_timing": ("step_parity", "lowrank_parity", "micro"),
          "options_parity": ("warmup", "step_parity"), "options": ("main", "options_parity", "warmup", "step_parity"),
-         "control": ("main", "glm"), "flow": ("flow_parity",), "stan": ("main", "warmup")}
+         "control": ("main", "glm"), "flow": ("flow_parity",), "stan": ("main", "warmup"),
+         "distributed": ("main",)}
 
 
 def main() -> int:

@@ -18,16 +18,22 @@ package's checkpoint (``nutpie_tpu/checkpoint.py``) leaves it out and
 restarts from the static initial cap, so there a resumed fleet of 64
 chains or more runs its trees under another cap.  The format is this
 package's own.
+
+Inside a process group (``parallel/mesh.py``) rank 0 writes the whole
+fleet's state, gathered from every rank, in the same format as one
+process; on resume every rank reads the file and takes its own chains.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
+from .parallel.mesh import ChainMesh, gather_to_root, local_rows
 from .sampler.mclmc import MclmcState
 from .sampler.state import NutsMachineState
 
@@ -35,11 +41,16 @@ _FORMAT_VERSION = 1
 _MANIFEST = "__manifest__"
 
 
-def save_state(path, states, draws_done: int, depth_cap, meta: dict) -> None:
+def save_state(path, states, draws_done: int, depth_cap, meta: dict,
+               mesh: Optional[ChainMesh] = None) -> None:
     """Snapshot ``states`` (a ``NutsMachineState`` or an ``MclmcState``, and
     the schedule's ``depth_cap``, an int, a 0-d tensor or None) to
-    ``path``, written to a temporary name and renamed."""
-    arrays = {name: t.detach().cpu().numpy() for name, t in states.tensors().items()}
+    ``path``, written to a temporary name and renamed.  Under a ``mesh``
+    every rank calls it and rank 0 writes the gathered fleet."""
+    tensors = gather_to_root(states.tensors(), mesh)
+    if tensors is None:
+        return
+    arrays = {name: t.detach().cpu().numpy() for name, t in tensors.items()}
     manifest = {
         "format_version": _FORMAT_VERSION,
         "draws_done": int(draws_done),
@@ -56,9 +67,10 @@ def save_state(path, states, draws_done: int, depth_cap, meta: dict) -> None:
     tmp.replace(path)
 
 
-def load_state(path, template):
+def load_state(path, template, mesh: Optional[ChainMesh] = None):
     """Restore a snapshot into the fields, dtypes and device of
-    ``template`` (a freshly initialized state with the same settings).
+    ``template`` (a freshly initialized state with the same settings; under
+    a ``mesh``, this rank's chains of the saved fleet).
 
     Shapes and the state's class must match, which refuses a resume with
     another model, chain count, sampler or configuration.  Returns ``(states, draws_done, depth_cap,
@@ -80,6 +92,7 @@ def load_state(path, template):
         restored = {}
         for name, tmpl in fields.items():
             arr = data[name]
+            arr = arr[local_rows(mesh, arr.shape[0])]
             if arr.shape != tuple(tmpl.shape):
                 raise ValueError(
                     f"checkpoint field {name} has shape {arr.shape}, expected "

@@ -28,6 +28,15 @@ from a CUDA graph on the card; anything else raises
 ``device=None`` means CUDA, where the kernels run, and ``device="cpu"``
 runs their plain versions.  ``precision="auto"`` is float32 on CUDA and
 float64 on the CPU.
+
+Inside an initialized process group (``parallel.initialize_distributed``)
+every rank calls ``sample()`` with the same arguments and runs its slice
+of the fleet on its own device; the chunk-boundary operations gather
+across ranks (``parallel/mesh.py``), so the draws are bit for bit those of
+one process sampling the whole fleet.  Each chunk's buffers are gathered
+to rank 0 on the device, where the trace, progress, Zarr storage and
+checkpoints run over the whole fleet; rank 0 decides pause and abort and
+broadcasts its decision at every chunk boundary.
 """
 
 from __future__ import annotations
@@ -47,6 +56,13 @@ from . import __version__ as _version
 from .checkpoint import load_state, save_state
 from .model import CompiledModel, ModelDef
 from .ops import threefry
+from .parallel.mesh import (
+    ChainMesh,
+    broadcast_flag,
+    chain_mesh,
+    gather_chains,
+    gather_to_root,
+)
 from .progress import ChainProgress, make_progress_handlers
 from .sampler import megakernel, step_kernel
 from .sampler.adapt import AdaptConfig, make_schedule
@@ -249,6 +265,15 @@ def chunk_length(settings, n_chains: int, dim: int, itemsize: int) -> int:
     return min(default_chunk_size(settings, n_chains, dim, itemsize), max(total, 1))
 
 
+def run_mesh(device, n_chains: int) -> Optional[ChainMesh]:
+    """The mesh of the initialized process group for a fleet of
+    ``n_chains`` (``ChainMesh.for_chains``; a device given must be the
+    group's), or None outside a group."""
+    if not (torch.distributed.is_available() and torch.distributed.is_initialized()):
+        return None
+    return chain_mesh(device).for_chains(n_chains)
+
+
 def resolve_device(device) -> torch.device:
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -421,6 +446,12 @@ class ChunkTransfer:
         return {k: v.numpy() for k, v in host.items()}
 
 
+# the chains' counters and step sizes the progress snapshot reads
+_SNAPSHOT = ("draw_idx", "divergence_count", "total_steps", "eps")
+# the control state rank 0 broadcasts at a chunk boundary
+_GO, _PAUSED, _STOP = 0, 1, 2
+
+
 # the chunk runner of each route
 RUNNERS = {"megakernel": make_megakernel_chunk_runner, "step": make_chunk_runner,
            "mclmc": make_mclmc_chunk_runner}
@@ -461,6 +492,11 @@ class _BackgroundSampler:
     converts, stores, streams and reports chunk k.  Pause and abort act at
     chunk boundaries.  The thread runs under the run's device, on its
     default stream.
+
+    Inside a process group each rank runs its slice of the fleet, and rank
+    0 (``rank``) holds the whole fleet's trace, progress, Zarr sink and
+    checkpoint; the other ranks take no progress handler or store.  The
+    control methods act on rank 0 and raise on the others.
     """
 
     def __init__(self, compiled_model: CompiledModel, settings, init_mean,
@@ -484,7 +520,9 @@ class _BackgroundSampler:
         self._seed = int(settings.seed)
 
         # everything that can refuse the run does so here, before anything runs
-        self._device = resolve_device(device)
+        self._mesh = run_mesh(device, settings.num_chains)
+        self._device = resolve_device(device if self._mesh is None else self._mesh.device)
+        self.rank = 0 if self._mesh is None else self._mesh.rank
         self._cfg = config_from_settings(
             settings, getattr(compiled_model, "_transform_adapt_args", None), self._device)
         self._model: ModelDef = compiled_model._make_model(self._seed)
@@ -497,6 +535,8 @@ class _BackgroundSampler:
             np.zeros(self._model.ndim) if init_mean is None else init_mean)
         itemsize = torch.tensor([], dtype=self._dtype).element_size()
         self._chunk_len = chunk_length(settings, self._n_chains, self._model.ndim, itemsize)
+        if self.rank != 0:
+            progress_bar = progress_callback = self._zarr_store = None
         self._handlers = make_progress_handlers(
             progress_bar, progress_callback, progress_rate, progress_template, progress_style,
         )
@@ -505,6 +545,8 @@ class _BackgroundSampler:
         # host seconds the chains' initialization took (None until it ends)
         self.init_s: Optional[float] = None
         self._transfer: Optional[ChunkTransfer] = None
+        # the fleet depth cap the last chunk ran under (NUTS)
+        self._depth_cap = None
 
         # control state
         self._pause_evt = threading.Event()
@@ -551,13 +593,15 @@ class _BackgroundSampler:
     def _run_inner(self) -> None:
         model, cfg, settings = self._model, self._cfg, self._settings
         n_chains, dtype, device = self._n_chains, self._dtype, self._device
+        mesh = self._mesh
         mclmc = self.route == "mclmc"
         init = init_mclmc_chains if mclmc else init_chains
         t0 = time.perf_counter()
         states, ok = init(
             model, cfg, self._seed, n_chains, self._init_mean, dtype, device=device,
-            num_try_init=settings.num_try_init,
+            num_try_init=settings.num_try_init, mesh=mesh,
         )
+        ok = gather_chains(ok, mesh)  # every rank refuses the same fleet
         self.init_s = time.perf_counter() - t0
         if not bool(ok.all()):
             bad = int((~ok).sum())
@@ -571,7 +615,7 @@ class _BackgroundSampler:
             warm = post = make_runner(model, cfg, self._chunk_len, dtype)
         else:
             pool = dict(pool_step_size=settings.pool_step_size,
-                        pool_mass_matrix=settings.pool_mass_matrix)
+                        pool_mass_matrix=settings.pool_mass_matrix, mesh=mesh)
             warm = make_runner(model, cfg, self._chunk_len, dtype, adapt_frozen=False,
                                **pool)
             post = make_runner(model, cfg, self._chunk_len, dtype, adapt_frozen=True,
@@ -590,7 +634,7 @@ class _BackgroundSampler:
         start = 0
         ckpt_meta = {"seed": self._seed, "settings": settings.as_dict()}
         if self._resume_from is not None:
-            states, start, depth_cap, meta = load_state(self._resume_from, states)
+            states, start, depth_cap, meta = load_state(self._resume_from, states, mesh)
             if depth_cap is not None:
                 sched = sched._replace(depth_cap=depth_cap)
             self._resume_offset = start
@@ -614,32 +658,38 @@ class _BackgroundSampler:
 
         transfer = self._transfer = ChunkTransfer(device)
         chunk_idx = 0
+        stopped = False
         pending = None  # (start, limit, ticket) of the chunk in flight
-        while (start < self._total and not self._abort_evt.is_set()) or pending is not None:
+        while (start < self._total and not stopped) or pending is not None:
             launched = None
-            if start < self._total and not self._abort_evt.is_set():
-                if self._pause_evt.is_set():
+            if start < self._total and not stopped:
+                if self._pause_evt.is_set() and not self._abort_evt.is_set():
                     # park with the chunk in flight stored, so no draw lands
-                    # while paused
+                    # while paused; the other ranks wait at this boundary
                     if pending is not None:
                         self._finish_chunk(*pending, sink, sink_dims, sink_coords)
                         pending = None
                     self._parked_evt.set()
                     while self._pause_evt.is_set() and not self._abort_evt.is_set():
+                        self._signal(_PAUSED)
                         time.sleep(0.01)
-                if not self._abort_evt.is_set():
+                stopped = not self._signal(_STOP if self._abort_evt.is_set() else _GO)
+                if not stopped:
                     if (self._checkpoint_path is not None and chunk_idx > 0
                             and chunk_idx % self._checkpoint_every == 0):
                         # states holds exactly `start` draws
                         save_state(self._checkpoint_path, states, start,
-                                   None if mclmc else sched.depth_cap, ckpt_meta)
+                                   None if mclmc else sched.depth_cap, ckpt_meta, mesh)
                     limit = min(self._chunk_len, self._total - start)
                     run_chunk = warm if start < self._num_tune else post
                     states, bufs = run_chunk(states, start, limit, sched)
                     if capped and start + limit <= cap_until:
-                        sched = sched._replace(depth_cap=fleet_depth_cap(cfg, bufs, limit))
+                        sched = sched._replace(
+                            depth_cap=fleet_depth_cap(cfg, bufs, limit, mesh))
+                    self._depth_cap = None if mclmc else sched.depth_cap
+                    tensors = self._chunk_tensors(states, bufs, start)
                     launched = (start, limit,
-                                transfer.start(self._chunk_tensors(states, bufs, start)))
+                                None if tensors is None else transfer.start(tensors))
                     start += limit
                     chunk_idx += 1
             if pending is not None:
@@ -647,27 +697,49 @@ class _BackgroundSampler:
             pending = launched
         if self._checkpoint_path is not None and self._draws_done > 0:
             save_state(self._checkpoint_path, states, self._draws_done,
-                       None if mclmc else sched.depth_cap, ckpt_meta)
+                       None if mclmc else sched.depth_cap, ckpt_meta, mesh)
         if sink is not None:
             sink.finalize(self._draws_done)
 
-    def _chunk_tensors(self, states, bufs, chunk_start: int) -> dict:
+    def _signal(self, flag: int) -> bool:
+        """Rank 0's control state at a chunk boundary (``_GO``, ``_PAUSED``,
+        ``_STOP``), broadcast through the run's group; whether to launch the
+        next chunk.  Another rank waits here while rank 0 is paused."""
+        if self.rank == 0:
+            return broadcast_flag(flag, self._mesh) == _GO
+        while True:
+            flag = broadcast_flag(_GO, self._mesh)
+            if flag != _PAUSED:
+                return flag == _GO
+
+    def _chunk_tensors(self, states, bufs, chunk_start: int) -> Optional[dict]:
         """The device tensors of a launched chunk that the host reads, by
         ``group/name``: its buffers (the gradient only where the user asked
         for it; low-rank adaptation allocates it for its own update), its
         expansion and the progress snapshot (small copies of the chains'
-        counters and step sizes, taken after the chunk)."""
-        out = {f"bufs/{k}": v for k, v in bufs._asdict().items()
-               if v is not None and (k != "gradient" or self._settings.store_gradient)}
-        for k, v in expand_chunk(self._model, bufs.position, chunk_start,
+        counters and step sizes, taken after the chunk).  Inside a group the
+        buffers and the snapshot are the whole fleet's, gathered to rank 0,
+        which expands them; None on the other ranks."""
+        kept = {k: v for k, v in bufs._asdict().items()
+                if v is not None and (k != "gradient" or self._settings.store_gradient)}
+        snap = {k: getattr(states, k).clone() for k in _SNAPSHOT}
+        if self._mesh is not None:
+            kept, snap = gather_to_root(kept, self._mesh), gather_to_root(snap, self._mesh)
+            if self.rank != 0:
+                return None
+        out = {f"bufs/{k}": v for k, v in kept.items()}
+        for k, v in expand_chunk(self._model, kept["position"], chunk_start,
                                  self._seed).items():
             out[f"expanded/{k}"] = v
-        for k in ("draw_idx", "divergence_count", "total_steps", "eps"):
-            out[f"snap/{k}"] = getattr(states, k).clone()
+        out.update({f"snap/{k}": v for k, v in snap.items()})
         return out
 
     def _finish_chunk(self, p_start: int, p_limit: int, ticket, sink, sink_dims,
                       sink_coords) -> None:
+        if self.rank != 0:
+            with self._lock:
+                self._draws_done = p_start + p_limit
+            return
         host: dict = {"bufs": {}, "expanded": {}, "snap": {}}
         for key, arr in self._transfer.fetch(ticket).items():
             group, name = key.split("/", 1)
@@ -779,7 +851,8 @@ class _BackgroundSampler:
     # ---------------------------------------------------------------- control
 
     def wait(self, timeout: Optional[float] = None):
-        """Block until sampling finishes and return the trace.
+        """Block until sampling finishes and return the trace: the whole
+        fleet's on rank 0, and None on the other ranks of a process group.
 
         Raises ``TimeoutError`` if ``timeout`` (seconds) elapses first, and
         re-raises an error of the sampling thread.
@@ -790,10 +863,18 @@ class _BackgroundSampler:
         self._thread.join()
         if self._error is not None:
             raise self._error
+        if self.rank != 0:
+            return None
         return self._extract(self._collect())
+
+    def _on_root(self, what: str) -> None:
+        if self.rank != 0:
+            raise RuntimeError(f"{what}() acts on rank 0 of the process group, which "
+                               f"broadcasts it to every rank; this is rank {self.rank}")
 
     def pause(self):
         """Pause the sampler (at the next chunk boundary)."""
+        self._on_root("pause")
         self._pause_evt.set()
 
     def wait_paused(self, timeout: Optional[float] = None) -> bool:
@@ -804,11 +885,13 @@ class _BackgroundSampler:
 
     def resume(self):
         """Resume a paused sampler."""
+        self._on_root("resume")
         self._parked_evt.clear()
         self._pause_evt.clear()
 
     def abort(self):
         """Abort sampling and return the partial trace (None if no draws)."""
+        self._on_root("abort")
         self._abort_evt.set()
         self._pause_evt.clear()
         self._thread.join()
@@ -821,17 +904,34 @@ class _BackgroundSampler:
 
     def cancel(self):
         """Abort sampling and discard all draws."""
+        self._on_root("cancel")
         self._abort_evt.set()
         self._pause_evt.clear()
         self._thread.join()
 
     def inspect(self):
-        """Snapshot the current partial trace while sampling continues."""
+        """Snapshot the current partial trace while sampling continues
+        (None on the ranks other than 0)."""
+        if self.rank != 0:
+            return None
         return self._extract(self._collect())
 
     @property
     def is_finished(self) -> bool:
         return self._finished_evt.is_set()
+
+    @property
+    def draws_done(self) -> int:
+        """Draws of each chain finished so far (on rank 0, stored)."""
+        with self._lock:
+            return self._draws_done
+
+    @property
+    def depth_cap(self) -> Optional[int]:
+        """The fleet's tree-depth cap the last chunk ran under (None under
+        MCLMC, or before the first chunk)."""
+        cap = self._depth_cap
+        return None if cap is None else int(cap)
 
     @property
     def transfer(self) -> Optional[ChunkTransfer]:
@@ -889,7 +989,12 @@ def sample(
     chains' state every ``checkpoint_every`` chunks and at the end, and
     ``resume_from`` continues from such a file.  Extra keyword settings
     include ``precision``, ``chunk_size``, ``pool_mass_matrix`` and
-    ``pool_step_size``.  ``device`` defaults to CUDA.  ``sampler="mclmc"``
+    ``pool_step_size``.  ``device`` defaults to CUDA.  Inside an
+    initialized process group (``parallel.initialize_distributed``) every
+    rank calls ``sample()`` with the same arguments, ``device`` defaults to
+    the rank's own, and the call returns the whole fleet's trace on rank 0
+    and None on the other ranks (which take no progress handler, store or
+    control call).  ``sampler="mclmc"``
     runs MCLMC (``MclmcSettings``).  ``adaptation="flow"`` trains a
     normalizing flow per chain at warmup chunk boundaries (every
     ``transform_update_freq`` draws; the flow's options through the model's
@@ -936,7 +1041,10 @@ def sample(
     try:
         return background.wait()
     except KeyboardInterrupt:
+        if background.rank != 0:
+            raise
         return background.abort()
     except BaseException:
-        background.cancel()
+        if background.rank == 0:
+            background.cancel()
         raise

@@ -673,19 +673,22 @@ def make_mclmc_chunk_runner(model: ModelDef, cfg: MclmcConfig, chunk_len: int, d
 
 
 def init_mclmc_chains(model: ModelDef, cfg: MclmcConfig, seed: int, n_chains: int,
-                      init_mean, dtype, device="cpu", num_try_init: int = 100):
+                      init_mean, dtype, device="cpu", num_try_init: int = 100,
+                      mesh=None):
     """Positions from the NUTS init search (``run.init_chains``, with its
     step search and init-quality retry), then the MCLMC state: a unit
     velocity from ``normal(fold_in(key, 5))``, the gradient-based initial
     inverse mass, ``log(step_size)``, empty Welford windows, under
     low-rank adaptation the identity metric, and under flow adaptation an
     identity inverse mass with each chain's initial flow and empty window
-    (the initial flow is an exact identity, so base space is model space)."""
+    (the initial flow is an exact identity, so base space is model space).
+    Under a ``mesh`` (``parallel.ChainMesh``), this rank's slice of the
+    fleet, as ``run.init_chains`` gives it."""
     from .run import init_chains
 
     nuts_states, ok = init_chains(model, NutsConfig(adapt=cfg.adapt), seed, n_chains,
                                   init_mean, dtype, device=device,
-                                  num_try_init=num_try_init)
+                                  num_try_init=num_try_init, mesh=mesh)
     key = nuts_states.key
     pos, grad, logp = nuts_states.position, nuts_states.gradient, nuts_states.logp
     C, dim = pos.shape

@@ -4,7 +4,10 @@ Ports ``nutpie_tpu/sampler/megakernel.py``: ``run_chunk(states,
 chunk_start, limit, sched) -> (states, bufs)`` pools the adaptation state
 (optional), draws the chunk's per-draw randoms, runs ``start_draw`` and
 then ``machine_step`` until every chain has produced ``limit`` draws, and
-applies the trapped-chain rescue after warmup chunks.
+applies the trapped-chain rescue after warmup chunks.  Pooling and the
+rescue read across chains through the runner's mesh (``parallel/mesh.py``),
+so a fleet split over the ranks of a group runs each rank's slice in one
+launch of its own.
 
 The middle part is ``chunk_kernel``, the wrapper of the CUDA kernel in
 ``csrc/megakernel.cu``: on CUDA tensors it launches the kernel (one warp
@@ -18,11 +21,13 @@ fallback between the two: a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from ..model import ModelDef
 from ..ops import build
+from ..parallel.mesh import ChainMesh
 from .abi import MkConfig, dtype_suffix, raise_on, sampler_config, schedule_tensor
 from .adapt import Schedule
 from .nuts import (
@@ -246,7 +251,7 @@ class MegakernelChunkRunner:
 
     def __init__(self, model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
                  adapt_frozen: bool = True, pool_step_size: bool = False,
-                 pool_mass_matrix: bool = False):
+                 pool_mass_matrix: bool = False, mesh: Optional[ChainMesh] = None):
         self.model = model
         self.cfg = cfg
         self.chunk_len = chunk_len
@@ -254,10 +259,12 @@ class MegakernelChunkRunner:
         self.adapt_frozen = adapt_frozen
         self.pool_step_size = pool_step_size
         self.pool_mass_matrix = pool_mass_matrix
+        self.mesh = mesh
 
     def __call__(self, states: NutsMachineState, chunk_start: int, limit: int,
                  sched: Schedule):
-        states = pool_chunk_start(states, self.pool_mass_matrix, self.pool_step_size)
+        states = pool_chunk_start(states, self.pool_mass_matrix, self.pool_step_size,
+                                  self.mesh)
         dim = states.vecs.shape[-1]
         mom, jit = draw_randoms(states.key, int(chunk_start), self.chunk_len,
                                 dim, self.dtype)
@@ -266,16 +273,18 @@ class MegakernelChunkRunner:
             mom, jit, self.adapt_frozen,
         )
         if not self.adapt_frozen:
-            states = rescue_trapped(states, int(chunk_start), int(limit), sched)
+            states = rescue_trapped(states, int(chunk_start), int(limit), sched, self.mesh)
         return states, bufs
 
 
 def make_megakernel_chunk_runner(model: ModelDef, cfg: NutsConfig, chunk_len: int,
                                  dtype, adapt_frozen: bool = True,
                                  pool_step_size: bool = False,
-                                 pool_mass_matrix: bool = False) -> MegakernelChunkRunner:
-    """Build the chunk runner (same call semantics as the JAX function)."""
+                                 pool_mass_matrix: bool = False,
+                                 mesh: Optional[ChainMesh] = None) -> MegakernelChunkRunner:
+    """Build the chunk runner (same call semantics as the JAX function;
+    ``mesh``: the ranks the fleet is split over)."""
     return MegakernelChunkRunner(
         model, cfg, chunk_len, dtype, adapt_frozen=adapt_frozen,
-        pool_step_size=pool_step_size, pool_mass_matrix=pool_mass_matrix,
+        pool_step_size=pool_step_size, pool_mass_matrix=pool_mass_matrix, mesh=mesh,
     )

@@ -12,6 +12,10 @@ loops where the JAX package used ``while_loop``:
 - ``fleet_depth_cap`` and ``rescue_trapped``: cross-chain statistics at
   chunk boundaries.  Medians average the two middle values, as numpy's
   and ``jnp.median`` do (``torch.median`` returns the lower one).
+- Every function that reads across chains takes the fleet's mesh
+  (``parallel.ChainMesh``; None: one rank): it gathers the whole fleet's
+  input in chain order, computes what one process computes, and keeps
+  this rank's rows (``parallel/mesh.py``).
 - ``update_low_rank``: the low-rank metric's chunk-boundary update
   (``nutpie_tpu/sampler/run.py:450-475``), after the rescue.
 - ``flow_chunk_end``: flow adaptation's chunk boundary
@@ -41,6 +45,7 @@ import torch
 
 from ..model import ModelDef
 from ..ops import threefry
+from ..parallel.mesh import ChainMesh, chain_row, gather_chains, local_rows, shard_chains
 from ..transforms.flow import pulled_back
 from ..transforms.flow import median as _median
 from .adapt import Schedule, flts_set, pool_adapt_state
@@ -212,11 +217,19 @@ def chain_keys(seed: int, n_chains: int, device) -> torch.Tensor:
 
 def init_chains(model: ModelDef, cfg: NutsConfig, seed: int, n_chains: int,
                 init_mean, dtype, device="cpu", num_try_init: int = 100,
-                step_search: bool = True, init_fn=None):
-    """Initialize all chains; returns the batched state and a success flag."""
+                step_search: bool = True, init_fn=None,
+                mesh: Optional[ChainMesh] = None):
+    """Initialize the chains; returns the batched state and a success flag.
+
+    ``n_chains`` is the whole fleet's count; under a ``mesh`` the result is
+    this rank's slice of it, from its slice of the fleet's keys, and the
+    outlier screen's medians run over the gathered fleet."""
     if init_fn is None:
         init_fn = make_init_fn(model, cfg, dtype, num_try_init, step_search)
     keys = chain_keys(seed, n_chains, device)
+    if mesh is not None:
+        mesh = mesh.for_chains(n_chains)
+        keys = shard_chains(keys, mesh)
     init_mean = torch.as_tensor(np.asarray(init_mean), dtype=dtype, device=device)
     states, ok = init_fn(keys, init_mean)
     if step_search and n_chains >= 8:
@@ -224,9 +237,9 @@ def init_chains(model: ModelDef, cfg: NutsConfig, seed: int, n_chains: int,
         # fleet's (a stiff position) or a logp far below the fleet's (far
         # from the typical set); same outlier statistic as rescue_trapped
         for round_ in range(2):
-            ls = states.adapt_flt("log_step").cpu().numpy()
+            ls = gather_chains(states.adapt_flt("log_step"), mesh).cpu().numpy()
             bad = ls < np.median(ls) - np.log(100.0)
-            lp = states.logp.cpu().numpy()
+            lp = gather_chains(states.logp, mesh).cpu().numpy()
             med = np.median(lp)
             mad = np.median(np.abs(lp - med))
             bad |= (med - lp) > 50.0 * (mad + 10.0)
@@ -234,14 +247,16 @@ def init_chains(model: ModelDef, cfg: NutsConfig, seed: int, n_chains: int,
                 break
             retry_keys = threefry.fold_in_data(keys, 1000 + round_)
             states2, ok2 = init_fn(retry_keys, init_mean)
-            bad_t = torch.as_tensor(bad, device=ok.device)
+            bad_t = torch.as_tensor(bad[local_rows(mesh, n_chains)], device=ok.device)
             states = tree_where(bad_t, states2, states)
             ok = torch.where(bad_t, ok2, ok)
     return states, ok
 
 
-def fleet_depth_cap(cfg: NutsConfig, bufs, limit: int) -> torch.Tensor:
-    """Fleet-relative tree-depth cap from one warmup chunk's step counts.
+def fleet_depth_cap(cfg: NutsConfig, bufs, limit: int,
+                    mesh: Optional[ChainMesh] = None) -> torch.Tensor:
+    """Fleet-relative tree-depth cap from one warmup chunk's step counts
+    (the whole fleet's, gathered under a ``mesh``).
 
     ``ceil(log2(factor * median steps/draw))`` clipped to ``[4, maxdepth]``,
     the median over the chunk's non-NaN step counts averaging the two middle
@@ -250,7 +265,7 @@ def fleet_depth_cap(cfg: NutsConfig, bufs, limit: int) -> torch.Tensor:
     without a host round trip: the counts are sorted with NaN last and the
     middle ones gathered at indices taken from the device's count.
     """
-    ns = bufs.scalars[:, :limit, SCALAR_SLOTS["n_steps"]].reshape(-1)
+    ns = gather_chains(bufs.scalars[:, :limit, SCALAR_SLOTS["n_steps"]], mesh).reshape(-1)
     s, _ = torch.sort(ns)  # NaN sorts last
     n = (~torch.isnan(ns)).sum().reshape(1)
     lo = torch.clamp((n - 1) // 2, min=0)
@@ -269,29 +284,30 @@ def _ceil_log2(x: torch.Tensor) -> torch.Tensor:
 
 
 def rescue_trapped(states: NutsMachineState, chunk_start: int, limit: int,
-                   sched: Schedule) -> NutsMachineState:
+                   sched: Schedule, mesh: Optional[ChainMesh] = None) -> NutsMachineState:
     """Teleport trapped chains onto the median-logp chain (early warmup).
 
     A chain whose logp sits ~1000 sigma below the fleet's at a tiny step
     size is locally self-consistent and globally dead; only the fleet can
     see it.  Its position, step size and mass matrix (the low-rank metric
     too) are replaced by the donor's; its own RNG stream decorrelates it
-    again.
+    again.  Under a ``mesh`` the statistics run over the gathered fleet's
+    logp and the donor's rows come from the rank that holds it.
     """
-    n_chains = states.vecs.shape[0]
     end = chunk_start + limit
     if not (end >= 32 and end * 4 <= sched.num_tune * 3):
         return states
-    logp = states.logp
+    logp = gather_chains(states.logp, mesh)
+    n_chains = logp.shape[0]
     med = _median(logp)
     mad = _median(torch.abs(logp - med))
-    trapped = (med - logp) > 50.0 * (mad + 10.0)
+    trapped = ((med - logp) > 50.0 * (mad + 10.0))[local_rows(mesh, n_chains)]
     donor = torch.argsort(logp, stable=True)[n_chains // 2]
 
     def teleport(leaf):
-        # index_select with the device index: indexing by a 0-d tensor
+        # the donor's row by a device index: indexing by a 0-d tensor
         # would read it on the host
-        return where(trapped, leaf.index_select(0, donor.reshape(1)).expand_as(leaf), leaf)
+        return where(trapped, chain_row(leaf, donor, mesh).expand_as(leaf), leaf)
 
     # the adaptation state whole, as the JAX package's tree_map over `adapt`:
     # under flow adaptation the flow and its training window too
@@ -392,16 +408,19 @@ def draw_randoms(keys: torch.Tensor, chunk_start: int, chunk_len: int,
 
 
 def pool_chunk_start(states: NutsMachineState, pool_mass_matrix: bool,
-                     pool_step_size: bool) -> NutsMachineState:
+                     pool_step_size: bool, mesh: Optional[ChainMesh] = None
+                     ) -> NutsMachineState:
     """Cross-chain pooling of the adaptation state at a chunk's start, a
-    chunk-boundary collective outside the kernels."""
+    chunk-boundary collective outside the kernels: over the gathered
+    fleet's rows under a ``mesh``, this rank's rows kept."""
     if not (pool_mass_matrix or pool_step_size):
         return states
     adapt_vecs, adapt_flts = pool_adapt_state(
-        states.adapt_vecs, states.adapt_flts,
+        gather_chains(states.adapt_vecs, mesh), gather_chains(states.adapt_flts, mesh),
         pool_mass=pool_mass_matrix, pool_step=pool_step_size,
     )
-    return states.replace(adapt_vecs=adapt_vecs, adapt_flts=adapt_flts)
+    rows = local_rows(mesh, adapt_vecs.shape[0])
+    return states.replace(adapt_vecs=adapt_vecs[rows], adapt_flts=adapt_flts[rows])
 
 
 # the ROADMAP item that ports the eager forms of the captured runners
@@ -457,7 +476,7 @@ class StepChunkRunner:
     def __init__(self, model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
                  pool_mass_matrix: bool = False, unroll=None,
                  adapt_frozen: bool = False, pool_step_size: bool = False,
-                 plain: bool = False):
+                 plain: bool = False, mesh: Optional[ChainMesh] = None):
         why = eager_unsupported(cfg, model)
         if why is not None:
             raise NotImplementedError(why)
@@ -470,6 +489,7 @@ class StepChunkRunner:
         self.adapt_frozen = adapt_frozen
         self.pool_step_size = pool_step_size
         self.plain = plain
+        self.mesh = mesh
         # the memory pool of the run's graphs, kept by its last graph
         self._pool = self._graph = None
 
@@ -477,7 +497,8 @@ class StepChunkRunner:
                  sched: Schedule):
         cfg = self.cfg
         chunk_start, limit = int(chunk_start), int(limit)
-        states = pool_chunk_start(states, self.pool_mass_matrix, self.pool_step_size)
+        states = pool_chunk_start(states, self.pool_mass_matrix, self.pool_step_size,
+                                  self.mesh)
         n_chains, _, dim = states.vecs.shape
         mom, jit = draw_randoms(states.key, chunk_start, self.chunk_len, dim, self.dtype)
         bufs = init_buffers(self.chunk_len, dim, self.dtype, n_chains,
@@ -507,7 +528,7 @@ class StepChunkRunner:
                 if bool(states.done.all()):
                     break
         if not self.adapt_frozen:
-            states = rescue_trapped(states, chunk_start, limit, sched)
+            states = rescue_trapped(states, chunk_start, limit, sched, self.mesh)
         states = update_low_rank(cfg, states, bufs, chunk_start, limit, sched)
         if cfg.flow is not None:
             states, bufs = flow_chunk_end(cfg, self.model, states, bufs, chunk_flow,
@@ -553,12 +574,14 @@ class StepChunkRunner:
 def make_chunk_runner(model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
                       pool_mass_matrix: bool = False, unroll=None,
                       adapt_frozen: bool = False, pool_step_size: bool = False,
-                      plain: bool = False) -> StepChunkRunner:
+                      plain: bool = False, mesh: Optional[ChainMesh] = None
+                      ) -> StepChunkRunner:
     """Build the step runner (the JAX function's call semantics; its
     ``flow_train`` is ``not adapt_frozen``).  ``unroll=None`` captures ``CUDA_UNROLL`` machine steps a
     graph on the card and checks for the chunk's end every step on the
-    CPU."""
+    CPU.  ``mesh``: the ranks the fleet is split over (pooling and the
+    rescue gather through it)."""
     return StepChunkRunner(model, cfg, chunk_len, dtype,
                            pool_mass_matrix=pool_mass_matrix, unroll=unroll,
                            adapt_frozen=adapt_frozen, pool_step_size=pool_step_size,
-                           plain=plain)
+                           plain=plain, mesh=mesh)
