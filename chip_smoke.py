@@ -412,15 +412,54 @@ around K2):
     timed (events, device time, the plain advance, its bound) and the
     wall's split.
 
+The case study under MCLMC and flow adaptation (the runners call its
+eager log density between their kernels' launches, no graph replay), and
+PyMC models (``compile_pymc_model``, through ``tests/torch_fake_pymc.py``,
+a stand-in of pymc and of PyTensor's PyTorch linker in torch):
+
+21. ``stan_ode_mclmc``: ``sample(sampler="mclmc")`` of the case study as
+    written at ``LV_MCLMC_CHAINS`` chains x (``LV_MCLMC_TUNE`` +
+    ``LV_MCLMC_DRAWS``), float32, the start narrowed (``_lv_near``), one
+    chunk: K3 launched once a chunk and twice a draw, no graph replay, K1
+    and K2 never; draws finite.  Then K3 at the run's shapes from a fresh
+    fleet at the end of tuning: one frozen ``LV_K3_DRAWS``-draw chunk
+    through the eager route against the plain version (the float32 shares
+    at the GLM's bars, bitwise or not), K3's kick and settle a step by
+    events, by device time and replayed from a graph, the plain pieces',
+    the byte bound; the wall's split.
+22. ``stan_ode_flow``: ``sample(adaptation="flow")`` under NUTS on the case
+    study at ``LV_FLOW_CHAINS`` chains x (``LV_FLOW_TUNE`` +
+    ``LV_FLOW_DRAWS``), trees to ``LV_FLOW_MAXDEPTH``, the flows
+    ``LV_FLOW`` updated every ``LV_FLOW_FREQ`` draws (the first chunk's end
+    trains them by Adam), float32: K2 launched, no graph replay, K1 and K3
+    never, a flow trained; draws finite.  Then K2 under its fixed metric at
+    the run's shapes from a fresh fleet under seeded flows: one frozen
+    1-draw chunk against the plain version (the float32 shares), K2's
+    advance by events and device time, the plain advance, the bounds.
+23. ``pymc``: radon written as a PyMC model (PyMC's value variables: the
+    zero-sum effects and the ``*_log__`` scales; 173 parameters, 919
+    observations).  Float64: its logp equals ``nt.models.radon()``'s up to
+    one constant (spread under 1e-10 of the largest |logp|), its gradient
+    to 1e-10, the card's the CPU's to 1e-12; K2 around it against its
+    plain version over a frozen ``PYMC_PARITY_DRAWS``-draw chunk, the log
+    density captured.  Then ``sample()`` at the main path's configuration
+    (2048 chains x (300 + ``PYMC_DRAWS``), pooled, seed 42, float32): K1
+    never, K2 with graph replays, R-hat below 1.05, each monitored
+    column's mean within ``PYMC_MCSE`` combined MCSE of the main phase's K1
+    trace; logp+grad ms a call beside ``nt.models.radon()``'s, the wall's
+    split.
+
 Every phase that reads split R-hat and bulk ESS (``column_diagnostics``)
 also computes them on the card with ``diagnostics_device`` and holds
 them to the host's to rtol ``DIAG_RTOL``.
 
-Then the script's seconds, the kernels line (K1; K2 with its low-rank
-branch, its microcanonical instantiations, its fixed metric and the
-eager route around the case study; K3 with
-its low-rank form and its fixed metric), the card line, and the
-last line
+Then the script's seconds (beside them the three phases above and their
+budget of ``NEW_PHASES_BUDGET_S``, and the script's of ``TOTAL_BUDGET_S``),
+the kernels line (K1; K2 with its low-rank branch, its microcanonical
+instantiations, its fixed metric, the eager route around the case study,
+with and without flow, and the PyMC radon; K3 with its low-rank form, its
+fixed metric and the eager route around the case study), the card line,
+and the last line
 
 ``{"ok": true, "device": {...}}``.  Every phase runs even after one
 fails; any failed phase makes the script exit non-zero with no result
@@ -4314,13 +4353,14 @@ class _FlowLogp:
         return flow_logp_and_grad(self.fcfg, self.model.logp_and_grad, self.params, z)
 
 
-def _perturbed_flows(states, seed: int = 3):
-    """The state with each chain's flow moved to seeded parameters that act."""
+def _perturbed_flows(states, seed: int = 3, scales=None):
+    """The state with each chain's flow moved to seeded parameters that act
+    (``scales``: ``FLOW_PERTURB`` by default)."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
     out = {}
-    for name, scale in FLOW_PERTURB.items():
+    for name, scale in (scales or FLOW_PERTURB).items():
         t = getattr(states, name)
         noise = torch.randn(t.shape, generator=gen, dtype=torch.float64)
         out[name] = (scale * noise).to(device=t.device, dtype=t.dtype)
@@ -5550,6 +5590,525 @@ def phase_stan_ode(ctx):
     assert not failed, failed
 
 
+# ---------------------------------------------------------------------------
+# The case study under MCLMC and under flow adaptation: the runners call its
+# eager log density between their kernels' launches (K3's kick and settle,
+# K2 under its fixed metric), no graph replay
+
+# the stan_ode_mclmc run: sample(sampler="mclmc") of the case study as
+# written, LV_MCLMC_CHAINS chains x (LV_MCLMC_TUNE + LV_MCLMC_DRAWS), float32,
+# seed 42, the start narrowed (_lv_near); each draw is one step, two eager
+# log densities (a logp+grad call took 120-164 ms at 256 chains on an H100
+# 80GB HBM3 at 700 W, host-bound: PERF.md section 6)
+LV_MCLMC_CHAINS = 64
+LV_MCLMC_TUNE, LV_MCLMC_DRAWS = 4, 4
+# K3 at the run's shapes, from a fresh fleet (no step search) with its draw
+# counters at the end of tuning: one frozen LV_K3_DRAWS-draw chunk against the
+# plain version, then timed over as many draws
+LV_K3_DRAWS = 1
+# K3's kick and settle replayed from a graph over a chunk of as many draws
+LV_K3_GRAPH_DRAWS = 32
+# the stan_ode_flow run: sample(adaptation="flow") under NUTS, LV_FLOW_CHAINS x
+# (LV_FLOW_TUNE + LV_FLOW_DRAWS), trees to depth LV_FLOW_MAXDEPTH, float32,
+# the flows LV_FLOW (a window of LV_FLOW_FREQ rows that the first chunk
+# fills, so the flows train by Adam at its end, no diagonal phase) updated
+# every LV_FLOW_FREQ draws
+LV_FLOW_CHAINS = 64
+LV_FLOW_TUNE, LV_FLOW_DRAWS, LV_FLOW_MAXDEPTH, LV_FLOW_FREQ = 4, 2, 2, 4
+LV_FLOW = dict(num_layers=2, hidden=8, window=4, train_steps=200, num_diag_updates=0)
+# the seeded flows of the K2 chunk at the run's shapes: FLOW_PERTURB's moved
+# the case study's chains into stiff regions, where a logp+grad call took
+# 2.75 s on an H100 80GB HBM3 at 700 W (the solves at their cap), so these
+# act less
+LV_FLOW_PERTURB = {"flow_mu": 0.02, "flow_log_sigma": 0.02, "flow_w2": 0.02, "flow_b2": 0.01}
+# the pymc phase: radon written as a PyMC model (tests/torch_fake_pymc.py)
+# at the main path's configuration, posterior draws PYMC_DRAWS (as the stan
+# phase's); float64 parity at PYMC_PARITY_CHAINS points; its posterior means
+# held within PYMC_MCSE combined MCSE of the main phase's K1 trace
+PYMC_DRAWS, PYMC_PARITY_CHAINS, PYMC_MCSE = 100, 64, 4.0
+PYMC_PARITY_DRAWS = 2
+
+
+def _lv_k3_timing(model, cfg, sched, states, start: int, draws: int) -> dict:
+    """K3's kick and settle around the case study's eager log density over
+    ``draws`` frozen draws (one step a draw) of ``states``: a first run
+    calls the log density between the launches (each call and launch by
+    CUDA events) and keeps its outputs; the launches then run again from
+    the same start on those outputs, no log density between them, under one
+    ``torch.profiler`` session for device time (the solver's host loop is
+    not profiled), their draws bitwise the first's; the plain pieces on the
+    same outputs by CUDA events after a synchronize; and the launches back
+    to back, replayed from a graph, by CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import StepGraph
+
+    st, bufs, steps = _k3_chunk(cfg, sched, states, start, draws)
+    z = steps.begin(st)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(draws)]
+    inputs = []
+    torch.cuda.synchronize()
+    for ev in marks:
+        ev[0].record()
+        _, g_mid = model.logp_and_grad(z)
+        ev[1].record()
+        z = steps.kick(st, z, g_mid)
+        ev[2].record()
+        logp, g = model.logp_and_grad(z)
+        ev[3].record()
+        z = steps.settle(st, z, logp, g)
+        ev[4].record()
+        inputs.append((g_mid, logp, g))
+    torch.cuda.synchronize()
+    parts = ("logp_grad_mid", "kick", "logp_grad_end", "settle")
+    ms = {p: sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / draws
+          for i, p in enumerate(parts)}
+    dst, dbufs, dsteps = _k3_chunk(cfg, sched, states, start, draws)
+    z = dsteps.begin(dst)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for g_mid, logp, g in inputs:
+            z = dsteps.kick(dst, z, g_mid)
+            z = dsteps.settle(dst, z, logp, g)
+        torch.cuda.synchronize()
+    assert bitwise_equal(dbufs.position, bufs.position), "K3's rerun parts from its run"
+    k3_s = sum(r[0] for r in _device_rows(prof) if "mclmc_piece" in r[1])
+    # the launches back to back: one draw's kick and settle on the first
+    # draw's outputs captured in a graph (as the runner captures a draw)
+    # and replayed over a chunk of LV_K3_GRAPH_DRAWS draws, by CUDA events
+    # around all but the first replay
+    gst, _, gsteps = _k3_chunk(cfg, sched, states, start, LV_K3_GRAPH_DRAWS)
+    gz = gsteps.begin(gst)
+    g_mid, logp, g = inputs[0]
+    graph = StepGraph(mclmc_kernel, DEVICE)
+    graph.capture(lambda: gsteps.settle(gst, gsteps.kick(gst, gz, g_mid), logp, g))
+    graph.replay()
+    torch.cuda.synchronize()
+    graph_ms, _ = _event_ms(graph.replay, LV_K3_GRAPH_DRAWS - 1)
+    pst, _, plain = _k3_chunk(cfg, sched, states, start, draws, plain=True)
+    z = plain.begin(pst)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    plain_ms = 0.0
+    for g_mid, logp, g in inputs:
+        torch.cuda.synchronize()
+        ev[0].record()
+        z = plain.kick(pst, z, g_mid)
+        z = plain.settle(pst, z, logp, g)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms += ev[0].elapsed_time(ev[1]) / draws
+    return {"k3_ms_per_step": ms["kick"] + ms["settle"], "kick_ms": ms["kick"],
+            "settle_ms": ms["settle"], "k3_device_ms_per_step": 1e3 * k3_s / draws or None,
+            "k3_graph_ms_per_step": graph_ms,
+            "plain_ms_per_step": plain_ms,
+            "logp_grad_ms": 0.5 * (ms["logp_grad_mid"] + ms["logp_grad_end"])}
+
+
+def _k3_lv_run_shapes(failed, model, center) -> dict:
+    """K3 around the case study's eager log density at the stan_ode_mclmc
+    run's shapes (``LV_MCLMC_CHAINS`` chains, dim 8, float32), from a fresh
+    fleet (no step search) with its draw counters at the end of tuning: one
+    frozen ``LV_K3_DRAWS``-draw chunk through the runner's eager route
+    against the plain version (``_mclmc_f32_shares`` at the GLM's bars:
+    ``F32_MIN_SHARE_STEPS`` of ``diverging`` equal, ``F32_MIN_SHARE_DRAWS``
+    of the draws within ``F32_TOL``), whether it is bitwise, and that no
+    graph replayed; then K3's kick and settle a step by events and by
+    device time, the plain pieces' and the byte bound (``_k3_timed``,
+    ``mclmc_bytes``).  Failed bars go to ``failed``."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.mclmc import MclmcChunkRunner, init_mclmc_chains
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+
+    cfg, sched = _mclmc_cfg(LV_MCLMC_TUNE)
+    states, ok = init_mclmc_chains(model, cfg, 43, LV_MCLMC_CHAINS, center, torch.float32,
+                                   device=DEVICE, step_search=False)
+    assert bool(ok.all()), "case-study chains failed to initialize"
+    states = states.replace(ints=states.ints.clone().index_fill_(
+        1, torch.tensor([0], device=DEVICE), LV_MCLMC_TUNE))
+    n = LV_K3_DRAWS
+    replays, launches = mclmc_kernel.replays, mclmc_kernel.launches
+    s_k, b_k = MclmcChunkRunner(model, cfg, n, torch.float32)(states, LV_MCLMC_TUNE, n, sched)
+    torch.cuda.synchronize()
+    eager = {"k3_launches": mclmc_kernel.launches - launches,
+             "graph_replays": mclmc_kernel.replays - replays}
+    s_p, b_p = MclmcChunkRunner(model, cfg, n, torch.float32, plain=True)(
+        states, LV_MCLMC_TUNE, n, sched)
+    torch.cuda.synchronize()
+    f32 = _mclmc_f32_shares(b_k, b_p)
+    f32["bitwise"] = bool(bitwise_equal(b_k.position, b_p.position)
+                          and torch.equal(s_k.ints, s_p.ints)
+                          and bitwise_equal(s_k.vecs, s_p.vecs))
+    if eager["graph_replays"] or eager["k3_launches"] != 1 + 2 * n:
+        failed.append(f"K3 around the case study did not take the eager route: {eager}")
+    if f32["share_equal_diverging"] < F32_MIN_SHARE_STEPS:
+        failed.append(f"case study K3 float32 diverging share {f32['share_equal_diverging']}")
+    if f32["share_draws_within_tol"] < F32_MIN_SHARE_DRAWS:
+        failed.append(f"case study K3 float32 draws share {f32['share_draws_within_tol']}")
+    k3 = _lv_k3_timing(model, cfg, sched, states, LV_MCLMC_TUNE, n)
+    work = mclmc_bytes(LV_MCLMC_CHAINS, n, 1, model.ndim, 4)
+    bound = 1e3 * work["bytes"] / PEAK_BYTES / work["steps"]
+    return {"float32": {"draws": n, "tol": F32_TOL,
+                        "bars": [F32_MIN_SHARE_STEPS, F32_MIN_SHARE_DRAWS], **eager, **f32},
+            "max_abs_err": max_abs(b_k.position, b_p.position),
+            "ms": k3["k3_ms_per_step"], "device_ms": k3["k3_device_ms_per_step"],
+            "graph_ms": k3["k3_graph_ms_per_step"],
+            "plain_ms": k3["plain_ms_per_step"], "bound_ms": bound, "bound_by": "bytes",
+            "share_of_bound": bound / k3["k3_ms_per_step"],
+            "logp_grad_ms_eager": k3["logp_grad_ms"],
+            "plan": dataclasses.asdict(mclmc_kernel.plan(LV_MCLMC_CHAINS, model.ndim, 0,
+                                                         torch.float32, DEVICE))}
+
+
+def phase_stan_ode_mclmc(ctx):
+    """``sample(sampler="mclmc")`` on the case study as written (its
+    ``CompiledStanModel`` from ``_lv_compiled``, the start narrowed) at
+    ``LV_MCLMC_CHAINS`` chains x (``LV_MCLMC_TUNE`` + ``LV_MCLMC_DRAWS``),
+    seed 42, float32, with K1's, K2's and K3's counts set to 0 just before:
+    K3 launched once a chunk and twice a draw, no graph replay (the eager
+    route), K1 and K2 never.  Draws finite, of the expected shape.  A short
+    run: it samples, it does not converge.  Prints wall, the init's seconds,
+    the solver's counts, the logp+grad ms a call by events at the last
+    draws, K3 at these shapes against its plain version and timed
+    (``_k3_lv_run_shapes``, run first) and the wall's split."""
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.frontends.stan.functionals import SOLVES
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    t_phase = time.perf_counter()
+    compiled, center = _lv_compiled()
+    model = compiled._make_model(0)
+    failed: list = []
+    t1 = time.perf_counter()
+    shapes = _k3_lv_run_shapes(failed, model, center)
+    k3_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    _zero_all(step_kernel, chunk_kernel, mclmc_kernel)
+    SOLVES.update(dict.fromkeys(SOLVES, 0))
+    t0 = time.perf_counter()
+    handle = nt.sample(compiled, sampler="mclmc", progress_bar=False, chains=LV_MCLMC_CHAINS,
+                       tune=LV_MCLMC_TUNE, draws=LV_MCLMC_DRAWS, seed=42, init_mean=center,
+                       initial_step=LV_INITIAL_STEP,
+                       chunk_size=LV_MCLMC_TUNE + LV_MCLMC_DRAWS, device="cuda",
+                       return_raw_trace=True, blocking=False)
+    raw = handle.wait()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, k3, replays = (chunk_kernel.launches, step_kernel.launches, mclmc_kernel.launches,
+                           mclmc_kernel.replays)
+    solves = dict(SOLVES)
+    total = LV_MCLMC_TUNE + LV_MCLMC_DRAWS
+    expected = _k3_launches(1, total, 1)  # one chunk
+    assert k1 == 0 and k2 == 0, f"K1 launched {k1}, K2 {k2} times on the MCLMC route"
+    assert k3 == expected, f"K3 launched {k3} times, expected {expected}"
+    assert replays == 0, f"{replays} graph replays on the eager route"
+    pos = raw["position"]
+    assert pos.shape == (LV_MCLMC_CHAINS, total, model.ndim), pos.shape
+    assert np.isfinite(pos).all(), "non-finite draws"
+    x = torch.as_tensor(pos[:, -1, :], device=DEVICE, dtype=torch.float32)
+    call_ms, _ = _event_ms(lambda: model.logp_and_grad(x), 2)
+
+    ctx["lv_k3"] = {"launches": k3, **shapes}
+    dev = ctx["lv_k3"]["device_ms"]  # a step's kick and settle; a draw is one step
+    split = {"draws": total, "init_s": handle.init_s,
+             "logp_grad_s": 2 * total * call_ms / 1e3,
+             "k3_s": total * dev / 1e3 if dev is not None else None,
+             "timed": "the init by the host's clock (sample()'s init_s), logp+grad by CUDA "
+                      "events around eager calls at the last draws (two a draw), K3 by "
+                      "device time at these shapes"}
+    split["rest_s"] = wall - split["init_s"] - split["logp_grad_s"] - (split["k3_s"] or 0.0)
+    emit({"phase": "stan_ode_mclmc", "chains": LV_MCLMC_CHAINS, "tune": LV_MCLMC_TUNE,
+          "draws": LV_MCLMC_DRAWS, "dtype": "float32", "k1_launches": k1, "k2_launches": k2,
+          "k3_launches": k3, "k3_expected": expected, "graph_replays": replays,
+          "wall_s": wall, "init_s": handle.init_s, "solves": solves,
+          "logp_grad_ms_per_call": call_ms, "logp_grad_at": "the run's last draws, events",
+          "k3": {**ctx["lv_k3"], "timed_at": f"{LV_MCLMC_CHAINS} chains, dim 8, float32, a "
+                                             f"{LV_K3_DRAWS}-draw frozen chunk of a fresh "
+                                             "fleet", "seconds": k3_s},
+          "split_of_wall": split, "seconds": time.perf_counter() - t_phase,
+          "card": ctx["card"], "failed": failed})
+    assert not failed, failed
+
+
+def _lv_flow_fleet(model, center, cfg_flow, n_chains, dtype, seed):
+    """A fresh fleet of the case study under the fixed metric (no step
+    search), each chain's flow moved to seeded parameters that act."""
+    from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
+    from nutpie_tpu_torch.sampler.nuts import NutsConfig
+    from nutpie_tpu_torch.sampler.run import init_chains
+
+    cfg = NutsConfig(maxdepth=LV_FLOW_MAXDEPTH, flow=cfg_flow,
+                     adapt=AdaptConfig(num_tune=TUNE, update_mass_matrix=False,
+                                       initial_step=LV_INITIAL_STEP))
+    sched = make_schedule(cfg.adapt, TUNE, cfg.initial_depth_cap)
+    states, ok = init_chains(model, cfg, seed, n_chains, center, dtype, device=DEVICE,
+                             step_search=False)
+    assert bool(ok.all()), "case-study chains failed to initialize"
+    return cfg, sched, _perturbed_flows(states, scales=LV_FLOW_PERTURB)
+
+
+def _k2_lv_flow_run_shapes(failed, model, center) -> dict:
+    """K2 under the fixed metric around the case study's pulled-back eager
+    log density at the stan_ode_flow run's shapes (``LV_FLOW_CHAINS``
+    chains, dim 8, float32), from a fresh fleet under seeded flows: one
+    frozen 1-draw chunk through the runner's eager route against the plain
+    version (the float32 shares at ``F32_MIN_SHARE_STEPS`` /
+    ``F32_MIN_SHARE_DRAWS``, whether it is bitwise, no graph replay), then
+    K2's advance a machine step by events and device time, the plain
+    advance's and the byte and operation bounds (``_lv_k2_timing``,
+    ``step_bytes``)."""
+    import torch
+
+    from nutpie_tpu_torch.sampler.state import flow_params
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+    from nutpie_tpu_torch.transforms.flow import FlowConfig
+
+    cfg, sched, fleet = _lv_flow_fleet(model, center, FlowConfig(**LV_FLOW), LV_FLOW_CHAINS,
+                                       torch.float32, 47)
+    replays, launches = step_kernel.replays, step_kernel.launches
+    (s_k, b_k), (s_p, b_p) = _steps_both(model, cfg, sched, fleet, 0, 1, 1, True)
+    f32 = _held(failed, _f32_shares, 1, s_k, b_k, b_p) or {}
+    f32["bitwise"] = bool(bitwise_equal(b_k.position, b_p.position)
+                          and bitwise_equal(b_k.scalars, b_p.scalars)
+                          and torch.equal(s_k.ints, s_p.ints))
+    f32["graph_replays"] = step_kernel.replays - replays
+    f32["k2_launches"] = step_kernel.launches - launches
+    if f32["graph_replays"] or not f32["k2_launches"]:
+        failed.append(f"K2 under flow around the case study did not take the eager route: "
+                      f"{f32}")
+    if f32.get("share_equal_n_steps", 0.0) < F32_MIN_SHARE_STEPS:
+        failed.append(f"case study flow float32 n_steps share {f32.get('share_equal_n_steps')}")
+    if f32.get("share_draws_within_tol", 0.0) < F32_MIN_SHARE_DRAWS:
+        failed.append(f"case study flow float32 draws share "
+                      f"{f32.get('share_draws_within_tol')}")
+    err = max_abs(b_k.position, b_p.position)
+    del s_k, b_k, s_p, b_p
+    flogp = _FlowLogp(model, cfg.flow, flow_params(fleet))
+    ms, n_steps, bufs = _lv_k2_timing(flogp, cfg, sched, fleet, 1)
+    plain = _plain_step_ms(flogp, cfg, sched, fleet, 1, LV_PLAIN_STEPS)
+    work = step_bytes(bufs.scalars, 1, LV_FLOW_CHAINS, n_steps, model.ndim,
+                      fleet.ckpt_p.shape[1], 4)
+    t_bytes = 1e3 * work["advance_bytes"] / PEAK_BYTES / n_steps
+    t_ops = 1e3 * step_ops(work, model.ndim) / PEAK_F32_OPS / n_steps
+    bound = max(t_bytes, t_ops)
+    return {"float32": {"draws": 1, "tol": F32_TOL,
+                        "bars": [F32_MIN_SHARE_STEPS, F32_MIN_SHARE_DRAWS], **f32},
+            "max_abs_err": err, "machine_steps": n_steps, "ms": ms["advance"],
+            "device_ms": ms["device_advance"], "plain_ms": plain["advance"],
+            "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops,
+            "logp_grad_ms_eager": ms["logp_grad"]}
+
+
+def phase_stan_ode_flow(ctx):
+    """``sample(adaptation="flow")`` under NUTS on the case study as written
+    (``_lv_compiled``'s model with the flows ``LV_FLOW``, the start
+    narrowed) at ``LV_FLOW_CHAINS`` chains x (``LV_FLOW_TUNE`` +
+    ``LV_FLOW_DRAWS``), trees to depth ``LV_FLOW_MAXDEPTH``, flows updated
+    every ``LV_FLOW_FREQ`` draws, seed 42, float32, with the kernels' counts
+    set to 0 just before: K2 launched, no graph replay (the eager route),
+    K1 and K3 never, at least one flow trained by Adam (its seconds by
+    ``_TrainingClock``).  Draws finite, of the expected shape.  Then K2
+    under the fixed metric at these shapes against its plain version and
+    timed (``_k2_lv_flow_run_shapes``)."""
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.sampler.mclmc_kernel import mclmc_kernel
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+
+    t_phase = time.perf_counter()
+    compiled, center = _lv_compiled()
+    compiled = compiled.with_transform_adapt(**LV_FLOW)
+    # the copy's model, its start narrowed, memoized for sample()
+    object.__setattr__(compiled, "_model_def_cache", _lv_near(compiled._make_model(0)))
+    model = compiled._make_model(0)
+    failed: list = []
+    torch.cuda.synchronize()
+    _zero_all(step_kernel, chunk_kernel, mclmc_kernel)
+    with _TrainingClock() as clock:
+        t0 = time.perf_counter()
+        handle = nt.sample(compiled, adaptation="flow", progress_bar=False,
+                           chains=LV_FLOW_CHAINS, tune=LV_FLOW_TUNE, draws=LV_FLOW_DRAWS,
+                           maxdepth=LV_FLOW_MAXDEPTH, transform_update_freq=LV_FLOW_FREQ,
+                           seed=42, init_mean=center, initial_step=LV_INITIAL_STEP,
+                           device="cuda", return_raw_trace=True, blocking=False)
+        raw = handle.wait()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k1, k2, k3, replays = (chunk_kernel.launches, step_kernel.launches, mclmc_kernel.launches,
+                           step_kernel.replays)
+    assert k1 == 0 and k3 == 0, f"K1 launched {k1}, K3 {k3} times on the flow NUTS route"
+    assert k2 > 0, "K2 never launched"
+    assert replays == 0, f"{replays} graph replays on the eager route"
+    assert len(clock.seconds) >= 1, "no flow trained"
+    total = LV_FLOW_TUNE + LV_FLOW_DRAWS
+    pos = raw["position"]
+    assert pos.shape == (LV_FLOW_CHAINS, total, model.ndim), pos.shape
+    assert np.isfinite(pos).all(), "non-finite draws"
+    grads = int(raw["stats"]["n_steps"].astype(np.int64).sum())
+
+    t1 = time.perf_counter()
+    ctx["lv_k2_flow"] = {"launches": k2, **_k2_lv_flow_run_shapes(failed, model, center)}
+    k2_s = time.perf_counter() - t1
+    emit({"phase": "stan_ode_flow", "chains": LV_FLOW_CHAINS, "tune": LV_FLOW_TUNE,
+          "draws": LV_FLOW_DRAWS, "maxdepth": LV_FLOW_MAXDEPTH, "flow": LV_FLOW,
+          "transform_update_freq": LV_FLOW_FREQ, "dtype": "float32", "k1_launches": k1,
+          "k2_launches": k2, "k3_launches": k3, "graph_replays": replays, "wall_s": wall,
+          "init_s": handle.init_s, "gradients": grads, "flow_trainings": len(clock.seconds),
+          "train_s": float(sum(clock.seconds)),
+          "divergences": int(raw["stats"]["diverging"].sum()),
+          "k2_fixed_metric": {**ctx["lv_k2_flow"],
+                              "timed_at": f"{LV_FLOW_CHAINS} chains, dim 8, float32, a 1-draw "
+                                          "frozen chunk of a fresh fleet under seeded flows, "
+                                          f"trees to depth {LV_FLOW_MAXDEPTH}",
+                              "seconds": k2_s},
+          "seconds": time.perf_counter() - t_phase, "card": ctx["card"], "failed": failed})
+    assert not failed, failed
+
+
+def _torch_fake_pymc():
+    """``tests/torch_fake_pymc.py`` of this checkout (no JAX there),
+    installed in place of pymc and pytensor."""
+    path = os.path.join(ROOT, "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import torch_fake_pymc
+
+    assert torch_fake_pymc.install(), "a real pymc is installed: run the phase against it"
+    return torch_fake_pymc
+
+
+def phase_pymc(ctx):
+    """Radon written as a PyMC model (``tests/torch_fake_pymc.py:radon_model``:
+    PyMC's value variables, the zero-sum effects and the ``*_log__``
+    scales), compiled by ``compile_pymc_model`` through the PyTorch
+    linker's stand-in.  Float64, ``PYMC_PARITY_CHAINS`` points: its logp
+    equals ``nt.models.radon()``'s up to one constant (spread under 1e-10
+    of the largest |logp|) and its gradient to 1e-10, the card's equal to
+    the CPU's (1e-12); K2 around it against its plain version over one
+    frozen ``PYMC_PARITY_DRAWS``-draw chunk, the log density captured
+    (``_stan_k2_frozen``).  Then ``sample()`` at the main path's
+    configuration (2048 chains x (300 + ``PYMC_DRAWS``), pooled, seed 42,
+    float32), K1's and K2's counts set to 0 just before: K1 never, K2 with
+    graph replays.  Draws finite, max split R-hat below 1.05, each
+    monitored column's mean within ``PYMC_MCSE`` combined MCSE of the main
+    phase's K1 trace.  Prints logp+grad ms a call by graph replays beside
+    ``nt.models.radon()``'s, and the wall's split (K2 by the device time
+    the stan phase measured at the same shapes)."""
+    import numpy as np
+    import torch
+
+    import nutpie_tpu_torch as nt
+    from nutpie_tpu_torch.sample import chunk_length
+    from nutpie_tpu_torch.sampler.megakernel import chunk_kernel
+    from nutpie_tpu_torch.sampler.step_kernel import step_kernel
+    from nutpie_tpu_torch.settings import NutsSettings
+
+    t_phase = time.perf_counter()
+    fake = _torch_fake_pymc()
+    compiled = nt.compile_pymc_model(fake.radon_model()[0])
+    model = compiled._make_model(0)
+    ref = nt.models.radon()
+    assert model.ndim == ref.ndim == 173, (model.ndim, ref.ndim)
+    failed: list = []
+    x_host = np.random.default_rng(9).normal(size=(PYMC_PARITY_CHAINS, model.ndim)) * 0.3
+    x = torch.as_tensor(x_host, device=DEVICE)
+    lp, gp = model.logp_and_grad(x)
+    lr, gr = ref.logp_and_grad(x)
+    lc, gc_ = model.logp_and_grad(torch.as_tensor(x_host))
+    offset = (lp - lr).cpu().numpy()
+    parity = {"logp_offset": float(offset.mean()),
+              "offset_spread": float(offset.max() - offset.min()),
+              "offset_spread_rel": float((offset.max() - offset.min())
+                                         / lr.abs().max().item()),
+              "grad_max_rel_err": max_rel(gp, gr),
+              "card_vs_cpu_logp_max_rel": max_rel(lp.cpu(), lc),
+              "card_vs_cpu_grad_max_rel": max_rel(gp.cpu(), gc_)}
+    if not (parity["offset_spread_rel"] < 1e-10 and parity["grad_max_rel_err"] < 1e-10
+            and parity["card_vs_cpu_logp_max_rel"] < 1e-12
+            and parity["card_vs_cpu_grad_max_rel"] < 1e-12):
+        failed.append(f"pymc radon parity: {parity}")
+    parity["k2_frozen"] = _stan_k2_frozen(failed, "pymc radon K2 frozen chunk", model, 31,
+                                          PYMC_PARITY_DRAWS)
+    parity_s = time.perf_counter() - t_phase
+
+    torch.cuda.synchronize()
+    _zero_counts(step_kernel, chunk_kernel)
+    t0 = time.perf_counter()
+    raw = nt.sample(compiled, progress_bar=False, chains=CHAINS, tune=TUNE, draws=PYMC_DRAWS,
+                    seed=42, pool_mass_matrix=True, pool_step_size=True, device="cuda",
+                    return_raw_trace=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = chunk_kernel.launches, step_kernel.launches
+    graphs = {"graph_replays": step_kernel.replays, "capture_s": step_kernel.capture_s}
+    assert k1 == 0, f"K1 launched {k1} times on a PyMC model"
+    assert k2 > 0 and graphs["graph_replays"] > 0, f"K2 {k2} launches, {graphs}"
+    pos = raw["position"]
+    assert pos.shape == (CHAINS, TUNE + PYMC_DRAWS, model.ndim), pos.shape
+    assert np.isfinite(pos).all(), "non-finite draws"
+    grads = int(raw["stats"]["n_steps"].astype(np.int64).sum())
+    post = pos[:, TUNE:, :]
+    ess, rhat = column_diagnostics(post, MONITORED)
+    min_ess = float(np.min(ess))
+    if max(rhat) >= 1.05:
+        failed.append(f"split R-hat {max(rhat)} on a monitored column")
+    k1_post, k1_ess = ctx["main_raw"]["position"][:, TUNE:, :], ctx["main_ess"]
+    worst = 0.0
+    for c, e_p, e_k in zip(MONITORED, ess, k1_ess):
+        se = math.hypot(post[:, :, c].std() / math.sqrt(e_p),
+                        k1_post[:, :, c].std() / math.sqrt(e_k))
+        worst = max(worst, abs(float(post[:, :, c].mean() - k1_post[:, :, c].mean())) / se)
+    if worst >= PYMC_MCSE:
+        failed.append(f"a posterior mean {worst:.2f} combined MCSE from K1's")
+    expanded = {name: list(v.shape[2:]) for name, v in raw["expanded"].items()}
+
+    xt = torch.as_tensor(post[:, -1, :], device=DEVICE)
+    pymc_ms = _logp_graph_ms(model, xt)
+    radon_ms = _logp_graph_ms(ref, xt)
+    settings = NutsSettings.Diag(42)
+    settings.update(num_chains=CHAINS, num_tune=TUNE, num_draws=PYMC_DRAWS)
+    chunk_len = chunk_length(settings, CHAINS, model.ndim, 4)
+    steps = k2 - math.ceil((TUNE + PYMC_DRAWS) / chunk_len)
+    k2_dev = ctx["stan_k2"]["device_ms"]
+    split = {"machine_steps": steps, "logp_grad_s": steps * pymc_ms / 1e3,
+             "k2_s": steps * k2_dev / 1e3 if k2_dev is not None else None,
+             "capture_s": graphs["capture_s"],
+             "timed": "logp+grad by CUDA events over graph replays, K2 by the device time "
+                      "the stan phase measured at the same shapes (2048 chains, dim 173, "
+                      "float32)"}
+    split["rest_s"] = wall - split["logp_grad_s"] - (split["k2_s"] or 0.0) - split["capture_s"]
+    split["shares"] = {k: None if split[k] is None else split[k] / wall
+                       for k in ("logp_grad_s", "k2_s", "capture_s", "rest_s")}
+    ctx["pymc_k2"] = {"launches": k2, **graphs, "logp_grad_ms": pymc_ms,
+                      "radon_logp_grad_ms": radon_ms,
+                      "max_abs_err": parity["k2_frozen"]["max_abs_err_position"]}
+    emit({"phase": "pymc", "chains": CHAINS, "tune": TUNE, "draws": PYMC_DRAWS,
+          "dtype": "float32", "parity_f64": parity, "parity_s": parity_s,
+          "k1_launches": k1, "k2_launches": k2, **graphs, "wall_s": wall, "gradients": grads,
+          "grads_per_s": grads / wall, "min_bulk_ess": min_ess, "min_ess_per_s": min_ess / wall,
+          "max_rhat": float(max(rhat)),
+          "posterior_divergences": int(raw["stats"]["diverging"][:, TUNE:].sum()),
+          "max_mean_gap_mcse_vs_k1": worst, "mcse_bar": PYMC_MCSE,
+          "expanded_shapes": expanded,
+          "logp_grad_ms_per_call": {"pymc_radon": pymc_ms, "radon_model": radon_ms,
+                                    "ratio": pymc_ms / radon_ms, "chains": CHAINS,
+                                    "timed": "CUDA events over graph replays"},
+          "chunk_len": chunk_len, "split_of_wall": split,
+          "seconds": time.perf_counter() - t_phase, "card": ctx["card"], "failed": failed})
+    assert not failed, failed
+
+
 def _free_port() -> int:
     import socket
 
@@ -5674,14 +6233,23 @@ PHASES = {
     "stan": phase_stan,
     "stan_functionals_parity": phase_stan_functionals_parity,
     "stan_ode": phase_stan_ode,
+    "stan_ode_mclmc": phase_stan_ode_mclmc,
+    "stan_ode_flow": phase_stan_ode_flow,
+    "pymc": phase_pymc,
     "profile": phase_profile,
 }
+# the phases of the case study under MCLMC and flow and of the PyMC
+# frontend, and the budgets of their seconds and of the script's, printed
+# beside them (readings: the run's limit is 1200 s, and a slower host takes
+# about 1.16 times as long)
+NEW_PHASES = ("stan_ode_mclmc", "stan_ode_flow", "pymc")
+NEW_PHASES_BUDGET_S, TOTAL_BUDGET_S = 50, 1000
 # phases whose results a later phase reads
 NEEDS = {"timing": ("warmup",), "micro": ("step_parity",),
          "step_timing": ("step_parity", "lowrank_parity", "micro"),
          "options_parity": ("warmup", "step_parity"), "options": ("main", "options_parity", "warmup", "step_parity"),
          "control": ("main", "glm"), "flow": ("flow_parity",), "stan": ("main", "warmup"),
-         "distributed": ("main",)}
+         "distributed": ("main",), "pymc": ("main", "warmup", "stan")}
 
 
 def main() -> int:
@@ -5736,7 +6304,11 @@ def main() -> int:
             memory[name].append(round(torch.cuda.memory_reserved() / 2**30, 2))
     finally:
         _stop_step_builds()
+    new = [p for p in NEW_PHASES if p in seconds]
     emit({"phase_seconds": seconds, "total_s": round(time.perf_counter() - start, 1),
+          "total_budget_s": TOTAL_BUDGET_S, "new_phases": new,
+          "new_phases_s": round(sum(seconds[p] for p in new), 1),
+          "new_phases_budget_s": NEW_PHASES_BUDGET_S,
           "reserved_gib_after_phase": memory})
     if failed:
         print(f"chip_smoke: failed phases {failed}; no result line", file=sys.stderr)
@@ -5854,6 +6426,38 @@ def main() -> int:
                 "library_ms": None,
                 "parity": "ok",
             },
+            "stan_lotka_volterra_flow": {
+                "shapes": f"{LV_FLOW_CHAINS} chains, dim 8, float32 (K2 under its fixed "
+                          "metric around the case study's pulled-back log density, called "
+                          "eagerly between launches)",
+                **{k: v for k, v in ctx["lv_k2_flow"].items() if k != "float32"},
+                "timed_at": f"{LV_FLOW_CHAINS} chains, dim 8, float32, a 1-draw frozen chunk "
+                            "of a fresh fleet under seeded flows, trees to depth "
+                            f"{LV_FLOW_MAXDEPTH}",
+                "float32_shares": ctx["lv_k2_flow"]["float32"],
+                "float32_shares_at": "the same chunk as timed_at, through the runner's eager "
+                                     "route",
+                "max_abs_err_at": "the same chunk, float32",
+                "library_ms": None,
+                "parity": "ok",
+            },
+            "pymc_radon": {
+                "shapes": f"{CHAINS} chains, dim 173, float32 (radon as a PyMC model, lowered "
+                          "by the PyTorch linker's stand-in, in the runner's graphs)",
+                **ctx["pymc_k2"],
+                "max_abs_err_at": f"{STAN_PARITY_CHAINS} chains, dim 173, float64, a "
+                                  f"{PYMC_PARITY_DRAWS}-draw frozen chunk of a fresh fleet, "
+                                  f"trees to depth {STAN_PARITY_MAXDEPTH}",
+                "ms": ctx["stan_k2"]["ms"],
+                "device_ms": ctx["stan_k2"]["device_ms"],
+                "plain_ms": ctx["stan_k2"]["plain_ms"],
+                "bound_ms": ctx["stan_k2"]["bound_ms"],
+                "bound_by": ctx["stan_k2"]["bound_by"],
+                "timed_at": "the stan phase's chunk at the same shapes and form (K2's "
+                            "advance reads the log density's outputs, not its code)",
+                "library_ms": None,
+                "parity": "ok",
+            },
             "microcanonical": {
                 "shapes": f"{GLM_CHAINS} chains, dim {GLM_DIM}, float32 (the GLM)",
                 "launches": ctx["micro_launches"],
@@ -5898,6 +6502,19 @@ def main() -> int:
                 "library_device_ms": ctx["mclmc_lr"]["library_device_ms_per_step"],
                 "library": "two torch.bmm per metric application, three applications a "
                            "step (the metric part only)",
+                "parity": "ok",
+            },
+            "stan_lotka_volterra": {
+                "shapes": f"{LV_MCLMC_CHAINS} chains, dim 8, float32 (the case study's log "
+                          "density called eagerly between the kick and the settle)",
+                **{k: v for k, v in ctx["lv_k3"].items() if k != "float32"},
+                "timed_at": f"{LV_MCLMC_CHAINS} chains, dim 8, float32, a {LV_K3_DRAWS}-draw "
+                            "frozen chunk of a fresh fleet",
+                "float32_shares": ctx["lv_k3"]["float32"],
+                "float32_shares_at": "the same chunk as timed_at, through the runner's eager "
+                                     "route",
+                "max_abs_err_at": "the same chunk, float32",
+                "library_ms": None,
                 "parity": "ok",
             },
             "fixed_metric": {

@@ -17,8 +17,10 @@ package) and every functional of the JAX package: ``reduce_sum``,
 ``map_rect``, ``integrate_1d``, the ODE solvers with their adjoint, the
 DAE solvers and the algebraic solvers (``functionals.py``).  A log
 density that calls an ODE, DAE or algebraic solver loops until the data
-say stop, so the step runner calls it eagerly around K2 (the model's
-``eager_logp``).  Unsupported constructs raise ``StanCompileError`` at
+say stop, so the runners call it eagerly around their kernels instead of
+replaying a CUDA graph (the model's ``eager_logp``): the step runner
+around K2 under NUTS, the MCLMC runner around K3, with or without flow
+adaptation.  Unsupported constructs raise ``StanCompileError`` at
 compile time with a source location.
 
 API parity: ``compile_stan_model(code=..., filename=...)`` and

@@ -52,8 +52,9 @@ class CompiledStanModel(CompiledModel):
     transforms and yields batched torch logp/expand functions.  A program
     whose log density calls a solver that loops until the data say stop
     (an ODE, DAE or algebraic solver: ``functionals.solver_calls``) gets a
-    model marked ``eager_logp``, which the step runner calls eagerly
-    around K2 instead of capturing it in a CUDA graph.
+    model marked ``eager_logp``, which the runners call eagerly around
+    their kernels (K2 under NUTS, K3 under MCLMC, with or without flow)
+    instead of capturing it in a CUDA graph.
     """
 
     code: str = ""

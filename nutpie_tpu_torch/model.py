@@ -62,7 +62,7 @@ class ModelDef:
         The log density reads the device to decide when to stop (a Stan
         program's ODE, DAE or algebraic solver), so no CUDA graph can hold
         it: the step runner calls it eagerly around K2 on the card, and
-        the runners that capture it (MCLMC, flow adaptation) refuse it.
+        the MCLMC runner around K3, under flow adaptation too.
     """
 
     ndim: int

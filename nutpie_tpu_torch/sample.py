@@ -67,7 +67,6 @@ from .progress import ChainProgress, make_progress_handlers
 from .sampler import megakernel, step_kernel
 from .sampler.adapt import AdaptConfig, make_schedule
 from .sampler.megakernel import make_megakernel_chunk_runner
-from .sampler.run import eager_unsupported
 from .sampler.mclmc import (
     MCLMC_SCALAR_SLOTS,
     MclmcConfig,
@@ -466,12 +465,9 @@ def route(cfg, model: ModelDef) -> str:
     for whichever kernel the configuration would take).  Flow adaptation
     takes ``"step"`` (K2 around the pulled-back log density) or, under
     MCLMC, ``"mclmc"``.  A model whose log density runs eagerly
-    (``ModelDef.eager_logp``) takes ``"step"`` under NUTS without flow;
-    MCLMC and flow adaptation capture it, and refuse it
-    (``eager_unsupported``)."""
-    why = eager_unsupported(cfg, model)
-    if why is not None:
-        raise NotImplementedError(why)
+    (``ModelDef.eager_logp``) takes the same routes, ``"step"`` under NUTS
+    and ``"mclmc"`` under MCLMC, with or without flow: each runner then
+    calls it between its kernel's launches instead of replaying a graph."""
     if isinstance(cfg, MclmcConfig):
         return "mclmc"
     why = step_kernel.unsupported(cfg)

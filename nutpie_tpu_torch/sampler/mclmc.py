@@ -553,9 +553,16 @@ class MclmcChunkRunner:
     densities with their autograd and the launches, are captured once per
     chunk in a CUDA graph and replayed ``limit`` times (the draw counter is
     the state's, on the device).  A log density that cannot be captured
-    raises.  Under flow adaptation the log density is the pulled-back one
-    under the chunk's flows (its own copy of the state's flow fields, read
-    by the graph by address), and the chunk ends with the flow update of
+    raises.  A model marked ``eager_logp`` (its log density decides on the
+    device when to stop, as a Stan program's ODE solver does) takes the
+    eager route instead, decided before anything runs: the same K3
+    launches, ``kick`` and ``settle`` with the log density called between
+    them, one draw after another ``limit`` times; K3 reads the draw
+    counter from the state on the device either way, so the eager loop
+    draws the refresh normals the replays draw.  Under flow adaptation the
+    log density is the pulled-back one under the chunk's flows (its own
+    copy of the state's flow fields, read by the graph by address), on
+    either route, and the chunk ends with the flow update of
     warmup chunks and the draws' conversion to model space through the
     flows that drew them.  ``plain=True`` runs the plain version on any device (the
     comparisons on the card use it), with the chunk's normals from
@@ -564,11 +571,6 @@ class MclmcChunkRunner:
 
     def __init__(self, model: ModelDef, cfg: MclmcConfig, chunk_len: int, dtype,
                  plain: bool = False):
-        from .run import eager_unsupported
-
-        why = eager_unsupported(cfg, model)
-        if why is not None:
-            raise NotImplementedError(why)
         self.model = model
         self.cfg = cfg
         self.chunk_len = chunk_len
@@ -602,7 +604,7 @@ class MclmcChunkRunner:
                 logp, g = logp_and_grad(z_)
                 z_ = steps.settle(states, z_, logp, g)
 
-        if isinstance(steps, KernelMclmcSteps):
+        if isinstance(steps, KernelMclmcSteps) and not model.eager_logp:
             graph = self._capture(steps, z, one_draw, logp_and_grad)
             for _ in range(limit):
                 graph.replay()
@@ -674,10 +676,13 @@ def make_mclmc_chunk_runner(model: ModelDef, cfg: MclmcConfig, chunk_len: int, d
 
 def init_mclmc_chains(model: ModelDef, cfg: MclmcConfig, seed: int, n_chains: int,
                       init_mean, dtype, device="cpu", num_try_init: int = 100,
-                      mesh=None):
+                      mesh=None, step_search: bool = True):
     """Positions from the NUTS init search (``run.init_chains``, with its
-    step search and init-quality retry), then the MCLMC state: a unit
-    velocity from ``normal(fold_in(key, 5))``, the gradient-based initial
+    step search and init-quality retry, unless ``step_search`` is False;
+    the search's probes of a chain whose outcome is decided evaluate at its
+    start, so a chain at a solver's cap stops holding the fleet there),
+    then the MCLMC state: a unit velocity from ``normal(fold_in(key,
+    5))``, the gradient-based initial
     inverse mass, ``log(step_size)``, empty Welford windows, under
     low-rank adaptation the identity metric, and under flow adaptation an
     identity inverse mass with each chain's initial flow and empty window
@@ -688,7 +693,8 @@ def init_mclmc_chains(model: ModelDef, cfg: MclmcConfig, seed: int, n_chains: in
 
     nuts_states, ok = init_chains(model, NutsConfig(adapt=cfg.adapt), seed, n_chains,
                                   init_mean, dtype, device=device,
-                                  num_try_init=num_try_init, mesh=mesh)
+                                  num_try_init=num_try_init, mesh=mesh,
+                                  step_search=step_search)
     key = nuts_states.key
     pos, grad, logp = nuts_states.position, nuts_states.gradient, nuts_states.logp
     C, dim = pos.shape

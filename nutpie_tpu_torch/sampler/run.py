@@ -423,27 +423,6 @@ def pool_chunk_start(states: NutsMachineState, pool_mass_matrix: bool,
     return states.replace(adapt_vecs=adapt_vecs[rows], adapt_flts=adapt_flts[rows])
 
 
-# the ROADMAP item that ports the eager forms of the captured runners
-EAGER_ITEM = "Solver-bearing Stan models under MCLMC and flow"
-
-
-def eager_unsupported(cfg, model: ModelDef) -> Optional[str]:
-    """Why no runner takes this eager log density under ``cfg``, or None:
-    MCLMC's draw and flow's Adam step are captured in CUDA graphs, which a
-    log density that reads the device to stop (``ModelDef.eager_logp``)
-    cannot join."""
-    if not model.eager_logp:
-        return None
-    if getattr(cfg, "flow", None) is not None:
-        what = "flow adaptation"
-    elif not isinstance(cfg, NutsConfig):
-        what = "MCLMC"
-    else:
-        return None
-    return (f"{what} does not take a log density that runs eagerly (a Stan program's "
-            f"ODE, DAE or algebraic solver) yet: ROADMAP queue 1, \"{EAGER_ITEM}\"")
-
-
 class StepChunkRunner:
     """``run_chunk(states, chunk_start, limit, sched) -> (states, bufs)``.
 
@@ -468,18 +447,17 @@ class StepChunkRunner:
     model marked ``eager_logp`` (its log density decides on the device
     when to stop, as a Stan program's ODE solver does) takes the eager
     route instead, decided before anything runs: the same K2 launches,
-    with the log density called between them.  ``plain=True`` runs the
-    kernel's plain version, step by step, on any device (the comparisons
-    on the card use it).
+    with the log density called between them, under flow adaptation too
+    (the pulled-back log density calls the model's eagerly, and the flow's
+    training at the chunk's end never calls the model).  ``plain=True``
+    runs the kernel's plain version, step by step, on any device (the
+    comparisons on the card use it).
     """
 
     def __init__(self, model: ModelDef, cfg: NutsConfig, chunk_len: int, dtype,
                  pool_mass_matrix: bool = False, unroll=None,
                  adapt_frozen: bool = False, pool_step_size: bool = False,
                  plain: bool = False, mesh: Optional[ChainMesh] = None):
-        why = eager_unsupported(cfg, model)
-        if why is not None:
-            raise NotImplementedError(why)
         self.model = model
         self.cfg = cfg
         self.chunk_len = chunk_len

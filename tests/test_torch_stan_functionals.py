@@ -15,14 +15,15 @@ at different attempts equals each chain run alone, bit for bit.  A 2-chain
 frozen chunk of the case study through the port's step runner (its plain
 version) matches the JAX runner.  ``dae``'s clamp of the substeps warns,
 and ``max_num_steps`` stays a compile error.  The route: a program that
-calls a solver is marked ``eager_logp`` before anything runs (MCLMC and
-flow refuse it); ``integrate_1d`` alone keeps the graph route.
+calls a solver is marked ``eager_logp`` before anything runs and takes
+the step route under NUTS, with or without flow, and the MCLMC route
+under MCLMC, with or without flow (each runner calls it eagerly between
+its kernel's launches); ``integrate_1d`` alone keeps the graph route.
 
 vmap's per-example fallback warning is an error here.
 """
 
 import dataclasses
-import re
 import warnings
 
 import jax
@@ -44,7 +45,7 @@ from nutpie_tpu_torch.frontends.stan import functionals as F
 from nutpie_tpu_torch.sample import _make_settings, config_from_settings, route
 from nutpie_tpu_torch.sampler.adapt import AdaptConfig, make_schedule
 from nutpie_tpu_torch.sampler.nuts import NutsConfig
-from nutpie_tpu_torch.sampler.run import EAGER_ITEM, make_chunk_runner
+from nutpie_tpu_torch.sampler.run import make_chunk_runner
 from torch_parity import assert_state_close, jax_state_arrays
 from torch_stan_programs import (
     _INTEGRATE,
@@ -225,18 +226,18 @@ def test_lotka_volterra_frozen_chunk_matches_the_jax_runner(lotka_volterra):
 
 def test_the_route_is_decided_before_anything_runs():
     """Every looping functional marks the model; ``integrate_1d`` does not.
-    A marked model takes the step route under NUTS, and MCLMC and flow
-    adaptation refuse it, naming the ROADMAP item."""
+    A marked model takes the step route under NUTS, with or without flow
+    adaptation, and the MCLMC route under MCLMC, with or without flow."""
     for name, (code, data) in FUNCTIONAL_CASES.items():
         model = nt.compile_stan_model(code).with_data(**data())._make_model(0)
         assert model.eager_logp == (name != "integrate_1d"), name
     code, data = FUNCTIONAL_CASES["solve_newton"]
     model = nt.compile_stan_model(code).with_data(**data())._make_model(0)
     assert route(NutsConfig(), model) == "step"
-    for sampler, adaptation in (("mclmc", "diag"), ("nuts", "flow"), ("mclmc", "flow")):
+    for sampler, adaptation, want in (("mclmc", "diag", "mclmc"), ("nuts", "flow", "step"),
+                                      ("mclmc", "flow", "mclmc")):
         cfg = config_from_settings(_make_settings(sampler, adaptation, 0))
-        with pytest.raises(NotImplementedError, match=re.escape(EAGER_ITEM)):
-            route(cfg, model)
+        assert route(cfg, model) == want, (sampler, adaptation)
     # a solver called only from generated quantities leaves the log density capturable
     gq = ("functions { vector sys(vector y, real a) { return [y[1] - a]'; } }\n"
           "parameters { real a; } model { a ~ normal(0, 1); }\n"
